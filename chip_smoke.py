@@ -5,19 +5,31 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 drives the port's main path on one card:
 
   device   the card's name and power limit, the torch version, the build
-  kernel   each kernel (K1 chunk sort, K2 partition merge, K3 fused
-           bucket, both K3 routes) at the main path's shapes, held bit for
-           bit against its plain torch version on the same card inputs,
-           with its time, the plain version's time and its bound
-  spgemm   ``spgemm(A, A, engine="spz")`` on the 13 Table III stand-ins
-           and the three SuiteSparse-scale ones, with every launch
-           counter set to 0 before and read after; then each result held
-           bit-identical (CSR and SpzStats) against the same call with
-           ``backend="torch"`` on the card and structure-identical
-           against the scl-array oracle
-  kernels  every ported kernel and its launches on the spgemm phase
-  profile  host wall clock vs device kernel time of one call on the two
-           SuiteSparse-scale fused-route matrices (torch.profiler)
+  kernel   each kernel (K1 chunk sort, K2 partition merge — also on one
+           row of 2^20 slots, past a block's shared memory — K3 fused
+           bucket on both routes, K4 stream sort, K5 stream merge) at the
+           main paths' shapes, held bit for bit against its plain torch
+           version on the same card inputs, with its time, the plain
+           version's time and its bound
+  spgemm   the fused path: ``spgemm(A, A, engine="spz")`` on the 13 Table
+           III stand-ins, the three SuiteSparse-scale ones and
+           dense-row-full, with every launch counter set to 0 before and
+           read after; then each result held bit-identical (CSR and
+           SpzStats) against the same call with ``backend="torch"`` on the
+           card and structure-identical against the scl-array oracle
+  host     the host-driver path: ``engine="spz-host"`` on the same 16
+           matrices, counters set to 0 before and read after; every call
+           launches K4 exactly n_mssort and K5 exactly n_mszip times; held
+           against ``backend="torch"`` on the card (stand-ins: CSR and six
+           counters) and against the fused result (CSR and four counters)
+  engines  ``esc`` on the 16 matrices (bit for bit against the port's CPU
+           esc on the stand-ins, against scl-array everywhere) and
+           ``scl-hash`` on the stand-ins against scl-array
+  kernels  every ported kernel and its launches on its path's run
+  profile  host wall clock vs device kernel time of one spz call on the
+           two SuiteSparse-scale fused-route matrices and of one spz-host
+           call on cage11-full, with its waits for the card per issue
+           (torch.profiler)
 
 It imports nothing of JAX.  The line before the last is the JSON kernel
 table; the last line is ``{"ok": true, "device": {...}}``, printed only
@@ -127,8 +139,9 @@ def phase_device(torch, build):
     return name
 
 
-def _sorted_partitions(np, rng, N, L, key_hi):
-    lens = rng.integers(L // 2, L + 1, N).astype(np.int32)
+def _sorted_partitions(np, rng, N, L, key_hi, max_len=None):
+    hi = min(L, max_len or L)
+    lens = rng.integers(hi // 2, hi + 1, N).astype(np.int32)
     keys = np.full((N, L), 2**31 - 1, np.int32)
     vals = np.zeros((N, L), np.float32)
     for s in range(N):
@@ -151,6 +164,8 @@ def phase_kernel(torch, np):
     from repro_torch.kernels import chunk_sort as k1
     from repro_torch.kernels import fused_bucket as k3
     from repro_torch.kernels import merge_partitions as k2
+    from repro_torch.kernels import stream_merge as k5
+    from repro_torch.kernels import stream_sort as k4
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -236,6 +251,69 @@ def phase_kernel(torch, np):
                 keys, vals, plens, R=R, detailed=True), reps=10, warmup=1),
             bound_ms=b, bound_by=by, library_ms=None,
             shape=f"S={S} L={L} R={R}")
+    # K2 on one row of La + Lb = 2^20 slots: its bits and prefixes live
+    # in device memory.  Lengths as dense-row-full's row 0 has (<= 39,082
+    # uniques a side), so the plain advance loop stays short.
+    L = 2**19
+    args = cuda(*_sorted_partitions(np, rng, 1, L, 3 * L, max_len=39082),
+                *_sorted_partitions(np, rng, 1, L, 3 * L, max_len=39082))
+    got = k2.merge_partitions(*args, R=R)
+    want = k2.merge_partitions_plain(*args, R=R)
+    err = max_abs_err(torch, got[:3], want[:3])
+    if [int(x) for x in got[3]] != [int(x) for x in want[3]]:
+        raise AssertionError(f"K2 long-row counters {got[3]} != {want[3]}")
+    adds = int(args[2].sum() + args[5].sum() - got[2].sum())
+    b, by = bound_ms(nbytes(*args, *got[:3]) + 16, adds)
+    outs = [torch.empty_like(t) for t in got[:3]]
+    cnt = torch.zeros((4, 1), dtype=torch.int32, device=dev)
+    rows["merge_partitions.long"] = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: k2.launch(*args, R, True, *outs, cnt),
+                   reps=5, warmup=1),
+        wrapper_ms=time_ms(torch, lambda: k2.merge_partitions(*args, R=R),
+                           reps=5, warmup=1),
+        plain_ms=time_ms(torch, lambda: k2.merge_partitions_plain(
+            *args, R=R), reps=2, warmup=0),
+        bound_ms=b, bound_by=by, library_ms=None,
+        shape=f"N=1 La=Lb={L}")
+
+    # K4: one host-driver front, S = 512 streams of R = 16 products
+    keys, vals, plens = cuda(*_bucket(np, rng, 512, R, cols))
+    got = k4.stream_sort(keys, vals, plens)
+    want = k4.stream_sort_plain(keys, vals, plens)
+    err = max_abs_err(torch, got, want)
+    b, by = bound_ms(nbytes(keys, vals, plens, *got), int(plens.sum()))
+    outs = [torch.empty_like(t) for t in got]
+    rows["stream_sort"] = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: k4.launch(keys, vals, plens, *outs),
+                   reps=50, warmup=5),
+        wrapper_ms=time_ms(torch, lambda: k4.stream_sort(keys, vals, plens),
+                           reps=50, warmup=5),
+        plain_ms=time_ms(torch, lambda: k4.stream_sort_plain(
+            keys, vals, plens), reps=10, warmup=1),
+        bound_ms=b, bound_by=by,
+        library_ms=time_ms(torch, lambda: torch.sort(keys, dim=-1,
+                                                     stable=True),
+                           reps=50, warmup=5),
+        shape=f"S=512 R={R}")
+
+    # K5: two sorted, duplicate-free fronts of S = 512, R = 16
+    args = cuda(*_sorted_partitions(np, rng, 512, R, 4 * R),
+                *_sorted_partitions(np, rng, 512, R, 4 * R))
+    got = k5.stream_merge(*args)
+    want = k5.stream_merge_plain(*args)
+    err = max_abs_err(torch, got, want)
+    b, by = bound_ms(nbytes(*args, *got), int(got[4].sum() + got[5].sum()))
+    outs = [torch.empty_like(t) for t in got]
+    rows["stream_merge"] = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: k5.launch(*args, *outs), reps=50, warmup=5),
+        wrapper_ms=time_ms(torch, lambda: k5.stream_merge(*args), reps=50,
+                           warmup=5),
+        plain_ms=time_ms(torch, lambda: k5.stream_merge_plain(*args),
+                         reps=10, warmup=1),
+        bound_ms=b, bound_by=by, library_ms=None, shape=f"S=512 R={R}")
     for name, r in rows.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"kernel: {name} {r['shape']} bit-exact (max_abs_err "
@@ -245,22 +323,43 @@ def phase_kernel(torch, np):
     return rows
 
 
-def phase_spgemm(torch, np):
-    """The main path on the card, counters zeroed before and read after;
-    then every result held against the torch backend and scl-array."""
-    from repro_torch.core import spgemm, spgemm_engines as sg
+FIELDS = ("n_mssort", "sort_elems", "n_mszip", "zip_elems", "chunk_loads",
+          "chunk_stores")
+
+
+def _csr_equal(np, a, b) -> bool:
+    """Two (indptr, indices, data) triples equal bit for bit."""
+    return (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+            and np.array_equal(a[2].view(np.int32), b[2].view(np.int32)))
+
+
+def _check_oracle(np, name, got, oracle):
+    """Structure identical to scl-array, values within 1e-4."""
+    if not (np.array_equal(got[0], oracle[0])
+            and np.array_equal(got[1], oracle[1])):
+        raise AssertionError(f"{name}: structure differs from scl-array")
+    if not np.allclose(got[2], oracle[2], rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"{name}: values differ from scl-array")
+
+
+def _launched(counts, kernels, path):
+    missing = [k for k in kernels if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"never launched on the {path} path: {missing}")
+
+
+def phase_spgemm(torch, np, mats, oracles):
+    """The fused path on the card, counters zeroed before and read after;
+    then every result held against the torch backend and scl-array.
+    Returns the path's launch counts and each matrix's (CSR, stats)."""
+    from repro_torch.core import spgemm
     from repro_torch.core.formats import csr_to_numpy
     from repro_torch.data import table3
     from repro_torch.kernels import backend as kb
 
-    names = table3.names() + table3.names(full=True)
-    mats = {n: table3.build(n) for n in names}
-    fields = ("n_mssort", "sort_elems", "n_mszip", "zip_elems",
-              "chunk_loads", "chunk_stores")
     results = {}
     kb.reset_launch_counts()
-    for n in names:
-        A = mats[n]
+    for n, A in mats.items():
         before = kb.launch_counts()
         out, st = spgemm(A, A, engine="spz", return_stats=True)
         times = []
@@ -269,57 +368,184 @@ def phase_spgemm(torch, np):
             spgemm(A, A, engine="spz")
             times.append((time.perf_counter() - t0) * 1e3)
         after = kb.launch_counts()
-        delta = {k: (after[k] - before[k]) // 4 for k in after}
-        results[n] = (csr_to_numpy(out), [getattr(st, f) for f in fields])
+        delta = {k: (after[k] - before[k]) // 4 for k in after
+                 if after[k] != before[k]}
+        results[n] = (csr_to_numpy(out), [getattr(st, f) for f in FIELDS])
         log(f"spgemm: {n} {A.shape[0]}x{A.shape[1]} nnz "
             f"{int(A.indptr[-1])} -> {results[n][0][1].size} | ms/call "
             f"{statistics.median(times):.2f} | per call: {delta} | "
-            + " ".join(f"{f}={v}" for f, v in zip(fields, results[n][1])))
+            + " ".join(f"{f}={v}" for f, v in zip(FIELDS, results[n][1])))
     counts = kb.launch_counts()
-    missing = [k for k, v in counts.items() if v == 0]
-    if missing:
-        raise AssertionError(f"never launched on the spgemm phase: {missing}")
-    for n in names:
-        A = mats[n]
-        (ip, ix, dt), stats = results[n]
+    _launched(counts, ("chunk_sort", "merge_partitions", "fused_bucket"),
+              "spz")
+    for n, A in mats.items():
+        csr, stats = results[n]
+        _check_oracle(np, n, csr, oracles[n])
+        if n == table3.LONG_ROW:  # held against scl-array only
+            log(f"spgemm: {n} structure-identical to scl-array, values "
+                f"within 1e-4 (row 0: {int(csr[0][1])} columns)")
+            continue
         ref, st = spgemm(A, A, engine="spz", backend="torch",
                          return_stats=True)
-        rip, rix, rdt = csr_to_numpy(ref)
-        if not (np.array_equal(ip, rip) and np.array_equal(ix, rix)
-                and np.array_equal(dt.view(np.int32), rdt.view(np.int32))):
+        if not _csr_equal(np, csr, csr_to_numpy(ref)):
             raise AssertionError(f"{n}: cuda and torch backends differ")
-        if stats != [getattr(st, f) for f in fields]:
+        if stats != [getattr(st, f) for f in FIELDS]:
             raise AssertionError(f"{n}: SpzStats differ: {stats} vs "
-                                 f"{[getattr(st, f) for f in fields]}")
-        oip, oix, odt = csr_to_numpy(sg.spgemm_scl_array(A, A))
-        if not (np.array_equal(ip, oip) and np.array_equal(ix, oix)):
-            raise AssertionError(f"{n}: structure differs from scl-array")
-        if not np.allclose(dt, odt, rtol=1e-4, atol=1e-4):
-            raise AssertionError(f"{n}: values differ from scl-array")
+                                 f"{[getattr(st, f) for f in FIELDS]}")
         log(f"spgemm: {n} bit-identical to backend='torch' (CSR + SpzStats),"
             f" structure-identical to scl-array, values within 1e-4")
+    return counts, results
+
+
+def phase_host(torch, np, mats, fused):
+    """The host-driver path on the card: every spz-host call launches K4
+    n_mssort and K5 n_mszip times; results held against the torch
+    backend on the card (stand-ins) and the fused path (all)."""
+    from repro_torch.core import spgemm
+    from repro_torch.core.formats import csr_to_numpy
+    from repro_torch.data import table3
+    from repro_torch.kernels import backend as kb
+
+    def call(n, A):
+        """One spz-host call: K4 launched n_mssort and K5 n_mszip times,
+        and nothing else."""
+        before = kb.launch_counts()
+        t0 = time.perf_counter()
+        out, st = spgemm(A, A, engine="spz-host", return_stats=True)
+        ms = (time.perf_counter() - t0) * 1e3
+        after = kb.launch_counts()
+        delta = {k: after[k] - before[k] for k in after}
+        k4, k5 = delta.pop("stream_sort"), delta.pop("stream_merge")
+        if (k4, k5) != (st.n_mssort, st.n_mszip):
+            raise AssertionError(f"{n}: K4/K5 launches {k4}/{k5} != n_mssort"
+                                 f"/n_mszip {st.n_mssort}/{st.n_mszip}")
+        if any(delta.values()):
+            raise AssertionError(f"{n}: spz-host launched {delta}")
+        return out, st, ms, k4, k5
+
+    stand_ins = table3.names()
+    results = {}
+    kb.reset_launch_counts()
+    for n, A in mats.items():
+        if n == table3.LONG_ROW:
+            continue
+        out, st, ms, k4, k5 = call(n, A)
+        timed = ""
+        if n == "cage11-full":
+            times = [call(n, A)[2] for _ in range(3)]
+            timed = (f" | median of 3 warm calls {statistics.median(times):.1f}"
+                     f" ms ({', '.join(f'{t:.1f}' for t in times)})")
+        results[n] = (csr_to_numpy(out), [getattr(st, f) for f in FIELDS])
+        log(f"host: {n} first call {ms:.1f} ms{timed} | K4 {k4} K5 {k5} | "
+            f"t_expand {st.t_expand * 1e3:.1f} t_sort {st.t_sort * 1e3:.1f} "
+            f"t_output {st.t_output * 1e3:.1f} ms | "
+            + " ".join(f"{f}={v}" for f, v in zip(FIELDS, results[n][1])))
+    counts = kb.launch_counts()
+    _launched(counts, ("stream_sort", "stream_merge"), "spz-host")
+    for n, (csr, stats) in results.items():
+        fcsr, fstats = fused[n]
+        if not _csr_equal(np, csr, fcsr) or stats[:4] != fstats[:4]:
+            raise AssertionError(f"{n}: spz-host differs from spz (fused): "
+                                 f"{stats[:4]} vs {fstats[:4]}")
+        if n in stand_ins:
+            ref, st = spgemm(mats[n], mats[n], engine="spz-host",
+                             backend="torch", return_stats=True)
+            if not _csr_equal(np, csr, csr_to_numpy(ref)) \
+                    or stats != [getattr(st, f) for f in FIELDS]:
+                raise AssertionError(f"{n}: spz-host cuda and torch backends "
+                                     f"differ")
+        log(f"host: {n} equal to spz (CSR + 4 counters)"
+            + (", bit-identical to backend='torch' (CSR + 6 counters)"
+               if n in stand_ins else ""))
     return counts
+
+
+def phase_engines(torch, np, mats, oracles):
+    """esc on every matrix (bit for bit against the port's CPU esc on the
+    stand-ins) and scl-hash on the stand-ins, against scl-array."""
+    from repro_torch.core import spgemm
+    from repro_torch.core.formats import csr_to_numpy
+    from repro_torch.data import table3
+
+    stand_ins = table3.names()
+    for n, A in mats.items():
+        t0 = time.perf_counter()
+        got = csr_to_numpy(spgemm(A, A, engine="esc"))
+        ms = (time.perf_counter() - t0) * 1e3
+        _check_oracle(np, f"esc {n}", got, oracles[n])
+        line = f"engines: esc {n} {ms:.1f} ms, matches scl-array"
+        if n in stand_ins:
+            cpu = csr_to_numpy(spgemm(A, A, engine="esc", device="cpu"))
+            if not _csr_equal(np, got, cpu):
+                raise AssertionError(f"esc {n}: card and CPU differ")
+            hashed = csr_to_numpy(spgemm(A, A, engine="scl-hash"))
+            _check_oracle(np, f"scl-hash {n}", hashed, oracles[n])
+            line += "; bit-identical to the CPU esc; scl-hash matches"
+        log(line)
+
+
+def _count_waits(torch, fn):
+    """``fn()`` and the host's waits for the card inside it, counted by
+    PyTorch's sync debug mode (one warning per synchronizing operation).
+    Returns (waits, what fn returned)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing" in str(w.message) for w in caught), out
+
+
+def _rows(A, n_rows):
+    """The first ``n_rows`` rows of a CPU CSR."""
+    from repro_torch.core.formats import csr_from_numpy, csr_to_numpy
+
+    indptr, indices, data = csr_to_numpy(A)
+    nnz = int(indptr[n_rows])
+    return csr_from_numpy(indptr[:n_rows + 1], indices[:nnz], data[:nnz],
+                          (n_rows, A.n_cols))
 
 
 def phase_profile(torch):
     """Where one call's time goes: host wall clock vs device kernel time
-    (torch.profiler), for the two SuiteSparse-scale fused-route matrices.
-    A diagnostic: a profiler that records no device time prints "not
-    measured" instead of failing the run."""
+    (torch.profiler), for one spz call on the two SuiteSparse-scale
+    fused-route matrices, and for spz-host on a steady window of
+    cage11-full (its first 8 groups of 512 rows: a whole call records
+    ~800K events, whose processing alone takes minutes), plus the waits
+    for the card per kernel issue over one whole spz-host call on
+    cage11-full.  A diagnostic: a profiler that records no device time
+    prints "not measured" instead of failing the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import spgemm
     from repro_torch.data import table3
 
-    for n in ("cage11-full", "email-Enron-full"):
-        A = table3.build(n)
-        spgemm(A, A, engine="spz")  # warm
+    A = table3.build("cage11-full")
+    waits, (_, st) = _count_waits(torch, lambda: spgemm(
+        A, A, engine="spz-host", return_stats=True))
+    issues = st.n_mssort + st.n_mszip
+    log(f"profile: cage11-full spz-host: {waits} waits for the card over "
+        f"{issues} kernel issues ({st.n_mssort} K4 + {st.n_mszip} K5): "
+        f"{waits / issues:.3f} per issue" if waits else
+        "profile: cage11-full spz-host: waits per issue not measured (sync "
+        "debug mode reported none)")
+    for n, engine, rows in (("cage11-full", "spz", None),
+                            ("email-Enron-full", "spz", None),
+                            ("cage11-full", "spz-host", 8 * 512)):
+        B = table3.build(n)
+        A = B if rows is None else _rows(B, rows)
+        spgemm(A, B, engine=engine)  # warm
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            spgemm(A, A, engine="spz")
+            spgemm(A, B, engine=engine)
             wall = (time.perf_counter() - t0) * 1e3
         events = prof.key_averages()
 
@@ -330,13 +556,17 @@ def phase_profile(torch):
         kernels = [e for e in events if e.device_type == DeviceType.CUDA
                    and dev_us(e) > 0]
         busy = sum(dev_us(e) for e in kernels) / 1e3
+        if rows is not None:
+            n = f"{n} rows 0-{rows - 1}"
         if not kernels:
-            log(f"profile: {n} wall {wall:.1f} ms under the profiler; device "
-                f"time not measured (no CUDA events recorded)")
+            log(f"profile: {n} {engine} wall {wall:.1f} ms under the "
+                f"profiler; device time not measured (no CUDA events "
+                f"recorded)")
             continue
-        log(f"profile: {n} wall {wall:.1f} ms under the profiler, device "
-            f"kernels {busy:.1f} ms over {sum(e.count for e in kernels)} "
-            f"launches, device idle share {1 - busy / wall:.3f}")
+        log(f"profile: {n} {engine} wall {wall:.1f} ms under the profiler, "
+            f"device kernels {busy:.1f} ms over "
+            f"{sum(e.count for e in kernels)} launches, device idle share "
+            f"{1 - busy / wall:.3f}")
         for e in sorted(kernels, key=dev_us, reverse=True)[:6]:
             log(f"profile:   device {dev_us(e) / 1e3:9.2f} ms x{e.count:6d} "
                 f"{e.key[:90]}")
@@ -345,6 +575,20 @@ def phase_profile(torch):
                         reverse=True)[:6]:
             log(f"profile:   host   {e.self_cpu_time_total / 1e3:9.2f} ms "
                 f"x{e.count:6d} {e.key[:90]}")
+
+
+def phase_inputs(np):
+    """The 16 matrices of the main paths plus dense-row-full, and the
+    scl-array oracle of each (host numpy)."""
+    from repro_torch.core import spgemm_engines as sg
+    from repro_torch.core.formats import csr_to_numpy
+    from repro_torch.data import table3
+
+    names = table3.names() + table3.names(full=True) + [table3.LONG_ROW]
+    mats = {n: table3.build(n) for n in names}
+    oracles = {n: csr_to_numpy(sg.spgemm_scl_array(A, A))
+               for n, A in mats.items()}
+    return mats, oracles
 
 
 def main() -> int:
@@ -358,35 +602,40 @@ def main() -> int:
 
     torch.manual_seed(SEED)
     failed = []
-    name = None
-    rows, counts = {}, {}
-    for label, fn in (("device", lambda: phase_device(torch, _build)),
-                      ("kernel", lambda: phase_kernel(torch, np)),
-                      ("spgemm", lambda: phase_spgemm(torch, np))):
+    res = {}
+    phases = (("device", lambda: phase_device(torch, _build)),
+              ("kernel", lambda: phase_kernel(torch, np)),
+              ("inputs", lambda: phase_inputs(np)),
+              ("spgemm", lambda: phase_spgemm(torch, np, *res["inputs"])),
+              ("host", lambda: phase_host(torch, np, res["inputs"][0],
+                                          res["spgemm"][1])),
+              ("engines", lambda: phase_engines(torch, np, *res["inputs"])))
+    for label, fn in phases:
         t0 = time.perf_counter()
         try:
-            res = fn()
+            res[label] = fn()
         except Exception:
             traceback.print_exc()
             log(f"{label}: FAILED")
             failed.append(label)
-            if label == "device":
-                break
+            if label in ("device", "inputs", "spgemm"):
+                break  # the later phases need what these make
             continue
         log(f"{label}: passed in {time.perf_counter() - t0:.1f} s")
-        if label == "device":
-            name = res
-        elif label == "kernel":
-            rows = res
-        else:
-            counts = res
     if failed:
         log(f"chip_smoke: FAILED phases {failed}")
         return 1
+    t0 = time.perf_counter()
     try:
         phase_profile(torch)
     except Exception as e:  # a diagnostic only: report, do not fail
         log(f"profile: not measured ({type(e).__name__}: {e})")
+    log(f"profile: done in {time.perf_counter() - t0:.1f} s")
+    name, rows = res["device"], res["kernel"]
+    # each kernel's launches on its own path's run
+    counts = {k: v for k, v in res["spgemm"][0].items()
+              if not k.startswith("stream_")}
+    counts.update((k, res["host"][k]) for k in ("stream_sort", "stream_merge"))
     log("kernels: " + ", ".join(f"{k}={v}" for k, v in counts.items()))
     sources = {
         "chunk_sort": ("src/repro_torch/kernels/csrc/chunk_sort.cu",
@@ -395,6 +644,10 @@ def main() -> int:
                              "src/repro/kernels/merge_partitions.py:163"),
         "fused_bucket": ("src/repro_torch/kernels/csrc/fused_bucket.cu",
                          "src/repro/kernels/fused_bucket.py:93"),
+        "stream_sort": ("src/repro_torch/kernels/csrc/stream_sort.cu",
+                        "src/repro/kernels/stream_sort.py:48"),
+        "stream_merge": ("src/repro_torch/kernels/csrc/stream_merge.cu",
+                         "src/repro/kernels/stream_merge.py:69"),
     }
     table = []
     for key, r in rows.items():

@@ -72,6 +72,12 @@ def available_engines() -> dict[str, EngineSpec]:
 register_engine("scl-array",
                 lambda A, B, *, device: sg.spgemm_scl_array(A, B).to(device),
                 description="scalar row loop, dense accumulator row (oracle)")
+register_engine("scl-hash",
+                lambda A, B, *, device: sg.spgemm_scl_hash(A, B,
+                                                           device=device),
+                description="scalar row loop, hash-style unique/accumulate")
+register_engine("esc", lambda A, B, **kw: sg.spgemm_esc(A, B, **kw),
+                description="vectorized Expand-Sort-Compress (vec-radix)")
 register_engine("spz", lambda A, B, **kw: sg.spgemm_spz(A, B, **kw),
                 returns_stats=True, backend_aware=True,
                 description="SparseZipper chunked stream sort + zip-merge "
@@ -81,6 +87,11 @@ register_engine("spz-fused",
                 returns_stats=True, backend_aware=True,
                 description="spz with the device-resident fused driver "
                             "pinned")
+register_engine("spz-host",
+                lambda A, B, **kw: sg.spgemm_spz(A, B, driver="host", **kw),
+                returns_stats=True, backend_aware=True,
+                description="spz with the lock-step host driver (one K4/K5 "
+                            "kernel issue per chunk; the Fig. 9-11 path)")
 register_engine("spz-rsort",
                 lambda A, B, **kw: sg.spgemm_spz(A, B, rsort=True, **kw),
                 returns_stats=True, backend_aware=True,

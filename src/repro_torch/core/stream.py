@@ -1,20 +1,39 @@
-"""Key-value stream API over the zipper kernels (device tier).
+"""Key-value stream API over the zipper kernels.
 
-Port of the device tier of ``repro.core.stream``.  A *stream* is a
-sequence of (key, value) tuples — in SpGEMM, the expanded partial
-products of one output row.  SparseZipper processes R-wide chunks of up
-to S streams in lock step; these functions keep the whole lock-step
-merge tree on the device and return the instruction counters as device
-tensors, so ``SpzStats`` stays exact without a host round trip per
-bucket.
+Port of ``repro.core.stream``.  A *stream* is a sequence of (key, value)
+tuples — in SpGEMM, the expanded partial products of one output row.
+SparseZipper processes R-wide chunks of up to S streams in lock step.
+Two tiers:
+
+  * the **host tier** (``sort_chunks``/``merge_chunks`` plus the numpy
+    helpers ``gather_chunk_fronts``/``scatter_chunk_outputs``, the
+    mlxe.t / msxe.t analogues) issues one (S, R) kernel at a time — the
+    spz host driver's per-instruction path;
+  * the **device tier** (``merge_partitions``, ``chunk_sort_partitions``,
+    ``fused_sort_merge``) keeps the whole lock-step merge tree on the
+    device and returns the instruction counters as device tensors, so
+    ``SpzStats`` stays exact without a host round trip per bucket.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import backend as kb
 from repro_torch.kernels import ops
 from repro_torch.kernels.chunk_sort import chunk_lens
+from repro_torch.kernels.merge_tree import EMPTY
+
+
+def sort_chunks(keys, vals, lens, *, backend="auto", cap_s=None):
+    """mssortk+mssortv over S lock-step streams: one (S, R) front."""
+    return ops.stream_sort(keys, vals, lens, backend=backend, cap_s=cap_s)
+
+
+def merge_chunks(ka, va, la, kb_, vb, lb, *, backend="auto", cap_s=None):
+    """mszipk+mszipv over S lock-step streams: two (S, R) fronts."""
+    return ops.stream_merge(ka, va, la, kb_, vb, lb, backend=backend,
+                            cap_s=cap_s)
 
 
 def merge_partitions(ka, va, la, kb_, vb, lb, *, R=16, pair_streams=None,
@@ -64,3 +83,37 @@ def fused_sort_merge(keys, vals, plens, *, R, backend="auto",
     bk = kb.resolve_backend(backend, keys.device)
     return bk.fused_bucket(keys, vals, plens.to(torch.int32), R=R,
                            with_counters=with_counters, detailed=detailed)
+
+
+def gather_chunk_fronts(parts_k, parts_v, ptrs, R):
+    """Build an (S, R) chunk front from ragged numpy partitions.
+
+    parts_k/parts_v: per-stream numpy arrays; ptrs: per-stream read
+    offsets.  Returns (keys, vals, lens) numpy arrays — the mlxe.t
+    analogue."""
+    S = len(parts_k)
+    keys = np.full((S, R), EMPTY, np.int32)
+    vals = np.zeros((S, R), np.float32)
+    lens = np.zeros(S, np.int32)
+    for s in range(S):
+        k = parts_k[s]
+        p = int(ptrs[s])
+        n = min(R, len(k) - p)
+        if n > 0:
+            keys[s, :n] = k[p:p + n]
+            vals[s, :n] = parts_v[s][p:p + n]
+            lens[s] = n
+    return keys, vals, lens
+
+
+def scatter_chunk_outputs(out_k, out_v, dst_k, dst_v, dst_ptrs, out_lens):
+    """Append per-stream valid outputs to destination buffers — the msxe.t
+    analogue.  out_k/out_v: (S, W) numpy; dst_*: per-stream numpy
+    buffers; dst_ptrs advance by out_lens."""
+    for s in range(len(dst_k)):
+        n = int(out_lens[s])
+        if n > 0:
+            p = int(dst_ptrs[s])
+            dst_k[s][p:p + n] = out_k[s, :n]
+            dst_v[s][p:p + n] = out_v[s, :n]
+            dst_ptrs[s] = p + n

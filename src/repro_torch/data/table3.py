@@ -22,7 +22,17 @@ the card (``FULL``):
                     random columns — the hub row power-law graphs have.
                     Its A·A row 0 holds ~29K products, so its bucket has
                     L = 32,768 and takes the large-bucket route of
-                    ``kernels/fused_bucket.py``; no other stand-in does.
+                    ``kernels/fused_bucket.py``.
+
+and one port-owned stand-in for the longest rows (``LONG_ROW``):
+
+  dense-row-full    cage11-full with row 0 made dense (all 39,082
+                    columns).  Its A·A row 0 holds the sum of all row
+                    lengths (~560K > 524,288) products, so its bucket has
+                    L = 2^20 and the last merge round of the large route
+                    merges La + Lb = 2^20 slots: more ballot bits than a
+                    block's shared memory holds, so K2 keeps them in
+                    device memory.
 """
 from __future__ import annotations
 
@@ -57,6 +67,7 @@ FULL = {
     "email-Enron-full": ("powerlaw", 36692, 2.571e-4, 1.3, 36692),
 }
 HUB_ROW_NNZ = 2048
+LONG_ROW = "dense-row-full"
 
 
 def seed_of(name: str) -> int:
@@ -67,7 +78,10 @@ def seed_of(name: str) -> int:
 def build(name: str) -> CSR:
     """The stand-in ``name`` as a CPU CSR (see :func:`names`)."""
     if name == "hub-full":
-        return _hub(build("cage11-full"))
+        return _hub(build("cage11-full"), HUB_ROW_NNZ)
+    if name == LONG_ROW:
+        base = build("cage11-full")
+        return _hub(base, base.n_cols, seed_of(LONG_ROW))
     if name in FULL:
         pattern, rows, dens, skew, seed = FULL[name]
         return random_sparse(rows, rows, dens, seed=seed, pattern=pattern,
@@ -86,16 +100,17 @@ def build(name: str) -> CSR:
     raise KeyError(name)
 
 
-def _hub(base: CSR) -> CSR:
-    """``base`` with row 0 replaced by HUB_ROW_NNZ uniform random columns."""
+def _hub(base: CSR, nnz: int, seed: int | None = None) -> CSR:
+    """``base`` with row 0 replaced by ``nnz`` uniform random columns
+    (drawn from ``seed``, default hub-full's)."""
     indptr, cols, vals = csr_to_numpy(base)
     n = base.n_rows
     rows = np.repeat(np.arange(n), np.diff(indptr))
     keep = rows != 0
-    rng = np.random.default_rng(seed_of("hub-full"))
-    hub_cols = rng.choice(n, HUB_ROW_NNZ, replace=False)
-    hub_vals = rng.standard_normal(HUB_ROW_NNZ).astype(np.float32)
-    return csr_from_coo(np.concatenate([np.zeros(HUB_ROW_NNZ, np.int64),
+    rng = np.random.default_rng(seed_of("hub-full") if seed is None else seed)
+    hub_cols = rng.choice(n, nnz, replace=False)
+    hub_vals = rng.standard_normal(nnz).astype(np.float32)
+    return csr_from_coo(np.concatenate([np.zeros(nnz, np.int64),
                                         rows[keep]]),
                         np.concatenate([hub_cols, cols[keep]]),
                         np.concatenate([hub_vals, vals[keep]]), (n, n))
@@ -103,7 +118,7 @@ def _hub(base: CSR) -> CSR:
 
 def names(full: bool = False):
     """The 13 Table III stand-ins, or with ``full`` the three
-    SuiteSparse-scale ones."""
+    SuiteSparse-scale ones (``LONG_ROW`` is built by name only)."""
     if full:
         return [*FULL, "hub-full"]
     return [s[0] for s in SPECS]

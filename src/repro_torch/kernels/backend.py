@@ -9,6 +9,8 @@ primitives the fused spz pipeline runs —
                         per stream, with the mszip counters
   ``fused_bucket``      sort + the whole zip-merge tree of one (S, L, R)
                         work bucket
+  ``stream_sort``       the host tier's mssort: one (S, R) front
+  ``stream_merge``      the host tier's mszip: two (S, R) fronts
 
 — and the registry resolves a backend once, at plan time.  Registered:
 
@@ -30,7 +32,9 @@ import torch
 from repro_torch.kernels import chunk_sort as _k1
 from repro_torch.kernels import fused_bucket as _k3
 from repro_torch.kernels import merge_partitions as _k2
-from repro_torch.kernels import merge_tree
+from repro_torch.kernels import merge_tree, ref
+from repro_torch.kernels import stream_merge as _k5
+from repro_torch.kernels import stream_sort as _k4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +48,8 @@ class KernelBackend:
     chunk_sort: Callable
     merge_partitions: Callable
     fused_bucket: Callable
+    stream_sort: Callable
+    stream_merge: Callable
     device_type: Optional[str] = None
     description: str = ""
 
@@ -96,7 +102,9 @@ def available_backends() -> dict[str, KernelBackend]:
 # the kernel wrappers, by kernel name, whose ``launches`` count launches
 KERNELS = {"chunk_sort": _k1.chunk_sort,
            "merge_partitions": _k2.merge_partitions,
-           "fused_bucket": _k3.fused_bucket}
+           "fused_bucket": _k3.fused_bucket,
+           "stream_sort": _k4.stream_sort,
+           "stream_merge": _k5.stream_merge}
 
 
 def launch_counts() -> dict:
@@ -120,13 +128,19 @@ register_backend(
     chunk_sort=merge_tree.sort_chunks_linear,
     merge_partitions=merge_tree.merge_partitions,
     fused_bucket=_k3.fused_bucket_plain,
+    stream_sort=ref.stream_sort_ref,
+    stream_merge=ref.stream_merge_ref,
     description="plain torch oracles (sort_chunks_linear, the union merge "
-                "and advance loop, zip_merge_tree) on any device")
+                "and advance loop, zip_merge_tree, stream_sort_ref, "
+                "stream_merge_ref) on any device")
 register_backend(
     name="cuda",
     chunk_sort=_k1.chunk_sort,
     merge_partitions=_k2.merge_partitions,
     fused_bucket=_k3.fused_bucket,
+    stream_sort=_k4.stream_sort,
+    stream_merge=_k5.stream_merge,
     device_type="cuda",
     description="hand-written sm_90a kernels: K1 chunk sort, K2 partition "
-                "merge, K3 fused bucket (large buckets: K1 + K2 per round)")
+                "merge, K3 fused bucket (large buckets: K1 + K2 per round), "
+                "K4 stream sort, K5 stream merge")

@@ -19,6 +19,7 @@
 // warps ballot past the array's end.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -108,10 +109,25 @@ __device__ __forceinline__ int count_span(const unsigned* bits, int x0,
 // ballot/popc prefix count.  out_k/out_v may alias in_k/in_v and may lie
 // in global memory; out_len[c] gets chunk c's unique count.
 // tmp_k/tmp_v: E elements of scratch; bits: E/32 + 1 words.
+// zero_start: sum each run from zero (0 + v0 + v1 ...), the order of the
+// host-tier oracle's segment sum; it differs from the default only in
+// turning a lone -0.0 into +0.0.  VOut: float, or __nv_bfloat16 (the
+// float32 total rounded once).
 // ---------------------------------------------------------------------------
+__device__ __forceinline__ void store_val(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_val(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ float load_val(const float* p) { return *p; }
+__device__ __forceinline__ float load_val(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+template <typename VOut>
 __device__ void sort_tile(int E, int R, const int* in_k, const float* in_v,
                           int* tmp_k, float* tmp_v, unsigned* bits,
-                          int* out_k, float* out_v, int* out_len) {
+                          int* out_k, VOut* out_v, int* out_len,
+                          bool zero_start = false) {
   const int tid = threadIdx.x;
   // stable rank sort inside each chunk
   for (int e = tid; e < E; e += blockDim.x) {
@@ -140,7 +156,7 @@ __device__ void sort_tile(int E, int R, const int* in_k, const float* in_v,
       if (last) {
         int s = i;
         while (s > 0 && tmp_k[c0 + s - 1] == k) --s;
-        float acc = tmp_v[c0 + s];
+        float acc = zero_start ? 0.0f + tmp_v[c0 + s] : tmp_v[c0 + s];
         for (int t = s + 1; t <= i; ++t) acc += tmp_v[c0 + t];
         tmp_v[e] = acc;
       }
@@ -156,11 +172,11 @@ __device__ void sort_tile(int E, int R, const int* in_k, const float* in_v,
     if ((bits[e >> 5] >> (e & 31)) & 1u) {
       const int pos = count_span(bits, c0, e);
       out_k[c0 + pos] = tmp_k[e];
-      out_v[c0 + pos] = tmp_v[e];
+      store_val(out_v + c0 + pos, tmp_v[e]);
     }
     if (i >= n) {
       out_k[e] = kEmpty;
-      out_v[e] = 0.0f;
+      store_val(out_v + e, 0.0f);
     }
     if (i == 0) out_len[c0 / R] = n;
   }

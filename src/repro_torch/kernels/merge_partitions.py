@@ -34,12 +34,19 @@ def launch(ka, va, la, kb, vb, lb, R: int, with_counters: bool, ok, ov, ol,
     the current stream; raise on a launch error."""
     lib = _build.LIBS.get("merge_partitions")
     N, La = ka.shape
+    Lb = kb.shape[1]
+    # rows too long for a block's shared memory keep the kernel's bits
+    # and prefixes in device memory
+    words = lib.zipper_merge_scratch_words(N, La, Lb)
+    scratch = torch.empty(words, dtype=torch.int32, device=ka.device) \
+        if words else None
     err = lib.zipper_merge_partitions(
         ka.data_ptr(), va.data_ptr(), la.data_ptr(), kb.data_ptr(),
-        vb.data_ptr(), lb.data_ptr(), N, La, kb.shape[1], R,
+        vb.data_ptr(), lb.data_ptr(), N, La, Lb, R,
         int(with_counters), ok.data_ptr(), ov.data_ptr(), ol.data_ptr(),
         cnt[0].data_ptr(), cnt[1].data_ptr(), cnt[2].data_ptr(),
-        cnt[3].data_ptr(), stream_of(ka))
+        cnt[3].data_ptr(), scratch.data_ptr() if words else None,
+        stream_of(ka))
     _build.check(lib, err, "merge_partitions")
 
 

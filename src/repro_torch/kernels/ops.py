@@ -32,6 +32,30 @@ def _pad_streams(cap_s, keys, vals, lens):
     return grow(keys, EMPTY), grow(vals, 0), grow(lens, 0), S
 
 
+def stream_sort(keys, vals, lens, *, backend="auto", cap_s=None):
+    """mssortk+mssortv: sort/combine/compress S key-value chunks.
+
+    ``cap_s``: optional stream-count capacity; inputs with S < cap_s are
+    padded up (and the outputs sliced back), as the reference pads every
+    issue of a group to one shape."""
+    keys, vals, lens, S = _pad_streams(cap_s, keys, vals, lens)
+    bk = kb.resolve_backend(backend, keys.device)
+    ok, ov, ol = bk.stream_sort(keys, vals, lens)
+    return ok[:S], ov[:S], ol[:S]
+
+
+def stream_merge(ka, va, la, kb_, vb, lb, *, backend="auto", cap_s=None):
+    """mszipk+mszipv: merge two sorted chunks per stream.
+
+    ``cap_s``: as in :func:`stream_sort`.  Returns (k_lo, v_lo, k_hi,
+    v_hi, consumed_a, consumed_b, out_lens)."""
+    ka, va, la, S = _pad_streams(cap_s, ka, va, la)
+    kb_, vb, lb, _ = _pad_streams(cap_s, kb_, vb, lb)
+    bk = kb.resolve_backend(backend, ka.device)
+    outs = bk.stream_merge(ka, va, la, kb_, vb, lb)
+    return tuple(o[:S] for o in outs)
+
+
 def merge_partitions(ka, va, la, kb_, vb, lb, *, R: int = 16,
                      pair_streams: int | None = None,
                      with_counters: bool = True, backend="auto"):

@@ -7,8 +7,9 @@ only, so it runs on a machine without JAX:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Each kernel (K1 chunk sort, K2 partition merge, K3 fused bucket on both
-of its routes) must equal its plain version bit for bit — keys, values
-(-0.0 included), lengths and the mszip counters — and count its launch.
+of its routes, K4 stream sort, K5 stream merge) must equal its plain
+version bit for bit — keys, values (-0.0 included), lengths and the
+mszip counters — and count its launch.
 """
 import numpy as np
 import pytest
@@ -21,6 +22,8 @@ from repro_torch.kernels.chunk_sort import chunk_sort, chunk_sort_plain
 from repro_torch.kernels.fused_bucket import fused_bucket, fused_bucket_plain
 from repro_torch.kernels.merge_partitions import (merge_partitions,
                                                   merge_partitions_plain)
+from repro_torch.kernels.stream_merge import stream_merge, stream_merge_plain
+from repro_torch.kernels.stream_sort import stream_sort, stream_sort_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -53,8 +56,8 @@ def _chunks(rng, N, R, key_hi):
     return keys, vals, lens
 
 
-def _partition(rng, N, L, key_hi):
-    lens = rng.integers(0, L + 1, N).astype(np.int32)
+def _partition(rng, N, L, key_hi, max_len=None):
+    lens = rng.integers(0, min(L, max_len or L) + 1, N).astype(np.int32)
     keys = np.full((N, L), EMPTY, np.int32)
     vals = np.zeros((N, L), np.float32)
     for s in range(N):
@@ -89,11 +92,18 @@ def test_chunk_sort_kernel(card, N, R, key_hi):
                                          (7, 16, 0, 8, None),
                                          (96, 16, 48, 8, 32),
                                          (2, 4096, 4096, 16, None),
-                                         (1, 16384, 16384, 16, None)])
+                                         (1, 16384, 16384, 16, None),
+                                         (1, 2**19, 2**19, 16, None),
+                                         (3, 2**19, 2**19, 16, None)])
 def test_merge_partitions_kernel(card, N, La, Lb, R, S):
+    """The last two cases merge La + Lb = 2^20 slots a row: more ballot
+    bits than a block's shared memory holds, so K2 keeps them in device
+    memory (lengths stay modest so the plain advance loop stays short)."""
     rng = np.random.default_rng(La + Lb)
     hi = 3 * max(La, Lb, 1)
-    args = _on(card, *_partition(rng, N, La, hi), *_partition(rng, N, Lb, hi))
+    max_len = min(max(La, Lb), 40_000)
+    args = _on(card, *_partition(rng, N, La, hi, max_len),
+               *_partition(rng, N, Lb, hi, max_len))
     got = merge_partitions(*args, R=R, pair_streams=S)
     want = merge_partitions_plain(*args, R=R, pair_streams=S)
     for w, g in zip(want[:3], got[:3]):
@@ -146,3 +156,76 @@ def test_spgemm_cuda_matches_torch_backend(card, n, density, pattern):
             st.chunk_loads, st.chunk_stores) == \
         (st_ref.n_mssort, st_ref.sort_elems, st_ref.n_mszip,
          st_ref.zip_elems, st_ref.chunk_loads, st_ref.chunk_stores)
+
+
+def _sorted_front(rng, S, R, key_hi):
+    lens = rng.integers(0, R + 1, S).astype(np.int32)
+    lens[0] = 0  # always an empty side
+    keys = np.full((S, R), EMPTY, np.int32)
+    vals = np.zeros((S, R), np.float32)
+    for s in range(S):
+        keys[s, :lens[s]] = np.sort(rng.choice(key_hi, lens[s], replace=False))
+        vals[s, :lens[s]] = rng.standard_normal(lens[s])
+    vals[rng.random((S, R)) < 0.1] = -0.0
+    return keys, vals, lens
+
+
+@pytest.mark.parametrize("R", [8, 16, 32, 128])
+@pytest.mark.parametrize("S,key_hi", [(1, 3), (2, 5), (512, 7), (300, 1000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stream_sort_kernel(card, S, R, key_hi, dtype):
+    keys, vals, lens = _on(card, *_chunks(np.random.default_rng(S + R), S, R,
+                                          key_hi))
+    vals = vals.to(dtype)
+    before = stream_sort.launches
+    got = stream_sort(keys, vals, lens)
+    assert stream_sort.launches == before + 1
+    assert got[1].dtype == dtype
+    for w, g in zip(stream_sort_plain(keys, vals, lens), got):
+        _eq(w.float() if w.dtype == torch.bfloat16 else w,
+            g.float() if g.dtype == torch.bfloat16 else g)
+
+
+@pytest.mark.parametrize("R", [8, 16, 64])
+@pytest.mark.parametrize("S,key_hi", [(1, 20), (2, 40), (512, 48),
+                                      (300, 1000)])
+def test_stream_merge_kernel(card, S, R, key_hi):
+    rng = np.random.default_rng(S * R)
+    hi = max(key_hi, 2 * R)
+    args = _on(card, *_sorted_front(rng, S, R, hi), *_sorted_front(rng, S, R, hi))
+    before = stream_merge.launches
+    got = stream_merge(*args)
+    assert stream_merge.launches == before + 1
+    want = stream_merge_plain(*args)
+    assert len(got) == len(want) == 7
+    for w, g in zip(want, got):
+        _eq(w, g)
+
+
+def test_stream_merge_one_side_empty(card):
+    """Nothing is mergeable against an empty side: nothing advances and
+    nothing is emitted."""
+    ka, va, la = _sorted_front(np.random.default_rng(1), 3, 16, 64)
+    la[:] = np.maximum(la, 1)
+    args = _on(card, ka, va, la, np.full((3, 16), EMPTY, np.int32),
+               np.zeros((3, 16), np.float32), np.zeros(3, np.int32))
+    got = stream_merge(*args)
+    for w, g in zip(stream_merge_plain(*args), got):
+        _eq(w, g)
+    assert int(got[4].sum()) == int(got[5].sum()) == int(got[6].sum()) == 0
+
+
+@pytest.mark.parametrize("engine", ["spz-host", "esc"])
+def test_engine_cuda_matches_cpu(card, engine):
+    A = random_sparse(700, 700, 0.02, seed=3, pattern="powerlaw")
+    kb.reset_launch_counts()
+    out = spgemm(A, A, engine=engine, return_stats=True)[0]
+    assert out.device.type == "cuda"
+    want = spgemm(A, A, engine=engine, device="cpu", return_stats=True)[0]
+    for w, g in zip(csr_to_numpy(want), csr_to_numpy(out)):
+        np.testing.assert_array_equal(w, g)
+        if w.dtype.kind == "f":
+            np.testing.assert_array_equal(w.view(np.int32), g.view(np.int32))
+    if engine == "spz-host":
+        counts = kb.launch_counts()
+        assert counts["stream_sort"] > 0 and counts["stream_merge"] > 0

@@ -271,7 +271,8 @@ def test_backend_registry():
     with pytest.raises(ValueError, match="unknown kernel backend"):
         kb.resolve_backend("xla", "cpu")
     for b in kb.available_backends().values():
-        for slot in ("chunk_sort", "merge_partitions", "fused_bucket"):
+        for slot in ("chunk_sort", "merge_partitions", "fused_bucket",
+                     "stream_sort", "stream_merge"):
             assert callable(getattr(b, slot))
 
 
@@ -279,7 +280,8 @@ def test_launch_counts_reset():
     kb.reset_launch_counts()
     counts = kb.launch_counts()
     assert set(counts) == {"chunk_sort", "merge_partitions", "fused_bucket",
-                           "fused_bucket.fused", "fused_bucket.large"}
+                           "fused_bucket.fused", "fused_bucket.large",
+                           "stream_sort", "stream_merge"}
     assert not any(counts.values())
 
 
