@@ -25,15 +25,31 @@ drives the port's main path on one card:
   engines  ``esc`` on the 16 matrices (bit for bit against the port's CPU
            esc on the stand-ins, against scl-array everywhere) and
            ``scl-hash`` on the stand-ins against scl-array
+  attention  K6 flash attention on the sweep of tests/test_kernels_attn.py
+           (float32 and bf16) and at TinyLlama's prefill shapes (B = 4,
+           S = 512 and B = 1, S = 4,096; H = 32, KVH = 4, hd = 64, bf16,
+           causal), held against its plain version on the same card
+           inputs within 2e-4 (float32) / 3e-2 (bf16), with its time, the
+           plain version's, SDPA's and its bound
+  serve    the LLM path: TinyLlama-1.1B at full width (22 layers, random
+           fp32 weights from SEED, bf16 compute, attn_impl="pallas")
+           behind ``Engine(max_batch=4, max_seq=1024).generate`` on 4
+           ragged prompts (512, 480, 400, 300 tokens) x 32 greedy tokens,
+           counters set to 0 before and read after: K6 launched exactly
+           once per layer, nothing else; the prefill's last-token logits
+           held against attn_impl="xla" (plain blocked attention) within
+           0.15 and finite; a 2-layer float32 model at full width held
+           against the CPU (plain version) within 1e-3
   kernels  every ported kernel and its launches on its path's run
   profile  host wall clock vs device kernel time of one spz call on the
-           two SuiteSparse-scale fused-route matrices and of one spz-host
-           call on cage11-full, with its waits for the card per issue
-           (torch.profiler)
+           two SuiteSparse-scale fused-route matrices, of one spz-host
+           call on cage11-full, with its waits for the card per issue,
+           and of one TinyLlama generate (torch.profiler)
 
-It imports nothing of JAX.  The line before the last is the JSON kernel
-table; the last line is ``{"ok": true, "device": {...}}``, printed only
-when every phase passed.  Without a CUDA device, or without the rest of
+It imports nothing of JAX.  The JSON kernel table and the card's name
+and power limit are on the lines before the last; the last line is
+``{"ok": true, "device": {...}}``, printed only when every phase
+passed.  Without a CUDA device, or without the rest of
 the repository beside it, it exits non-zero and prints no result.
 
 Run: ``python3 chip_smoke.py`` (one card).
@@ -51,7 +67,12 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 SEED = 0
+SERVE_PROMPTS = (512, 480, 400, 300)
+SERVE_NEW_TOKENS = 32
+SERVE_LOGIT_TOL = 0.15      # bf16 bound of tests/test_archs.py
+CPU_LOGIT_TOL = 1e-3        # float32, card vs CPU, 2 layers at full width
 
 
 def log(*a):
@@ -85,11 +106,12 @@ def time_ms(torch, fn, reps=10, warmup=2):
     return statistics.median(times)
 
 
-def bound_ms(nbytes: int, fp32_ops: int):
-    """Least time for the work: bytes over the memory rate vs float32
-    operations over the float32 rate; returns (ms, which bounds it)."""
+def bound_ms(nbytes: int, ops: int, ops_per_s: float = FP32_OPS_PER_S):
+    """Least time for the work: bytes over the memory rate vs operations
+    over their type's peak rate (float32 unless given); returns (ms,
+    which bounds it)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = fp32_ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -511,18 +533,55 @@ def _rows(A, n_rows):
                           (n_rows, A.n_cols))
 
 
-def phase_profile(torch):
-    """Where one call's time goes: host wall clock vs device kernel time
-    (torch.profiler), for one spz call on the two SuiteSparse-scale
-    fused-route matrices, and for spz-host on a steady window of
-    cage11-full (its first 8 groups of 512 rows: a whole call records
-    ~800K events, whose processing alone takes minutes), plus the waits
-    for the card per kernel issue over one whole spz-host call on
-    cage11-full.  A diagnostic: a profiler that records no device time
-    prints "not measured" instead of failing the run."""
+def _profiled(torch, label, fn):
+    """Run ``fn`` under torch.profiler and log its host wall clock, the
+    device's kernel time and idle share, and the top device kernels and
+    host operations.  A profiler that records no device time prints "not
+    measured"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in kernels) / 1e3
+    if not kernels:
+        log(f"profile: {label} wall {wall:.1f} ms under the profiler; device "
+            f"time not measured (no CUDA events recorded)")
+        return
+    log(f"profile: {label} wall {wall:.1f} ms under the profiler, device "
+        f"kernels {busy:.1f} ms over {sum(e.count for e in kernels)} "
+        f"launches, device idle share {1 - busy / wall:.3f}")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:6]:
+        log(f"profile:   device {dev_us(e) / 1e3:9.2f} ms x{e.count:6d} "
+            f"{e.key[:90]}")
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    for e in sorted(host, key=lambda e: e.self_cpu_time_total,
+                    reverse=True)[:6]:
+        log(f"profile:   host   {e.self_cpu_time_total / 1e3:9.2f} ms "
+            f"x{e.count:6d} {e.key[:90]}")
+
+
+def phase_profile(torch, serve):
+    """Where one call's time goes: host wall clock vs device kernel time
+    (torch.profiler), for one spz call on the two SuiteSparse-scale
+    fused-route matrices, for spz-host on a steady window of cage11-full
+    (its first 8 groups of 512 rows: a whole call records ~800K events,
+    whose processing alone takes minutes), and for one TinyLlama
+    generate, plus the waits for the card per kernel issue over one
+    whole spz-host call on cage11-full."""
     from repro_torch.core import spgemm
     from repro_torch.data import table3
 
@@ -541,40 +600,215 @@ def phase_profile(torch):
         B = table3.build(n)
         A = B if rows is None else _rows(B, rows)
         spgemm(A, B, engine=engine)  # warm
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            spgemm(A, B, engine=engine)
-            wall = (time.perf_counter() - t0) * 1e3
-        events = prof.key_averages()
+        label = n if rows is None else f"{n} rows 0-{rows - 1}"
+        _profiled(torch, f"{label} {engine}",
+                  lambda: spgemm(A, B, engine=engine))
+    _profiled(torch, f"tinyllama-1.1b generate ({len(SERVE_PROMPTS)} x "
+              f"{SERVE_NEW_TOKENS} tokens)", serve["generate"])
 
-        def dev_us(e):
-            return getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0))
 
-        kernels = [e for e in events if e.device_type == DeviceType.CUDA
-                   and dev_us(e) > 0]
-        busy = sum(dev_us(e) for e in kernels) / 1e3
-        if rows is not None:
-            n = f"{n} rows 0-{rows - 1}"
-        if not kernels:
-            log(f"profile: {n} {engine} wall {wall:.1f} ms under the "
-                f"profiler; device time not measured (no CUDA events "
-                f"recorded)")
-            continue
-        log(f"profile: {n} {engine} wall {wall:.1f} ms under the profiler, "
-            f"device kernels {busy:.1f} ms over "
-            f"{sum(e.count for e in kernels)} launches, device idle share "
-            f"{1 - busy / wall:.3f}")
-        for e in sorted(kernels, key=dev_us, reverse=True)[:6]:
-            log(f"profile:   device {dev_us(e) / 1e3:9.2f} ms x{e.count:6d} "
-                f"{e.key[:90]}")
-        host = [e for e in events if e.device_type == DeviceType.CPU]
-        for e in sorted(host, key=lambda e: e.self_cpu_time_total,
-                        reverse=True)[:6]:
-            log(f"profile:   host   {e.self_cpu_time_total / 1e3:9.2f} ms "
-                f"x{e.count:6d} {e.key[:90]}")
+ATTN_SWEEP = [(2, 64, 64, 4, 2, 16, True, 0), (1, 96, 96, 8, 1, 32, True, 32),
+              (2, 48, 64, 4, 4, 16, True, 0), (1, 64, 64, 2, 2, 8, False, 0),
+              (1, 128, 128, 4, 1, 64, True, 0)]
+
+
+def _attn_inputs(torch, np, rng, B, Sq, Skv, H, KVH, hd, dtype):
+    shapes = ((B, Sq, H, hd), (B, Skv, KVH, hd), (B, Skv, KVH, hd))
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to("cuda", dtype) for s in shapes]
+
+
+def _k6_check(torch, what, got, want, tol):
+    """Max abs error of K6 against its plain version, which fails above
+    ``tol`` and, in bf16, above one rounding of the float32 result both
+    compute (2**-7 of the value, 1e-6 near zero)."""
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    if got.dtype != want.dtype or not err <= tol:
+        raise AssertionError(f"{what} {got.dtype}: max abs err {err} > {tol}")
+    if got.dtype == torch.bfloat16:
+        over = float((diff - 2 ** -7 * want.float().abs()).max())
+        if not over <= 1e-6:
+            raise AssertionError(f"{what}: off by more than one bf16 "
+                                 f"rounding (by {over} beyond 2**-7 |want|)")
+    return err
+
+
+def phase_attention(torch, np):
+    """K6 against its plain version on the same card inputs: the sweep of
+    tests/test_kernels_attn.py in float32 and bf16, then TinyLlama's
+    prefill shapes in float32 and in bf16, the latter with times, bound
+    and SDPA's time."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as k6
+
+    rng = np.random.default_rng(SEED)
+    worst = {}
+    for case in ATTN_SWEEP:
+        B, Sq, Skv, H, KVH, hd, causal, window = case
+        for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 3e-2)):
+            q, k, v = _attn_inputs(torch, np, rng, B, Sq, Skv, H, KVH, hd,
+                                   dtype)
+            got = k6.flash_attention(q, k, v, causal=causal, window=window)
+            want = k6.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window)
+            err = _k6_check(torch, f"K6 {case}", got, want, tol)
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+    log(f"attention: K6 sweep, {len(ATTN_SWEEP)} cases x 2 dtypes within "
+        f"2e-4 / 3e-2 and one bf16 rounding of the plain version; max abs "
+        f"err float32 {worst[torch.float32]} bf16 {worst[torch.bfloat16]}")
+    rows = {}
+    H, KVH, hd = 32, 4, 64
+    for name, B, S in (("flash_attention", 4, 512),
+                       ("flash_attention.4096", 1, 4096)):
+        q, k, v = _attn_inputs(torch, np, rng, B, S, S, H, KVH, hd,
+                               torch.float32)
+        err32 = _k6_check(torch, f"K6 {name} float32", k6.flash_attention(
+            q, k, v), k6.flash_attention_plain(q, k, v), 2e-4)
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        got = k6.flash_attention(q, k, v)
+        want = k6.flash_attention_plain(q, k, v)
+        err = _k6_check(torch, f"K6 {name} bf16", got, want, 3e-2)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+
+        lib_err = float((sdpa().transpose(1, 2).float() - want.float())
+                        .abs().max())
+        if not lib_err <= 3e-2:
+            raise AssertionError(f"SDPA at {name}: max abs err {lib_err} "
+                                 f"> 3e-2")
+        # causal: S (S + 1) / 2 (query, key) pairs per head, 2 hd
+        # multiply-adds each for QK^T and for PV
+        ops = 4 * hd * B * H * (S * (S + 1) // 2)
+        b, by = bound_ms(nbytes(q, k, v, got), ops, BF16_OPS_PER_S)
+        out = torch.empty_like(q)
+        rows[name] = dict(
+            max_abs_err=err,
+            ms=time_ms(torch, lambda: k6.launch(q, k, v, out, causal=True,
+                                                window=0, scale=hd ** -0.5)),
+            wrapper_ms=time_ms(torch, lambda: k6.flash_attention(q, k, v)),
+            plain_ms=time_ms(torch, lambda: k6.flash_attention_plain(q, k, v),
+                             reps=5, warmup=1),
+            bound_ms=b, bound_by=by, library_ms=time_ms(torch, sdpa),
+            shape=f"B={B} S={S} H={H} KVH={KVH} hd={hd} bf16 causal")
+        log(f"attention: {name} {rows[name]['shape']} max_abs_err {err} "
+            f"(float32 {err32}; SDPA vs plain {lib_err}) kernel_ms "
+            f"{rows[name]['ms']:.4f} "
+            f"wrapper_ms {rows[name]['wrapper_ms']:.4f} plain_ms "
+            f"{rows[name]['plain_ms']:.4f} bound_ms {b:.5f} ({by}) "
+            f"library_ms {rows[name]['library_ms']:.4f} (SDPA, enable_gqa)")
+    return rows
+
+
+def _left_padded(torch, np, prompts, device):
+    """The engine's batch: prompts left-padded with token 0."""
+    plen = max(len(p) for p in prompts)
+    toks = np.zeros((len(prompts), plen), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, plen - len(p):] = p
+    return torch.from_numpy(toks).to(device)
+
+
+def phase_serve(torch, np):
+    """TinyLlama-1.1B at full width behind the serving engine, K6 on its
+    prefill; returns the path's launch counts and the engine and requests
+    for the profile phase."""
+    import dataclasses
+
+    from repro_torch.configs import base as cb
+    from repro_torch.kernels import backend as kb
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine, Request
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False  # full float32 (default)
+    cfg = dataclasses.replace(cb.get_config("tinyllama-1.1b"),
+                              attn_impl="pallas")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    log(f"serve: {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads, hd "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+        f"{sum(p.numel() for p in params.parameters()):,} {cfg.param_dtype} "
+        f"parameters made on the card in {time.perf_counter() - t0:.1f} s; "
+        f"compute {cfg.dtype}")
+    eng = Engine(cfg, params, max_batch=4, max_seq=1024)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in SERVE_PROMPTS]
+
+    def generate(engine=eng):
+        return engine.generate([Request(prompt=p,
+                                        max_new_tokens=SERVE_NEW_TOKENS)
+                                for p in prompts])
+
+    generate()  # warm: the first call sets up cuBLAS and the allocator
+    torch.cuda.synchronize()
+    kb.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = generate()
+    wall = time.perf_counter() - t0
+    counts = kb.launch_counts()
+    others = {k: n for k, n in counts.items() if n and k != "flash_attention"}
+    if counts["flash_attention"] != cfg.num_layers or others:
+        raise AssertionError(f"one generate launched K6 "
+                             f"{counts['flash_attention']} times (want "
+                             f"{cfg.num_layers}) and {others}")
+    for r in reqs:
+        if r.out.shape != (SERVE_NEW_TOKENS,) or r.out.min() < 0 \
+                or r.out.max() >= cfg.vocab_size:
+            raise AssertionError(f"bad tokens {r.out}")
+    tokens = sum(len(r.out) for r in reqs)
+    prefill_ms = eng.stats["prefill_s"] * 1e3
+    decode_ms = statistics.median(eng.stats["decode_s"]) * 1e3
+    log(f"serve: generate of {len(reqs)} requests x {SERVE_NEW_TOKENS} "
+        f"tokens (prompts {SERVE_PROMPTS}) in {wall * 1e3:.1f} ms; K6 "
+        f"launched {counts['flash_attention']} times, nothing else launched")
+    log(f"serve: prefill_ms {prefill_ms:.3f}")
+    log(f"serve: decode_ms_per_token {decode_ms:.3f} (median of "
+        f"{len(eng.stats['decode_s'])} steps)")
+    log(f"serve: tokens_per_s {tokens / wall:.1f}")
+    log(f"serve: first tokens {[r.out[:6].tolist() for r in reqs]}")
+
+    # (b) the same prefill through the plain blocked attention
+    toks = _left_padded(torch, np, prompts, dev)
+    xcfg = dataclasses.replace(cfg, attn_impl="xla")
+    lg = {c.attn_impl: M.prefill(params, c, toks, M.init_cache(
+        c, len(prompts), 1024, dev))[0].float() for c in (cfg, xcfg)}
+    if not all(bool(torch.isfinite(x).all()) for x in lg.values()):
+        raise AssertionError("non-finite prefill logits")
+    err = float((lg["pallas"] - lg["xla"]).abs().max())
+    if not err <= SERVE_LOGIT_TOL:
+        raise AssertionError(f"prefill logits K6 vs blocked attention: max "
+                             f"abs err {err} > {SERVE_LOGIT_TOL}")
+    xreqs = generate(Engine(xcfg, params, max_batch=4, max_seq=1024))
+    same = sum(int((a.out == b.out).sum()) for a, b in zip(reqs, xreqs))
+    log(f"serve: prefill last-token logits, K6 vs attn_impl='xla' on the "
+        f"card: max abs err {err} (tolerance {SERVE_LOGIT_TOL}), all finite; "
+        f"greedy tokens equal at {same} of {tokens} positions")
+
+    # (c) 2 layers at full width in float32: card (K6) vs CPU (plain)
+    c2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    lg = {}
+    for where in ("cpu", "cuda"):
+        model = M.init_params(c2, torch.Generator().manual_seed(SEED),
+                              device=where)
+        lg[where] = M.prefill(model, c2, toks.to(where), M.init_cache(
+            c2, len(prompts), 1024, where))[0].cpu()
+    err = float((lg["cuda"] - lg["cpu"]).abs().max())
+    if not (bool(torch.isfinite(lg["cuda"]).all()) and err <= CPU_LOGIT_TOL):
+        raise AssertionError(f"2-layer float32 logits card vs CPU: max abs "
+                             f"err {err} > {CPU_LOGIT_TOL}")
+    log(f"serve: 2 layers at full width, float32: last-token logits on the "
+        f"card (K6) vs the CPU (plain version) max abs err {err} "
+        f"(tolerance {CPU_LOGIT_TOL})")
+    return dict(counts=counts, generate=generate, prefill_ms=prefill_ms,
+                decode_ms=decode_ms, tokens_per_s=tokens / wall)
 
 
 def phase_inputs(np):
@@ -605,11 +839,14 @@ def main() -> int:
     res = {}
     phases = (("device", lambda: phase_device(torch, _build)),
               ("kernel", lambda: phase_kernel(torch, np)),
+              ("attention", lambda: phase_attention(torch, np)),
               ("inputs", lambda: phase_inputs(np)),
               ("spgemm", lambda: phase_spgemm(torch, np, *res["inputs"])),
               ("host", lambda: phase_host(torch, np, res["inputs"][0],
                                           res["spgemm"][1])),
-              ("engines", lambda: phase_engines(torch, np, *res["inputs"])))
+              ("engines", lambda: phase_engines(torch, np, *res["inputs"])),
+              ("serve", lambda: phase_serve(torch, np)),
+              ("profile", lambda: phase_profile(torch, res["serve"])))
     for label, fn in phases:
         t0 = time.perf_counter()
         try:
@@ -618,24 +855,20 @@ def main() -> int:
             traceback.print_exc()
             log(f"{label}: FAILED")
             failed.append(label)
-            if label in ("device", "inputs", "spgemm"):
+            if label in ("device", "inputs", "spgemm", "serve"):
                 break  # the later phases need what these make
             continue
         log(f"{label}: passed in {time.perf_counter() - t0:.1f} s")
     if failed:
         log(f"chip_smoke: FAILED phases {failed}")
         return 1
-    t0 = time.perf_counter()
-    try:
-        phase_profile(torch)
-    except Exception as e:  # a diagnostic only: report, do not fail
-        log(f"profile: not measured ({type(e).__name__}: {e})")
-    log(f"profile: done in {time.perf_counter() - t0:.1f} s")
-    name, rows = res["device"], res["kernel"]
+    name = res["device"]
+    rows = {**res["kernel"], **res["attention"]}
     # each kernel's launches on its own path's run
     counts = {k: v for k, v in res["spgemm"][0].items()
-              if not k.startswith("stream_")}
+              if not k.startswith("stream_") and k != "flash_attention"}
     counts.update((k, res["host"][k]) for k in ("stream_sort", "stream_merge"))
+    counts["flash_attention"] = res["serve"]["counts"]["flash_attention"]
     log("kernels: " + ", ".join(f"{k}={v}" for k, v in counts.items()))
     sources = {
         "chunk_sort": ("src/repro_torch/kernels/csrc/chunk_sort.cu",
@@ -648,6 +881,8 @@ def main() -> int:
                         "src/repro/kernels/stream_sort.py:48"),
         "stream_merge": ("src/repro_torch/kernels/csrc/stream_merge.cu",
                          "src/repro/kernels/stream_merge.py:69"),
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:72"),
     }
     table = []
     for key, r in rows.items():

@@ -4,5 +4,8 @@ The JAX package ``repro`` is the reference; this package imports torch
 and nothing of it.  The main path is ``repro_torch.core.spgemm(A, B,
 engine="spz")``, which runs on the card through the hand-written kernels
 in ``repro_torch/kernels/csrc`` unless the caller passes
-``device="cpu"``.
+``device="cpu"``.  The LLM substrate's dense serving path is
+``repro_torch.serving.engine.Engine(cfg, params).generate(requests)``,
+its prefill attention through the flash-attention kernel K6 when
+``cfg.attn_impl == "pallas"``.
 """

@@ -1,0 +1,202 @@
+"""Model configs of the port: the same ``ModelConfig`` as the reference.
+
+Port of ``repro.configs.base``.  Every field keeps its name, type,
+default and meaning, so one config describes the same model in both
+packages.  Each architecture the port can build has a module
+``repro_torch/configs/<id>.py`` exposing ``CONFIG`` (the published
+numbers) and ``smoke()`` (a reduced config of the same family for CPU
+tests); ``get_config`` resolves ids with dashes or underscores.
+
+What the fields mean in the port, where it differs from the reference:
+
+- ``attn_impl`` picks the full-sequence attention of a GQA layer (the
+  prefill, and training later): ``"xla"`` (the default) is the plain
+  blocked online-softmax attention in torch
+  (``models.attention.blocked_attention``, with ``attn_q_block``,
+  ``attn_kv_block``, ``attn_block_skip`` and ``attn_p_bf16``);
+  ``"pallas"`` is the hand-written flash-attention kernel K6
+  (``kernels.flash_attention``), its plain version on CPU tensors.
+- The sharding knobs do nothing on one card: ``layer_layout``, ``fsdp``
+  and ``prefill_cache_seqshard`` are read by no code of the port.
+  ``remat`` acts only in training, which the port does not run yet.
+- ``scan_unroll`` does nothing: the port runs its layers in a Python
+  loop, not a scan.
+- ``dtype`` is the compute dtype of activations and of the KV cache;
+  ``param_dtype`` the dtype parameters are stored in (each matmul casts
+  its weight to the activation dtype, as the reference does).
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Optional, Tuple
+
+# Layer kinds usable in group patterns:
+#   attn        self-attention + MLP (pre-norm residual block)
+#   local_attn  sliding-window self-attention + MLP
+#   cross_attn  self-attention + cross-attention + MLP
+#   rglru       RG-LRU recurrent block + MLP
+#   ssd         Mamba-2 SSD block (standalone, no MLP)
+# The port builds "attn" with a dense FFN; the others raise.
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                    # dense|moe|ssm|hybrid|vlm|audio
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None
+    qkv_bias: bool = False
+    pos_emb: str = "rope"          # rope | sinusoid (whisper)
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    group_pattern: Tuple[str, ...] = ("attn",)
+    tail_pattern: Tuple[str, ...] = ()
+    local_window: int = 0
+    # --- MoE ---
+    moe: bool = False
+    num_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    num_shared_experts: int = 0
+    dense_residual: bool = False   # arctic: dense MLP in parallel with MoE
+    first_k_dense: int = 0         # deepseek: first layer uses dense FFN
+    capacity_factor: float = 1.25
+    moe_dispatch: str = "zipper"   # zipper (sort + all_to_all) | einsum
+    # --- MLA (DeepSeek-V2) ---
+    mla: bool = False
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+    # --- SSM (Mamba-2) / RG-LRU ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 256
+    conv_width: int = 4
+    rnn_width: int = 0             # RG-LRU recurrence width (0 -> d_model)
+    # --- enc-dec / VLM / audio stubs ---
+    encoder_layers: int = 0        # whisper encoder depth
+    num_frontend_tokens: int = 0   # stub frame/patch embedding count
+    # --- numerics & memory policy ---
+    dtype: str = "bfloat16"        # activation/compute dtype
+    param_dtype: str = "float32"
+    opt_state_dtype: str = "float32"
+    remat: str = "none"            # none | block (training only)
+    fsdp: bool = False             # no effect on one card
+    # --- attention impl: xla (plain blocked attention) | pallas (K6) ---
+    attn_impl: str = "xla"
+    attn_q_block: int = 2048
+    attn_kv_block: int = 1024
+    # causal-block skipping in the blocked attention (halves its FLOPs)
+    attn_block_skip: bool = False
+    # intra-layer layout of the reference's mesh ("tp" | "sp"); no effect
+    # on one card
+    layer_layout: str = "tp"
+    # carry softmax probabilities in bf16 between the two matmuls of the
+    # blocked attention (flash-attention-2 numerics)
+    attn_p_bf16: bool = False
+    # decode cache update: one-hot multiply (baseline; touches the whole
+    # cache) vs a write of the one slot
+    decode_dus: bool = False
+    # chunked vocab head + cross-entropy (training; not ported yet)
+    ce_chunk: int = 0
+    # pin prefill KV writes to the cache's sharding; no effect on one card
+    prefill_cache_seqshard: bool = False
+    # fully unroll layer scans in the reference; no effect in the port
+    scan_unroll: bool = False
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def groups(self):
+        """((pattern, repeats), ...) covering num_layers exactly
+        (excluding the first_k_dense unscanned lead units)."""
+        n = len(self.group_pattern)
+        body = self.num_layers - len(self.tail_pattern) - self.first_k_dense
+        if body % n:
+            raise ValueError(f"{self.name}: {body} body layers do not split "
+                             f"into groups of {n}")
+        out = [(self.group_pattern, body // n)]
+        if self.tail_pattern:
+            out.append((self.tail_pattern, 1))
+        return tuple(out)
+
+    def param_count(self) -> int:
+        """Approximate parameter count N (for MODEL_FLOPS = 6·N·D)."""
+        D, V = self.d_model, self.vocab_size
+        hd = self.resolved_head_dim
+        n = 2 * V * D  # embed + head
+        kinds = [k for pat, rep in self.groups for k in pat * rep]
+        for kind in kinds:
+            if kind in ("attn", "local_attn", "cross_attn"):
+                if self.mla:
+                    r, qr = self.kv_lora_rank, self.q_lora_rank
+                    qk = self.qk_nope_dim + self.qk_rope_dim
+                    n += D * (r + self.qk_rope_dim) + D * qr
+                    n += qr * self.num_heads * qk
+                    n += r * self.num_heads * (self.qk_nope_dim + self.v_head_dim)
+                    n += self.num_heads * self.v_head_dim * D
+                else:
+                    n += D * self.num_heads * hd * 2  # q, o
+                    n += D * self.num_kv_heads * hd * 2  # k, v
+                if kind == "cross_attn":
+                    n += D * self.num_heads * hd * 2 + D * self.num_kv_heads * hd * 2
+            if kind == "ssd":
+                inner = self.ssm_expand * D
+                n += D * (2 * inner + 2 * self.ssm_state +
+                          inner // self.ssm_head_dim) + inner * D
+                continue
+            if kind == "rglru":
+                w = self.rnn_width or D
+                n += D * w * 2 + w * D  # branch in-projections + out
+                n += 4 * w  # diagonal gates + conv-ish
+            # FFN
+            if self.moe:
+                f = self.moe_d_ff
+                n += D * f * 3 * self.num_experts
+                n += D * self.num_experts  # router
+                if self.num_shared_experts:
+                    n += D * f * 3 * self.num_shared_experts
+                if self.dense_residual:
+                    n += D * self.d_ff * 3
+            elif kind != "ssd":
+                n += D * self.d_ff * 3
+        return int(n)
+
+
+# the architectures whose every layer the port can build (dense GQA
+# attention + SwiGLU MLP); the reference's others wait for their slices
+ARCH_IDS = ["tinyllama_1_1b", "phi4_mini_3_8b", "qwen1_5_0_5b",
+            "granite_3_2b"]
+
+
+def norm_id(name: str) -> str:
+    return name.replace("-", "_").replace(".", "_")
+
+
+def _module(name: str):
+    arch = norm_id(name)
+    if arch not in ARCH_IDS:
+        raise NotImplementedError(
+            f"architecture {name!r} is not ported yet (ROADMAP queue 1 item "
+            f"12: MLA, MoE, SSM/RG-LRU, local and cross attention and the "
+            f"encoder wait); ported: {ARCH_IDS}")
+    return importlib.import_module(f"repro_torch.configs.{arch}")
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).CONFIG
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    return _module(name).smoke()

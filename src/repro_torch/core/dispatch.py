@@ -22,6 +22,7 @@ from typing import Any, Callable, Optional
 
 from repro_torch.core import spgemm as sg
 from repro_torch.core.formats import CSR, csr_to_numpy, validate_operands
+from repro_torch.device import resolve_device
 from repro_torch.kernels import backend as kb
 
 _NOT_PORTED = ("is not ported yet: automatic engine selection, the autotune "
@@ -143,7 +144,7 @@ def plan(A: CSR, B: CSR, engine: str = "auto", *, backend: str = "auto",
         raise ValueError(f"inner dims differ: {A.shape} @ {B.shape}")
     spec = get_engine(engine)
     validate_operands(A, B)
-    dev = sg.resolve_device(device)
+    dev = resolve_device(device)
     resolved = dict(kw, device=dev)
     plan_bk = None
     if spec.backend_aware:

@@ -35,18 +35,9 @@ import torch
 from repro_torch.core import stream as kvstream
 from repro_torch.core.formats import (CSR, EMPTY, csr_from_coo, csr_to_numpy,
                                       row_ids_from_indptr)
+from repro_torch.device import resolve_device
 from repro_torch.kernels import backend as kb
 from repro_torch.kernels.ref import run_sums
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: the card unless the caller asks
-    for another.  A CUDA request without a card raises."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run on the CPU")
-    return device
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # argtypes of every C entry point, by library name
 SIGNATURES = {
     "chunk_sort": {
@@ -41,7 +42,7 @@ SIGNATURES = {
     },
     "merge_partitions": {
         "zipper_merge_partitions": ([_P] * 6 + [_I] * 5 + [_P] * 9, _I),
-        "zipper_merge_scratch_words": ([_I, _I, _I], ctypes.c_longlong),
+        "zipper_merge_scratch_words": ([_I, _I, _I], _L),
     },
     "stream_sort": {
         "zipper_stream_sort": ([_P, _P, _P, _I, _I, _I, _P, _P, _P, _P], _I),
@@ -51,7 +52,11 @@ SIGNATURES = {
     },
     "fused_bucket": {
         "zipper_fused_bucket": ([_P, _P, _P, _I, _I, _I] + [_P] * 8, _I),
-        "zipper_fused_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
+        "zipper_fused_smem_bytes": ([_I, _I, _I], _L),
+    },
+    "flash_attention": {
+        "zipper_flash_attention": ([_P] * 4 + [_I] * 7 + [_L] * 12
+                                   + [ctypes.c_float, _I, _I, _P], _I),
     },
 }
 

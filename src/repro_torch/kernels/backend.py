@@ -30,6 +30,7 @@ from typing import Callable, Optional, Union
 import torch
 
 from repro_torch.kernels import chunk_sort as _k1
+from repro_torch.kernels import flash_attention as _k6
 from repro_torch.kernels import fused_bucket as _k3
 from repro_torch.kernels import merge_partitions as _k2
 from repro_torch.kernels import merge_tree, ref
@@ -104,7 +105,8 @@ KERNELS = {"chunk_sort": _k1.chunk_sort,
            "merge_partitions": _k2.merge_partitions,
            "fused_bucket": _k3.fused_bucket,
            "stream_sort": _k4.stream_sort,
-           "stream_merge": _k5.stream_merge}
+           "stream_merge": _k5.stream_merge,
+           "flash_attention": _k6.flash_attention}
 
 
 def launch_counts() -> dict:

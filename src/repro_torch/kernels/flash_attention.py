@@ -1,0 +1,80 @@
+"""K6, flash attention: CUDA kernel wrapper and its plain version.
+
+Port of the Pallas kernel
+``repro.kernels.flash_attention.flash_attention_pallas``: blocked
+causal / windowed / bidirectional GQA attention with an online softmax,
+in the reference's layout (q (B, Sq, H, hd), k/v (B, Skv, KVH, hd)).
+The kernel is ``csrc/flash_attention.cu``; its plain version is
+``ref.flash_attention_ref`` (float32 softmax over whole rows).  The two
+agree to float32 rounding (the kernel sums a row tile by tile), not bit
+for bit.
+
+:func:`flash_attention` takes the plain version only for tensors on the
+CPU; on CUDA tensors it launches the kernel (counting the launch in
+``flash_attention.launches``) or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import stream_of
+from repro_torch.kernels.ref import flash_attention_ref
+
+flash_attention_plain = flash_attention_ref
+
+MAX_HEAD_DIM = 128
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
+    """q: (B, Sq, H, hd); k/v: (B, Skv, KVH, hd) -> (B, Sq, H, hd) in
+    q's dtype.  float32 or bfloat16 (all three alike); hd a multiple of
+    8 up to 128; H a multiple of KVH.  Inputs are read in place through
+    their strides (the head dim must be contiguous, else it is copied)."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     scale=scale)
+    B, Sq, H, hd = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    if k.shape != (B, Skv, KVH, hd) or v.shape != k.shape:
+        raise ValueError(f"flash_attention takes q (B, Sq, H, hd) and k, v "
+                         f"(B, Skv, KVH, hd); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if hd % 8 or not 0 < hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {hd} is not a multiple of 8 in "
+                         f"[8, {MAX_HEAD_DIM}]")
+    if KVH == 0 or H % KVH:
+        raise ValueError(f"{H} query heads do not group over {KVH} KV heads")
+    if B * H >= 65536:
+        raise ValueError(f"B * H = {B * H} exceeds the grid's 65,535 rows")
+    if q.dtype not in (torch.float32, torch.bfloat16) \
+            or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, v "
+                        f"of one dtype, not {q.dtype}, {k.dtype}, {v.dtype}")
+    for t in (k, v):
+        if t.device != q.device:
+            raise ValueError(f"inputs on {q.device} and {t.device}")
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    scale = scale if scale is not None else hd ** -0.5
+    if B and Sq:
+        launch(q, k, v, o, causal=causal, window=window, scale=scale)
+        flash_attention.launches += 1
+    return o
+
+
+flash_attention.launches = 0
+
+
+def launch(q, k, v, o, *, causal, window, scale) -> None:
+    """Launch K6 on checked CUDA tensors (``o`` allocated by the caller)
+    on the current stream; raise on a launch error."""
+    lib = _build.LIBS.get("flash_attention")
+    B, Sq, H, hd = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+    err = lib.zipper_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        int(q.dtype == torch.bfloat16), B, H, KVH, Sq, Skv, hd, *strides,
+        float(scale), int(bool(causal)), int(window), stream_of(q))
+    _build.check(lib, err, "flash_attention")

@@ -1,7 +1,8 @@
-"""Plain-torch oracles of the host tier's stream instructions.
+"""Plain-torch oracles of the host tier's stream instructions and of
+flash attention.
 
-Port of ``repro.kernels.ref`` (its SpGEMM half), bit for bit on the same
-inputs:
+Port of ``repro.kernels.ref``.  The SpGEMM half is bit for bit on the
+same inputs:
 
 ``stream_sort_ref``  == mssortk.tt + mssortv.tt
     Sort each stream's key chunk ascending, sum the values of duplicate
@@ -21,12 +22,20 @@ reference's ``segment_sum`` adds on the CPU; the sort is stable, as
 ``jnp.argsort`` is.  bfloat16 values are summed in float32 and rounded
 once.  These are the plain versions of the K4 and K5 kernels
 (``stream_sort.py``, ``stream_merge.py``).
+
+``flash_attention_ref`` is the plain version of K6
+(``flash_attention.py``): the function the reference's Pallas kernel
+``_fa_kernel`` computes, softmax over whole rows in float32.
+``mha_ref`` is the reference's own attention oracle, bf16 einsums and
+all.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.merge_tree import EMPTY
+
+NEG_INF = -1e30
 
 
 def _mask_chunk(keys, vals, lens):
@@ -108,3 +117,55 @@ def stream_merge_ref(ka, va, la, kb, vb, lb):
     k, v, out_lens = _sort_combine_compress(cat_k.to(torch.int32), cat_v)
     return (k[:, :R], v[:, :R], k[:, R:], v[:, R:], consumed_a, consumed_b,
             out_lens)
+
+
+def _attention_mask(Sq, Skv, causal, window, device):
+    """(Sq, Skv) validity of each (query, key) pair; query i sits at
+    position i + Skv - Sq."""
+    qpos = torch.arange(Sq, device=device)[:, None] + (Skv - Sq)
+    kpos = torch.arange(Skv, device=device)[None, :]
+    mask = kpos < Skv
+    if causal:
+        mask = mask & (qpos >= kpos)
+    if window:
+        mask = mask & (qpos - kpos < window)
+    return mask
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
+    """GQA attention as the flash-attention kernel computes it.
+
+    q: (B, Sq, H, hd); k/v: (B, Skv, KVH, hd); query head h reads KV head
+    h // (H // KVH).  q, k and v are upcast to float32; scores are
+    scaled by ``scale`` (default hd ** -0.5); masked scores are set to
+    NEG_INF = -1e30; softmax and the PV product are in float32, the
+    denominator floored at 1e-30; the result is rounded to q.dtype once.
+    Returns (B, Sq, H, hd)."""
+    B, Sq, H, hd = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    scale = scale if scale is not None else hd ** -0.5
+    qg = q.float().reshape(B, Sq, KVH, G, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
+    mask = _attention_mask(Sq, Skv, causal, window, q.device)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bkgqs,bskd->bkgqd", p, v.float())
+    out = acc / torch.clamp_min(l, 1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def mha_ref(q, k, v, *, causal=True, window=0, scale=None):
+    """q: (B, Sq, H, D); k/v: (B, Sk, KVH, D).  GQA by head broadcast;
+    both einsums in the inputs' dtype, the softmax in float32."""
+    B, Sq, H, D = q.shape
+    rep = H // k.shape[2]
+    k = torch.repeat_interleave(k, rep, dim=2)
+    v = torch.repeat_interleave(v, rep, dim=2)
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    mask = _attention_mask(Sq, k.shape[1], causal, window, q.device)
+    logits = torch.where(mask, logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)

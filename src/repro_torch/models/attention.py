@@ -1,0 +1,215 @@
+"""Attention: GQA (grouped-query, optional QKV bias).
+
+Port of the GQA half of ``repro.models.attention``.  The full-sequence
+forward (prefill) runs one of two attentions, picked by
+``cfg.attn_impl``:
+
+  ``"pallas"``  K6, the hand-written flash-attention kernel
+                (``kernels.flash_attention``; its plain version on CPU
+                tensors);
+  otherwise     :func:`blocked_attention`, the plain blocked
+                online-softmax attention in torch (memory O(S · block)),
+                with the reference's static causal block skip, bf16
+                probabilities and query offset.
+
+Decode attends the whole KV cache in plain torch, as the reference does
+(it has no kernel there).  The MLA functions wait for their slice
+(ROADMAP queue 1 item 12).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.layers import Dense, normal, rope
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+class OutProj(nn.Module):
+    """w: (num_heads, head_dim, d_model), normal init scaled by
+    (num_heads * head_dim) ** -0.5."""
+
+    def __init__(self, num_heads, head_dim, d_model, dtype, *, generator,
+                 device=None):
+        super().__init__()
+        self.w = normal((num_heads, head_dim, d_model),
+                        (num_heads * head_dim) ** -0.5, dtype,
+                        generator=generator, device=device)
+
+
+class GQA(nn.Module):
+    """wq (D, H, hd), wk/wv (D, KVH, hd) with optional biases, wo."""
+
+    def __init__(self, cfg, dtype, *, generator, device=None):
+        super().__init__()
+        hd = cfg.resolved_head_dim
+        kw = dict(generator=generator, device=device, bias=cfg.qkv_bias)
+        self.wq = Dense(cfg.d_model, (cfg.num_heads, hd), dtype, **kw)
+        self.wk = Dense(cfg.d_model, (cfg.num_kv_heads, hd), dtype, **kw)
+        self.wv = Dense(cfg.d_model, (cfg.num_kv_heads, hd), dtype, **kw)
+        self.wo = OutProj(cfg.num_heads, hd, cfg.d_model, dtype,
+                          generator=generator, device=device)
+
+
+def gqa_init(cfg, dtype, *, generator, device=None) -> GQA:
+    return GQA(cfg, dtype, generator=generator, device=device)
+
+
+# ---------------------------------------------------------------------------
+# blocked online-softmax attention (prefill; training later)
+# ---------------------------------------------------------------------------
+
+def _attend_block(q, k, v, qpos, kpos, causal, window, scale, p_bf16=False):
+    """q: (B,qb,H,hd) k/v: (B,kb,KVH,hd) -> partial (acc, m, l)."""
+    B, qb, H, hd = q.shape
+    KVH = k.shape[2]
+    G = H // KVH
+    qg = q.reshape(B, qb, KVH, G, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
+    dpos = qpos[:, None] - kpos[None, :]
+    mask = torch.ones((qb, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= dpos >= 0
+    if window:
+        mask &= dpos < window
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1)                                       # (B,KVH,G,qb)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    if p_bf16:
+        # flash-attention-2 numerics: bf16 probabilities (and values)
+        # into the PV product, accumulated in float32
+        p = p.to(torch.bfloat16).float()
+        v = v.to(torch.bfloat16)
+    acc = torch.einsum("bkgqs,bskd->bkgqd", p, v.float())
+    return acc, m, l
+
+
+def blocked_attention(q, k, v, *, causal=True, window=0, q_block=2048,
+                      kv_block=1024, block_skip=False, q_offset=0,
+                      scale=None, p_bf16=False):
+    """q: (B,Sq,H,hd); k/v: (B,Skv,KVH,hd). Returns (B,Sq,H,hd).
+
+    q_offset: global position of q[0] minus position of k[0] (prefill: 0
+    when Sq == Skv; decode chunks: cache_len).  Key padding is masked
+    only through the causal test, as in the reference."""
+    B, Sq, H, hd = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    dev = q.device
+    scale = scale if scale is not None else hd ** -0.5
+    qb = min(q_block, Sq)
+    kb = min(kv_block, Skv)
+    nq = -(-Sq // qb)
+    nk = -(-Skv // kb)
+    pad_q = nq * qb - Sq
+    pad_k = nk * kb - Skv
+    if pad_q:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q))
+    if pad_k:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k))
+    valid_k = torch.arange(nk * kb, device=dev) < Skv
+    G = H // KVH
+    hd_v = v.shape[-1]
+    outs = []
+    for i in range(nq):
+        qi = q[:, i * qb:(i + 1) * qb]
+        qpos = i * qb + torch.arange(qb, device=dev) + q_offset
+        acc = torch.zeros((B, KVH, G, qb, hd_v), dtype=torch.float32,
+                          device=dev)
+        m = torch.full((B, KVH, G, qb), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, KVH, G, qb), dtype=torch.float32, device=dev)
+        hi = nk
+        if block_skip and causal:
+            # skip kv blocks wholly after the block's last query
+            hi = min(nk, -(-((i + 1) * qb + q_offset) // kb))
+        for j in range(hi):
+            sl = slice(j * kb, (j + 1) * kb)
+            kpos = j * kb + torch.arange(kb, device=dev)
+            kpos = torch.where(valid_k[sl], kpos, Sq + Skv + 10**9)
+            a2, m2, l2 = _attend_block(qi, k[:, sl], v[:, sl], qpos, kpos,
+                                       causal, window, scale, p_bf16)
+            mn = torch.maximum(m, m2)
+            c1 = torch.exp(m - mn)
+            c2 = torch.exp(m2 - mn)
+            acc = acc * c1[..., None] + a2 * c2[..., None]
+            l = l * c1 + l2 * c2
+            m = mn
+        out = acc / torch.clamp_min(l[..., None], 1e-30)
+        outs.append(out.reshape(B, KVH * G, qb, hd_v).transpose(1, 2))
+    out = torch.cat(outs, dim=1)[:, :Sq]
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA block forward
+# ---------------------------------------------------------------------------
+
+def gqa_forward(p: GQA, x, pos, cfg):
+    """Full-sequence (prefill) causal GQA self-attention.  x: (B, S, D);
+    pos: (B, S) positions.  Returns (out (B, S, D), k, v), k/v
+    (B, S, KVH, hd) after rope, for the prefill cache."""
+    q = p.wq(x)
+    k = p.wk(x)
+    v = p.wv(x)
+    if cfg.pos_emb == "rope":
+        q = rope(q, pos, cfg.rope_theta)
+        k = rope(k, pos, cfg.rope_theta)
+    if cfg.attn_impl == "pallas":
+        out = flash_attention(q, k, v)
+    else:
+        out = blocked_attention(q, k, v, q_block=cfg.attn_q_block,
+                                kv_block=cfg.attn_kv_block,
+                                block_skip=cfg.attn_block_skip,
+                                p_bf16=cfg.attn_p_bf16)
+    return torch.einsum("bshd,hdo->bso", out, p.wo.w.to(x.dtype)), k, v
+
+
+def gqa_decode(p: GQA, x, cache_k, cache_v, cache_len: int, cfg, *,
+               window=0):
+    """One-token decode.  x: (B, 1, D); cache_k/v: (B, Smax, KVH, hd);
+    the new token sits at position ``cache_len``.  Returns (out, new_k,
+    new_v).  The default cache update is the reference's one-hot blend
+    (a new cache, touching all of it); ``cfg.decode_dus`` writes the one
+    slot in place in the given cache instead."""
+    B = x.shape[0]
+    hd = cfg.resolved_head_dim
+    pos = torch.full((B, 1), cache_len, dtype=torch.int32, device=x.device)
+    q = p.wq(x)
+    if cfg.pos_emb == "rope":
+        q = rope(q, pos, cfg.rope_theta)
+    k_new = p.wk(x)
+    if cfg.pos_emb == "rope":
+        k_new = rope(k_new, pos, cfg.rope_theta)
+    v_new = p.wv(x)
+    Smax = cache_k.shape[1]
+    if cfg.decode_dus:
+        cache_k[:, cache_len:cache_len + 1] = k_new.to(cache_k.dtype)
+        cache_v[:, cache_len:cache_len + 1] = v_new.to(cache_v.dtype)
+    else:
+        onehot = (torch.arange(Smax, device=x.device) == cache_len
+                  ).to(cache_k.dtype)[None, :, None, None]
+        cache_k = cache_k * (1 - onehot) + k_new.to(cache_k.dtype) * onehot
+        cache_v = cache_v * (1 - onehot) + v_new.to(cache_v.dtype) * onehot
+    KVH = cache_k.shape[2]
+    G = cfg.num_heads // KVH
+    qg = q.reshape(B, KVH, G, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(),
+                     cache_k.float()) * hd ** -0.5
+    kpos = torch.arange(Smax, device=x.device)
+    valid = kpos <= cache_len
+    if window:
+        valid &= kpos > cache_len - window
+    s = torch.where(valid, s, NEG_INF)
+    pbs = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", pbs, cache_v.float())
+    out = out.reshape(B, 1, cfg.num_heads, hd).to(x.dtype)
+    y = torch.einsum("bshd,hdo->bso", out, p.wo.w.to(x.dtype))
+    return y, cache_k, cache_v

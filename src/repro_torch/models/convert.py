@@ -1,0 +1,45 @@
+"""Parameters of the reference package, carried into the port's model.
+
+``params_from_jax`` takes the reference's parameter tree as nested dicts
+of numpy arrays (``jax.tree_util.tree_map(np.asarray, params)`` on the
+caller's side; nothing here imports JAX) and returns the port's
+:class:`~repro_torch.models.model.Model` with the same weights: each
+stacked group ``g{j}/s{k}`` is unstacked along its leading repeat dim
+into one block per layer, in the reference's execution order, and
+``embed/w``, ``norm/scale`` and ``lm_head/w`` are copied as they are.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.model import Model, _groups
+
+
+def _flat(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}.")
+        else:
+            yield prefix + k, v
+
+
+def params_from_jax(tree, cfg, *, device="cpu") -> Model:
+    """The port's model for ``cfg`` holding the weights of the
+    reference's parameter tree ``tree`` (nested dicts of numpy arrays),
+    on ``device``.  Raises if a parameter is missing, left over, or of
+    another shape."""
+    state = {"embed.w": tree["embed"]["w"], "norm.scale": tree["norm"]["scale"],
+             "lm_head.w": tree["lm_head"]["w"]}
+    layer = 0
+    for name, pattern, reps in _groups(cfg):
+        for r in range(reps or 1):
+            for s in range(len(pattern)):
+                for key, arr in _flat(tree[name][f"s{s}"]):
+                    state[f"layers.{layer}.{key}"] = (
+                        arr if reps is None else arr[r])
+                layer += 1
+    model = Model(cfg, generator=torch.Generator().manual_seed(0))
+    model.load_state_dict({k: torch.tensor(np.asarray(v))
+                           for k, v in state.items()}, strict=True)
+    return model.to(device)

@@ -1,0 +1,128 @@
+"""Elementary layers: plain functions on tensors and the modules that
+hold their parameters.
+
+Port of ``repro.models.layers``.  Parameters keep the reference's
+layouts and names (a dense weight is ``w`` of shape ``(in, *out)``, its
+bias ``b``; a norm's gain is ``scale``; the embedding table ``w`` is
+``(V, D)``), so a module's ``state_dict`` keys are the reference's
+parameter paths joined with dots.  Initialisers draw from an explicit
+``torch.Generator`` on the generator's device and store the result on
+``device`` in ``dtype``.  The reference's sharding constraints have no
+counterpart on one card and are dropped.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def normal(shape, scale: float, dtype, *, generator: torch.Generator,
+           device=None) -> nn.Parameter:
+    """A parameter of standard-normal draws times ``scale``, drawn in
+    float32 on the generator's device, stored as ``dtype`` on ``device``
+    (default: the generator's device)."""
+    w = torch.randn(tuple(shape), generator=generator,
+                    device=generator.device, dtype=torch.float32) * scale
+    return nn.Parameter(w.to(device=device or generator.device, dtype=dtype),
+                        requires_grad=False)
+
+
+def dense(x, w, b=None):
+    """Contract the last axis of ``x`` with the first of ``w``; ``w``
+    (and ``b``) are cast to ``x``'s dtype on every call."""
+    y = torch.tensordot(x, w.to(x.dtype), dims=([x.ndim - 1], [0]))
+    if b is not None:
+        y = y + b.to(x.dtype)
+    return y
+
+
+class Dense(nn.Module):
+    """w: (in_dim, *out_shape), fan-in scaled normal init; b zeros."""
+
+    def __init__(self, in_dim: int, out_shape: Union[int, Sequence[int]],
+                 dtype, *, generator: torch.Generator, device=None,
+                 bias: bool = False, scale: Optional[float] = None):
+        super().__init__()
+        if isinstance(out_shape, int):
+            out_shape = (out_shape,)
+        scale = scale if scale is not None else in_dim ** -0.5
+        self.w = normal((in_dim, *out_shape), scale, dtype,
+                        generator=generator, device=device)
+        self.b = (nn.Parameter(torch.zeros(tuple(out_shape), dtype=dtype,
+                                           device=self.w.device),
+                               requires_grad=False) if bias else None)
+
+    def forward(self, x):
+        return dense(x, self.w, self.b)
+
+
+def rmsnorm(x, scale, eps: float = 1e-5):
+    """RMS norm in float32, cast back to ``x``'s dtype once."""
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, dtype, *, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim, dtype=dtype, device=device),
+                                  requires_grad=False)
+
+
+def rope(x, positions, theta: float = 10000.0):
+    """Rotate-half rotary embedding.  x: (..., S, H, hd); positions:
+    (..., S).  Angles, cos and sin in float32; the result is cast back
+    to ``x``'s dtype once."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freq = theta ** (-torch.arange(half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions[..., None].to(torch.float32) * freq  # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+class MLP(nn.Module):
+    """SwiGLU MLP: w2(silu(w1 x) * w3 x)."""
+
+    def __init__(self, d_model: int, d_ff: int, dtype, *,
+                 generator: torch.Generator, device=None):
+        super().__init__()
+        kw = dict(generator=generator, device=device)
+        self.w1 = Dense(d_model, d_ff, dtype, **kw)
+        self.w2 = Dense(d_ff, d_model, dtype, **kw)
+        self.w3 = Dense(d_model, d_ff, dtype, **kw)
+
+
+def mlp(p: MLP, x):
+    h = F.silu(p.w1(x)) * p.w3(x)
+    return p.w2(h)
+
+
+class Embed(nn.Module):
+    """w: (vocab, d_model), normal init scaled by d_model ** -0.5."""
+
+    def __init__(self, vocab: int, d_model: int, dtype, *,
+                 generator: torch.Generator, device=None):
+        super().__init__()
+        self.w = normal((vocab, d_model), d_model ** -0.5, dtype,
+                        generator=generator, device=device)
+
+
+def embed_lookup(p: Embed, ids, compute_dtype):
+    """Rows ``ids`` of the table in ``compute_dtype`` (gathered, then
+    cast: the same numbers as the reference's cast-then-gather)."""
+    return p.w[ids].to(compute_dtype)
+
+
+def logits_head(p: Dense, x):
+    """x: (B, S, D) -> (B, S, V)."""
+    return p(x)

@@ -9,21 +9,31 @@ only, so it runs on a machine without JAX:
 Each kernel (K1 chunk sort, K2 partition merge, K3 fused bucket on both
 of its routes, K4 stream sort, K5 stream merge) must equal its plain
 version bit for bit — keys, values (-0.0 included), lengths and the
-mszip counters — and count its launch.
+mszip counters — and count its launch.  K6 flash attention must agree
+with its plain version within the reference sweep's tolerances (2e-4 in
+float32, 3e-2 in bf16: it sums each row tile by tile), and launch once
+per layer in a prefill and never in decode.
 """
 import numpy as np
 import pytest
 import torch
 
+import dataclasses
+
+from repro_torch.configs import base as cb
 from repro_torch.core import spgemm
 from repro_torch.core.formats import EMPTY, csr_to_numpy, random_sparse
 from repro_torch.kernels import backend as kb
 from repro_torch.kernels.chunk_sort import chunk_sort, chunk_sort_plain
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
 from repro_torch.kernels.fused_bucket import fused_bucket, fused_bucket_plain
 from repro_torch.kernels.merge_partitions import (merge_partitions,
                                                   merge_partitions_plain)
 from repro_torch.kernels.stream_merge import stream_merge, stream_merge_plain
 from repro_torch.kernels.stream_sort import stream_sort, stream_sort_plain
+from repro_torch.models import model as M
+from repro_torch.serving.engine import Engine, Request
 
 pytestmark = pytest.mark.cuda
 
@@ -229,3 +239,77 @@ def test_engine_cuda_matches_cpu(card, engine):
     if engine == "spz-host":
         counts = kb.launch_counts()
         assert counts["stream_sort"] > 0 and counts["stream_merge"] > 0
+
+
+# tests/test_kernels_attn.py's sweep, a ragged hd = 128 case, a windowed
+# bidirectional hd = 96 case, and TinyLlama's prefill shape
+ATTN = [(2, 64, 64, 4, 2, 16, True, 0), (1, 96, 96, 8, 1, 32, True, 32),
+        (2, 48, 64, 4, 4, 16, True, 0), (1, 64, 64, 2, 2, 8, False, 0),
+        (1, 128, 128, 4, 1, 64, True, 0), (2, 100, 300, 24, 8, 128, True, 0),
+        (1, 200, 200, 6, 2, 96, False, 50), (4, 512, 512, 32, 4, 64, True, 0)]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KVH,hd,causal,window", ATTN)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel(card, B, Sq, Skv, H, KVH, hd, causal, window,
+                                dtype):
+    rng = np.random.default_rng(0)
+    q, k, v = _on(card, *(rng.standard_normal(s).astype(np.float32) for s in
+                          ((B, Sq, H, hd), (B, Skv, KVH, hd),
+                           (B, Skv, KVH, hd))))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    else:  # one bf16 rounding of the float32 result both compute
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                                   atol=1e-6)
+
+
+def test_flash_attention_strided_inputs(card):
+    """q, k and v read in place through their strides (slices of one
+    packed projection)."""
+    rng = np.random.default_rng(1)
+    (qkv,) = _on(card, rng.standard_normal((2, 70, 12, 32)).astype(np.float32))
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    got = flash_attention(q, k, v)
+    want = flash_attention_plain(q.contiguous(), k.contiguous(),
+                                 v.contiguous())
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_flash_attention_rejects_unsupported(card):
+    q = torch.zeros((1, 8, 2, 136), device=card)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 3, 16), device=card, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        flash_attention(q, q, q)
+
+
+def test_engine_launches_flash_attention_once_per_layer(card):
+    """A 2-layer model at TinyLlama's full width: one K6 launch per layer
+    in the prefill, none in decode, greedy tokens equal to attn_impl="xla"
+    in float32."""
+    cfg = dataclasses.replace(cb.get_config("tinyllama_1_1b"), num_layers=2,
+                              attn_impl="pallas", dtype="float32")
+    model = M.init_params(cfg, torch.Generator(device=card).manual_seed(0))
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (64, 40)]
+    outs = {}
+    for impl in ("pallas", "xla"):
+        eng = Engine(dataclasses.replace(cfg, attn_impl=impl), model,
+                     max_batch=2, max_seq=128)
+        before = flash_attention.launches
+        reqs = eng.generate([Request(prompt=p, max_new_tokens=5)
+                             for p in prompts])
+        launched = flash_attention.launches - before
+        assert launched == (cfg.num_layers if impl == "pallas" else 0)
+        outs[impl] = [r.out.tolist() for r in reqs]
+    assert outs["pallas"] == outs["xla"]

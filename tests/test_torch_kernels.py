@@ -281,7 +281,7 @@ def test_launch_counts_reset():
     counts = kb.launch_counts()
     assert set(counts) == {"chunk_sort", "merge_partitions", "fused_bucket",
                            "fused_bucket.fused", "fused_bucket.large",
-                           "stream_sort", "stream_merge"}
+                           "stream_sort", "stream_merge", "flash_attention"}
     assert not any(counts.values())
 
 
