@@ -40,11 +40,24 @@ drives the port's main path on one card:
            held against attn_impl="xla" (plain blocked attention) within
            0.15 and finite; a 2-layer float32 model at full width held
            against the CPU (plain version) within 1e-3
-  kernels  every ported kernel and its launches on its path's run
   profile  host wall clock vs device kernel time of one spz call on the
            two SuiteSparse-scale fused-route matrices, of one spz-host
            call on cage11-full, with its waits for the card per issue,
            and of one TinyLlama generate (torch.profiler)
+  moe      Arctic-480B at full width, 2 of its 35 layers (TinyLlama's
+           engine and model dropped first): K7 grouped matmul on the
+           sweep of tests/test_kernels_attn.py, on ragged group sizes and
+           at Arctic's four serve shapes (float32 within 1e-4 of the
+           output's largest magnitude, bf16 within one rounding plus
+           that), with its time, the plain version's, torch.bmm's and its
+           bound; K6 at Arctic's prefill shape; one MoE block (bf16
+           weights from SEED) at 4 x 512 and 4 x 1 tokens through K7 vs
+           the plain grouped matmul (same keep mask, within 0.05);
+           serving behind ``Engine(max_batch=4, max_seq=1024).generate``
+           on TinyLlama's prompts x 32 greedy tokens, counters set to 0
+           before and read after: K6 once per layer, K7 three times per
+           layer per forward pass, nothing else; one profiled generate
+  kernels  every ported kernel and its launches on its path's run
 
 It imports nothing of JAX.  The JSON kernel table and the card's name
 and power limit are on the lines before the last; the last line is
@@ -811,6 +824,316 @@ def phase_serve(torch, np):
                 decode_ms=decode_ms, tokens_per_s=tokens / wall)
 
 
+# K7: tests/test_kernels_attn.py's sweep (T = 64), then ragged sizes (no
+# multiples of 8, empty groups, rows past the last group, a group of more
+# than 64 rows)
+GMM_SWEEP = [(64, 4, 16, 32, [8, 16, 0, 24]), (64, 3, 8, 8, [8, 8, 8]),
+             (64, 5, 32, 16, [0, 0, 40, 8, 0]), (64, 2, 64, 128, [32, 0])]
+GMM_RAGGED = [(37, 5, 24, 40, [3, 0, 17, 1, 9]),
+              (300, 3, 64, 136, [170, 5, 0]), (21, 4, 16, 8, [5, 6, 7, 3]),
+              (10, 1, 8, 16, [0])]
+ARCTIC_LAYERS = 2           # of 35: two layers at full width fill the card
+ARCTIC_BATCH = 4
+MOE_BLOCK_TOL = 0.05        # bf16 MoE block, K7 vs the plain version
+
+
+def _k7_check(torch, what, got, want):
+    """Max abs error of K7 against its plain version, which fails in
+    float32 above 1e-4 of the output's largest magnitude and in bf16
+    beyond one rounding (2**-7 of the value) plus that 1e-4: the two
+    float32 sums over D run in different orders."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} vs "
+                             f"{want.dtype} {tuple(want.shape)}")
+    diff = (got.float() - want.float()).abs()
+    top = float(want.float().abs().max()) if want.numel() else 0.0
+    err = float(diff.max()) if diff.numel() else 0.0
+    if got.dtype == torch.float32:
+        ok = err <= 1e-4 * top
+    else:
+        ok = bool((diff <= 2 ** -7 * want.float().abs() + 1e-4 * top).all())
+    if not ok:
+        raise AssertionError(f"{what} {got.dtype}: max abs err {err} (largest "
+                             f"|plain| {top}) beyond the tolerance")
+    return err
+
+
+def _arctic_gmm_shapes(cfg):
+    """(name, T, D, F, cap) of K7's four launches in Arctic's serving: the
+    prefill of 4 x 512 tokens (cap 40) and a decode step of 4 tokens
+    (cap 8), w1/w3 (D -> F) and w2 (F -> D)."""
+    from repro_torch.models.moe import _capacity
+
+    E, k, D, F = cfg.num_experts, cfg.top_k, cfg.d_model, cfg.moe_d_ff
+    out = []
+    for step, T in (("prefill", ARCTIC_BATCH * SERVE_PROMPTS[0]),
+                    ("decode", ARCTIC_BATCH)):
+        cap = _capacity(T, k, E, cfg.capacity_factor)
+        out += [(step, E * cap, D, F, cap), (f"{step}.w2", E * cap, F, D, cap)]
+    return out
+
+
+def moe_kernel_checks(torch, np, cfg):
+    """K7 against its plain version on the sweep and the ragged sizes
+    (float32 and bf16, numpy inputs from SEED) and at Arctic's four serve
+    shapes (float32 and bf16, inputs drawn on the card from SEED), with
+    K7's, the plain version's and torch.bmm's times and the bound in bf16;
+    then K6 at Arctic's prefill shape.  Returns the kernel table's rows."""
+    import torch.nn.functional as F_
+
+    from repro_torch.kernels import flash_attention as k6
+    from repro_torch.kernels import grouped_matmul as k7
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    worst = {}
+    for T, E, D, F, sizes in GMM_SWEEP + GMM_RAGGED:
+        x = rng.standard_normal((T, D)).astype(np.float32)
+        w = rng.standard_normal((E, D, F)).astype(np.float32)
+        gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            xt = torch.from_numpy(x).to(dev, dtype)
+            wt = torch.from_numpy(w).to(dev, dtype)
+            got = k7.grouped_matmul(xt, wt, gs)
+            err = _k7_check(torch, f"K7 {(T, E, D, F, sizes)}", got,
+                            k7.grouped_matmul_plain(xt, wt, gs))
+            if not bool((got[sum(sizes):] == 0).all()):
+                raise AssertionError(f"K7 {sizes}: rows past the last group "
+                                     f"are not zero")
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+    T, E, D, F, sizes = GMM_SWEEP[0]
+    x = torch.from_numpy(rng.standard_normal((T, D)).astype(np.float32)) \
+        .to(dev, torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((E, D, F)).astype(np.float32)) \
+        .to(dev, torch.bfloat16)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    sweep_ms = time_ms(torch, lambda: k7.grouped_matmul(x, w, gs), reps=50,
+                       warmup=5)
+    log(f"moe: K7 sweep and ragged sizes, {len(GMM_SWEEP + GMM_RAGGED)} cases "
+        f"x 2 dtypes within 1e-4 / one bf16 rounding of the plain version, "
+        f"rows past the last group zero; max abs err float32 "
+        f"{worst[torch.float32]} bf16 {worst[torch.bfloat16]}; "
+        f"{(T, E, D, F, sizes)} bf16 wrapper_ms {sweep_ms:.4f}")
+
+    rows = {}
+    gen = torch.Generator(device=dev)
+    for name, T, D, F, cap in _arctic_gmm_shapes(cfg):
+        E = cfg.num_experts
+        gen.manual_seed(SEED)
+        x32 = torch.randn((T, D), generator=gen, device=dev)
+        w32 = torch.empty((E, D, F), device=dev)
+        for e in range(E):
+            w32[e] = torch.randn((D, F), generator=gen, device=dev) * D ** -0.5
+        gs = torch.full((E,), cap, dtype=torch.int32, device=dev)
+        err32 = _k7_check(torch, f"K7 {name} float32", k7.grouped_matmul(
+            x32, w32, gs), k7.grouped_matmul_plain(x32, w32, gs))
+        x, w = x32.to(torch.bfloat16), w32.to(torch.bfloat16)
+        del x32, w32
+        got = k7.grouped_matmul(x, w, gs)
+        want = k7.grouped_matmul_plain(x, w, gs)
+        err = _k7_check(torch, f"K7 {name} bf16", got, want)
+
+        def bmm():
+            return torch.bmm(x.view(E, cap, D), w)
+
+        top = float(want.float().abs().max())
+        lib_err = float((bmm().reshape(T, F).float() - want.float())
+                        .abs().max())
+        b, by = bound_ms(nbytes(x, w, got), 2 * T * D * F, BF16_OPS_PER_S)
+        out = torch.empty_like(got)
+        rows[f"grouped_matmul.{name}"] = dict(
+            max_abs_err=err,
+            ms=time_ms(torch, lambda: k7.launch(x, w, gs, out), reps=10),
+            wrapper_ms=time_ms(torch, lambda: k7.grouped_matmul(x, w, gs),
+                               reps=10),
+            plain_ms=time_ms(torch, lambda: k7.grouped_matmul_plain(x, w, gs),
+                             reps=3, warmup=1),
+            bound_ms=b, bound_by=by, library_ms=time_ms(torch, bmm, reps=10),
+            shape=f"T={T} E={E} D={D} F={F} groups of {cap} bf16")
+        r = rows[f"grouped_matmul.{name}"]
+        log(f"moe: K7 {name} {r['shape']} max_abs_err {err} (float32 "
+            f"{err32}; largest |plain| {top}; torch.bmm vs plain {lib_err}) "
+            f"kernel_ms {r['ms']:.4f} wrapper_ms {r['wrapper_ms']:.4f} "
+            f"plain_ms {r['plain_ms']:.4f} bound_ms {b:.5f} ({by}) "
+            f"library_ms {r['library_ms']:.4f} (torch.bmm over (E, cap, D))")
+        del x, w, got, want, out
+        torch.cuda.empty_cache()
+
+    # K6 at Arctic's prefill shape
+    B, S = ARCTIC_BATCH, SERVE_PROMPTS[0]
+    H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q, k, v = _attn_inputs(torch, np, rng, B, S, S, H, KVH, hd, torch.float32)
+    err32 = _k6_check(torch, "K6 arctic float32", k6.flash_attention(q, k, v),
+                      k6.flash_attention_plain(q, k, v), 2e-4)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    got = k6.flash_attention(q, k, v)
+    want = k6.flash_attention_plain(q, k, v)
+    err = _k6_check(torch, "K6 arctic bf16", got, want, 3e-2)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        return F_.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True)
+
+    ops = 4 * hd * B * H * (S * (S + 1) // 2)
+    b, by = bound_ms(nbytes(q, k, v, got), ops, BF16_OPS_PER_S)
+    out = torch.empty_like(q)
+    rows["flash_attention.arctic"] = r = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: k6.launch(q, k, v, out, causal=True,
+                                            window=0, scale=hd ** -0.5)),
+        wrapper_ms=time_ms(torch, lambda: k6.flash_attention(q, k, v)),
+        plain_ms=time_ms(torch, lambda: k6.flash_attention_plain(q, k, v),
+                         reps=5, warmup=1),
+        bound_ms=b, bound_by=by, library_ms=time_ms(torch, sdpa),
+        shape=f"B={B} S={S} H={H} KVH={KVH} hd={hd} bf16 causal")
+    log(f"moe: K6 flash_attention.arctic {r['shape']} max_abs_err {err} "
+        f"(float32 {err32}) kernel_ms {r['ms']:.4f} wrapper_ms "
+        f"{r['wrapper_ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
+        f"{b:.5f} ({by}) library_ms {r['library_ms']:.4f} (SDPA, enable_gqa)")
+    return rows
+
+
+def _ptxas_summary(build, name):
+    """One line per kernel of ``csrc/<name>.cu`` from the build's ``-Xptxas
+    -v`` log: its (mangled) entry name, registers and spills."""
+    import re
+
+    text = (build.LIBS.build_dir / f"{name}.log").read_text()
+    for entry in text.split("Compiling entry function '")[1:]:
+        fn = entry.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", entry)
+        spill = re.search(r"(\d+) bytes spill stores", entry)
+        log(f"moe: ptxas {name}: {fn} {regs.group(1) if regs else '?'} "
+            f"registers, {spill.group(1) if spill else '?'} bytes spilled")
+
+
+def _moe_block_check(torch, cfg, ffn, x, label):
+    """One MoE block through K7 and through the plain grouped matmul on
+    the same input: the same keep mask (routing runs before the expert
+    products), finite outputs within MOE_BLOCK_TOL, equal aux losses.
+    Returns the number of dropped assignments."""
+    from repro_torch.kernels import grouped_matmul as k7
+    from repro_torch.models import moe
+
+    xt = x.reshape(-1, cfg.d_model)
+    keeps = [moe._assign(ffn, xt, cfg)[5] for _ in range(2)]
+    if not torch.equal(*keeps):
+        raise AssertionError(f"moe block {label}: keep masks differ")
+    before = k7.grouped_matmul.launches
+    got, aux = moe.moe_block(ffn, x, cfg)
+    launched = k7.grouped_matmul.launches - before
+    want, aux_p = moe.moe_block(ffn, x, cfg, gmm=k7.grouped_matmul_plain)
+    err = float((got.float() - want.float()).abs().max())
+    if launched != 3 or not bool(torch.isfinite(got).all()) \
+            or not err <= MOE_BLOCK_TOL or not torch.equal(aux, aux_p):
+        raise AssertionError(f"moe block {label}: K7 launched {launched} "
+                             f"times, max abs err {err}, aux {aux} vs {aux_p}")
+    dropped = int((~keeps[0]).sum())
+    log(f"moe: block at {label}: K7 vs the plain grouped matmul max abs err "
+        f"{err} (tolerance {MOE_BLOCK_TOL}), finite, same keep mask, aux "
+        f"{float(aux)}; {dropped} of {keeps[0].numel()} assignments dropped")
+    return dropped
+
+
+def phase_moe(torch, np, serve):
+    """Arctic-480B at full width, 2 of its 35 layers: K7 and K6 at its
+    shapes, one MoE block through K7 against the plain grouped matmul,
+    serving through the engine (counters set to 0 before one measured
+    generate and read after: K6 once per layer, K7 three times per layer
+    per forward pass, nothing else), and one profiled generate."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import base as cb
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import backend as kb
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine, Request
+
+    for name in ("grouped_matmul", "flash_attention"):
+        _ptxas_summary(_build, name)
+    serve.pop("generate", None)  # TinyLlama's engine and model
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(cb.get_config("arctic-480b"),
+                              num_layers=ARCTIC_LAYERS, attn_impl="pallas")
+    rows = moe_kernel_checks(torch, np, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"moe: {cfg.name}: {cfg.num_layers} of 35 layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads} KV "
+        f"heads, hd {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
+        f"{cfg.num_experts} experts top-{cfg.top_k} of moe_d_ff "
+        f"{cfg.moe_d_ff}, vocab {cfg.vocab_size}; {n_params:,} "
+        f"{cfg.param_dtype} parameters made on the card in "
+        f"{time.perf_counter() - t0:.1f} s; compute {cfg.dtype}")
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ffn = params.layers[0].ffn
+    for S in (SERVE_PROMPTS[0], 1):
+        x = torch.randn((ARCTIC_BATCH, S, cfg.d_model), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        dropped = _moe_block_check(torch, cfg, ffn, x,
+                                   f"{ARCTIC_BATCH} x {S} tokens")
+        if S == 1 and dropped:
+            raise AssertionError("a decode step dropped assignments")
+
+    eng = Engine(cfg, params, max_batch=ARCTIC_BATCH, max_seq=1024)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in SERVE_PROMPTS]
+
+    def generate():
+        return eng.generate([Request(prompt=p, max_new_tokens=SERVE_NEW_TOKENS)
+                             for p in prompts])
+
+    generate()  # warm
+    torch.cuda.synchronize()
+    kb.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = generate()
+    wall = time.perf_counter() - t0
+    counts = kb.launch_counts()
+    passes = 1 + len(eng.stats["decode_s"])
+    want = {"flash_attention": cfg.num_layers,
+            "grouped_matmul": 3 * cfg.num_layers * passes}
+    others = {k: n for k, n in counts.items() if n and k not in want}
+    if any(counts[k] != n for k, n in want.items()) or others:
+        raise AssertionError(f"one generate launched {counts} (want {want} "
+                             f"and nothing else)")
+    for r in reqs:
+        if r.out.shape != (SERVE_NEW_TOKENS,) or r.out.min() < 0 \
+                or r.out.max() >= cfg.vocab_size:
+            raise AssertionError(f"bad tokens {r.out}")
+    tokens = sum(len(r.out) for r in reqs)
+    prefill_ms = eng.stats["prefill_s"] * 1e3
+    decode_ms = statistics.median(eng.stats["decode_s"]) * 1e3
+    log(f"moe: generate of {len(reqs)} requests x {SERVE_NEW_TOKENS} tokens "
+        f"(prompts {SERVE_PROMPTS}) in {wall * 1e3:.1f} ms; {passes} forward "
+        f"passes; K6 launched {counts['flash_attention']} times, K7 "
+        f"{counts['grouped_matmul']} times (3 x {cfg.num_layers} layers x "
+        f"{passes} passes), nothing else launched")
+    log(f"moe: max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"moe: prefill_ms {prefill_ms:.3f}")
+    log(f"moe: decode_ms_per_token {decode_ms:.3f} (median of "
+        f"{len(eng.stats['decode_s'])} steps)")
+    log(f"moe: tokens_per_s {tokens / wall:.1f}")
+    log(f"moe: first tokens {[r.out[:6].tolist() for r in reqs]}")
+    _profiled(torch, f"{cfg.name} ({cfg.num_layers} layers) generate "
+              f"({len(SERVE_PROMPTS)} x {SERVE_NEW_TOKENS} tokens)", generate)
+    return dict(rows=rows, counts=counts, prefill_ms=prefill_ms,
+                decode_ms=decode_ms, tokens_per_s=tokens / wall)
+
+
 def phase_inputs(np):
     """The 16 matrices of the main paths plus dense-row-full, and the
     scl-array oracle of each (host numpy)."""
@@ -846,7 +1169,8 @@ def main() -> int:
                                           res["spgemm"][1])),
               ("engines", lambda: phase_engines(torch, np, *res["inputs"])),
               ("serve", lambda: phase_serve(torch, np)),
-              ("profile", lambda: phase_profile(torch, res["serve"])))
+              ("profile", lambda: phase_profile(torch, res["serve"])),
+              ("moe", lambda: phase_moe(torch, np, res["serve"])))
     for label, fn in phases:
         t0 = time.perf_counter()
         try:
@@ -863,12 +1187,14 @@ def main() -> int:
         log(f"chip_smoke: FAILED phases {failed}")
         return 1
     name = res["device"]
-    rows = {**res["kernel"], **res["attention"]}
+    rows = {**res["kernel"], **res["attention"], **res["moe"]["rows"]}
     # each kernel's launches on its own path's run
     counts = {k: v for k, v in res["spgemm"][0].items()
               if not k.startswith("stream_") and k != "flash_attention"}
     counts.update((k, res["host"][k]) for k in ("stream_sort", "stream_merge"))
     counts["flash_attention"] = res["serve"]["counts"]["flash_attention"]
+    counts["flash_attention.arctic"] = res["moe"]["counts"]["flash_attention"]
+    counts["grouped_matmul"] = res["moe"]["counts"]["grouped_matmul"]
     log("kernels: " + ", ".join(f"{k}={v}" for k, v in counts.items()))
     sources = {
         "chunk_sort": ("src/repro_torch/kernels/csrc/chunk_sort.cu",
@@ -883,6 +1209,8 @@ def main() -> int:
                          "src/repro/kernels/stream_merge.py:69"),
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:72"),
+        "grouped_matmul": ("src/repro_torch/kernels/csrc/grouped_matmul.cu",
+                           "src/repro/kernels/grouped_matmul.py:35"),
     }
     table = []
     for key, r in rows.items():

@@ -21,6 +21,10 @@ What the fields mean in the port, where it differs from the reference:
   ``remat`` acts only in training, which the port does not run yet.
 - ``scan_unroll`` does nothing: the port runs its layers in a Python
   loop, not a scan.
+- ``moe_dispatch`` picks nothing on one card: with no mesh every MoE
+  block takes the capacity-padded einsum dispatch
+  (``models.moe._einsum_moe``), as the reference does without a mesh;
+  its expert products run through K7 (``kernels.grouped_matmul``).
 - ``dtype`` is the compute dtype of activations and of the KV cache;
   ``param_dtype`` the dtype parameters are stored in (each matmul casts
   its weight to the activation dtype, as the reference does).
@@ -37,7 +41,7 @@ from typing import Optional, Tuple
 #   cross_attn  self-attention + cross-attention + MLP
 #   rglru       RG-LRU recurrent block + MLP
 #   ssd         Mamba-2 SSD block (standalone, no MLP)
-# The port builds "attn" with a dense FFN; the others raise.
+# The port builds "attn" with a dense or MoE FFN; the others raise.
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,10 +178,11 @@ class ModelConfig:
         return int(n)
 
 
-# the architectures whose every layer the port can build (dense GQA
-# attention + SwiGLU MLP); the reference's others wait for their slices
+# the architectures whose every layer the port can build (GQA attention
+# with a SwiGLU MLP or an MoE FFN); the reference's others wait for their
+# slices
 ARCH_IDS = ["tinyllama_1_1b", "phi4_mini_3_8b", "qwen1_5_0_5b",
-            "granite_3_2b"]
+            "granite_3_2b", "arctic_480b"]
 
 
 def norm_id(name: str) -> str:
@@ -189,7 +194,7 @@ def _module(name: str):
     if arch not in ARCH_IDS:
         raise NotImplementedError(
             f"architecture {name!r} is not ported yet (ROADMAP queue 1 item "
-            f"12: MLA, MoE, SSM/RG-LRU, local and cross attention and the "
+            f"12: MLA, SSM/RG-LRU, local and cross attention and the "
             f"encoder wait); ported: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 

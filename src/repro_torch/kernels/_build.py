@@ -58,6 +58,9 @@ SIGNATURES = {
         "zipper_flash_attention": ([_P] * 4 + [_I] * 7 + [_L] * 12
                                    + [ctypes.c_float, _I, _I, _P], _I),
     },
+    "grouped_matmul": {
+        "zipper_grouped_matmul": ([_P] * 4 + [_I] * 6 + [_P], _I),
+    },
 }
 
 

@@ -32,6 +32,7 @@ import torch
 from repro_torch.kernels import chunk_sort as _k1
 from repro_torch.kernels import flash_attention as _k6
 from repro_torch.kernels import fused_bucket as _k3
+from repro_torch.kernels import grouped_matmul as _k7
 from repro_torch.kernels import merge_partitions as _k2
 from repro_torch.kernels import merge_tree, ref
 from repro_torch.kernels import stream_merge as _k5
@@ -106,7 +107,8 @@ KERNELS = {"chunk_sort": _k1.chunk_sort,
            "fused_bucket": _k3.fused_bucket,
            "stream_sort": _k4.stream_sort,
            "stream_merge": _k5.stream_merge,
-           "flash_attention": _k6.flash_attention}
+           "flash_attention": _k6.flash_attention,
+           "grouped_matmul": _k7.grouped_matmul}
 
 
 def launch_counts() -> dict:

@@ -1,0 +1,88 @@
+"""K7, grouped (per-expert) matmul: CUDA kernel wrapper and its plain
+version.
+
+Port of the Pallas kernel
+``repro.kernels.grouped_matmul.grouped_matmul_pallas``: x (T, D) rows
+grouped by expert, w (E, D, F), group_sizes (E,) int32 -> (T, F) in x's
+dtype, each group's rows times its expert's weights, rows at or past
+``sum(group_sizes)`` zero.  The kernel is ``csrc/grouped_matmul.cu``; its
+plain version is ``ref.grouped_matmul_ref``.  Both sum in float32 and
+round once; they agree to float32 rounding (the kernel sums in another
+order), not bit for bit.
+
+:func:`grouped_matmul` takes the plain version only for tensors on the
+CPU; on CUDA tensors it launches the kernel (counting the launch in
+``grouped_matmul.launches``) or raises.  The sizes stay on the card: the
+kernel maps rows to groups itself, so a launch adds no host wait.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import stream_of
+from repro_torch.kernels.ref import grouped_matmul_ref
+
+grouped_matmul_plain = grouped_matmul_ref
+
+MAX_GRID_ROWS = 65535
+
+
+def row_tile(T: int, E: int) -> int:
+    """The kernel's row tile: the smallest of 16, 32 and 64 that holds the
+    mean group size, so that one tile covers a capacity-padded group of
+    up to 64 rows and its expert's weights are read once per launch."""
+    mean = -(-T // max(E, 1))
+    return next((bm for bm in (16, 32) if mean <= bm), 64)
+
+
+def grouped_matmul(x, w, group_sizes):
+    """x: (T, D); w: (E, D, F) of x's dtype (float32 or bfloat16);
+    group_sizes: (E,) integer sizes >= 0 with sum <= T, on x's device.
+    D and F multiples of 8.  Returns (T, F) in x's dtype."""
+    if x.device.type == "cpu":
+        return grouped_matmul_plain(x, w, group_sizes)
+    if x.dim() != 2 or w.dim() != 3 or w.shape[1] != x.shape[1] \
+            or group_sizes.shape != (w.shape[0],):
+        raise ValueError(f"grouped_matmul takes x (T, D), w (E, D, F) and "
+                         f"group_sizes (E,); got {tuple(x.shape)}, "
+                         f"{tuple(w.shape)}, {tuple(group_sizes.shape)}")
+    T, D = x.shape
+    E, _, F = w.shape
+    if D % 8 or F % 8:
+        raise ValueError(f"D = {D} and F = {F} must be multiples of 8")
+    if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype:
+        raise TypeError(f"grouped_matmul takes float32 or bfloat16 x and w "
+                        f"of one dtype, not {x.dtype} and {w.dtype}")
+    if group_sizes.dtype.is_floating_point:
+        raise TypeError(f"group sizes of dtype {group_sizes.dtype}")
+    for t in (w, group_sizes):
+        if t.device != x.device:
+            raise ValueError(f"inputs on {x.device} and {t.device}")
+    bm = row_tile(T, E)
+    if -(-T // bm) + E + 1 > MAX_GRID_ROWS:
+        raise ValueError(f"T = {T} rows in {E} groups exceed the grid's "
+                         f"{MAX_GRID_ROWS} row tiles")
+    x, w = x.contiguous(), w.contiguous()
+    sizes = group_sizes.to(torch.int32).contiguous()
+    out = torch.empty((T, F), dtype=x.dtype, device=x.device)
+    if T and F:
+        launch(x, w, sizes, out)
+        grouped_matmul.launches += 1
+    return out
+
+
+grouped_matmul.launches = 0
+
+
+def launch(x, w, sizes, out) -> None:
+    """Launch K7 on checked, contiguous CUDA tensors (``out`` allocated by
+    the caller) on the current stream; raise on a launch error."""
+    lib = _build.LIBS.get("grouped_matmul")
+    T, D = x.shape
+    E, _, F = w.shape
+    err = lib.zipper_grouped_matmul(
+        x.data_ptr(), w.data_ptr(), sizes.data_ptr(), out.data_ptr(),
+        int(x.dtype == torch.bfloat16), T, D, F, E, row_tile(T, E),
+        stream_of(x))
+    _build.check(lib, err, "grouped_matmul")

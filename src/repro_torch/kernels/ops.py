@@ -67,3 +67,36 @@ def merge_partitions(ka, va, la, kb_, vb, lb, *, R: int = 16,
     return bk.merge_partitions(ka, va, la, kb_, vb, lb, R=R,
                                pair_streams=pair_streams,
                                with_counters=with_counters)
+
+
+# K4 sorts one front of width n in one CTA's shared memory (16 bytes a
+# slot): 8,192 is the widest power of two that fits in 227 KB
+SORT_TOKENS_MAX_FRONT = 8192
+
+
+def sort_tokens_by_key(keys, *, backend="auto"):
+    """Zipper-dispatch helper used by the MoE layer: ascending argsort of a
+    1-D key vector, implemented as a stream sort whose values are slot ids.
+
+    Unlike stream_sort, duplicates are kept (each key is made unique by
+    packing the slot id into the low bits), because MoE dispatch must not
+    merge tokens routed to the same expert — it only needs them grouped.
+    On the ``cuda`` backend a power-of-two n from 8 to
+    ``SORT_TOKENS_MAX_FRONT`` (8,192) is sorted by K4 as one front of
+    width n, as the reference's ``pallas`` tier does; any other n, and
+    the ``torch`` backend (the MoE block's route, as the reference's
+    ``xla``), take an argsort of the packed keys.
+    Returns (sorted_keys, perm) such that keys[perm] == sorted_keys.
+    """
+    (n,) = keys.shape
+    bits = max(1, (n - 1).bit_length())
+    slot = torch.arange(n, dtype=torch.int32, device=keys.device)
+    packed = (keys.to(torch.int32) << bits) | slot
+    bk = kb.resolve_backend(backend, keys.device)
+    if bk.name == "cuda" and n & (n - 1) == 0 \
+            and 8 <= n <= SORT_TOKENS_MAX_FRONT:
+        lens = torch.full((1,), n, dtype=torch.int32, device=keys.device)
+        pk, pv, _ = bk.stream_sort(packed[None], slot.float()[None], lens)
+        return pk[0] >> bits, pv[0].to(torch.int32)
+    order = torch.argsort(packed)
+    return keys[order], order.to(torch.int32)

@@ -27,7 +27,8 @@ once.  These are the plain versions of the K4 and K5 kernels
 (``flash_attention.py``): the function the reference's Pallas kernel
 ``_fa_kernel`` computes, softmax over whole rows in float32.
 ``mha_ref`` is the reference's own attention oracle, bf16 einsums and
-all.
+all.  ``grouped_matmul_ref`` is the plain version of K7
+(``grouped_matmul.py``), float32 products rounded once.
 """
 from __future__ import annotations
 
@@ -169,3 +170,27 @@ def mha_ref(q, k, v, *, causal=True, window=0, scale=None):
     logits = torch.where(mask, logits, NEG_INF)
     p = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
+
+
+# ---------------------------------------------------------------------------
+# grouped (per-expert) matmul oracle
+# ---------------------------------------------------------------------------
+
+def grouped_matmul_ref(x, w, group_sizes):
+    """x: (T, D) rows grouped by expert (group g owns rows [cum[g] -
+    group_sizes[g], cum[g])); w: (E, D, F).  Rows at or past the last
+    group are zero.  Returns (T, F) in x's dtype.
+
+    The plain version of K7 (``grouped_matmul.py``): a loop over the
+    groups, ``x[s:e].float() @ w[g].float()`` rounded once to x's dtype.
+    It reads the sizes to the host and never builds the reference's
+    ``w[gid]``, a (T, D, F) tensor."""
+    T, F = x.shape[0], w.shape[2]
+    out = torch.zeros((T, F), dtype=x.dtype, device=x.device)
+    start = 0
+    for g, n in enumerate(group_sizes.tolist()):
+        end = min(start + max(n, 0), T)
+        if end > start:
+            out[start:end] = (x[start:end].float() @ w[g].float()).to(x.dtype)
+        start = end
+    return out

@@ -7,6 +7,9 @@ caller's side; nothing here imports JAX) and returns the port's
 stacked group ``g{j}/s{k}`` is unstacked along its leading repeat dim
 into one block per layer, in the reference's execution order, and
 ``embed/w``, ``norm/scale`` and ``lm_head/w`` are copied as they are.
+A block's subtree is carried path for path, the MoE FFN's included
+(``ffn.router.w``, ``ffn.experts.{w1,w3,w2}``, ``ffn.dense_mlp.*``,
+``ffn.shared.*``).
 """
 from __future__ import annotations
 

@@ -13,8 +13,11 @@ parameter paths:
   norm.scale
   lm_head.w            (D, V)
 
-The cache is a list with one ``{"k", "v"}`` dict per layer.  forward,
-prefill and decode run under ``torch.inference_mode()``.  The training
+A block's FFN is the MoE block (``models/moe.py``) when ``cfg.moe`` and
+the layer is not one of the leading dense units; ``forward`` sums the
+MoE load-balance losses into ``aux`` as the reference does.  The cache
+is a list with one ``{"k", "v"}`` dict per layer.  forward, prefill and
+decode run under ``torch.inference_mode()``.  The training
 loss (``loss_fn``, the chunked cross-entropy) and the whisper encoder
 wait for their slices.
 """

@@ -1,11 +1,12 @@
 """Transformer sublayers: init, full-sequence apply, KV cache, decode.
 
 Port of ``repro.models.transformer`` for the kind the port builds:
-``"attn"``, a pre-norm residual block of GQA self-attention and a dense
-SwiGLU MLP.  Its cache is ``{"k", "v"}``, each (B, Smax, KVH, hd) in the
-compute dtype.  The other kinds (``local_attn``, ``cross_attn``,
-``rglru``, ``ssd``), MoE FFNs and MLA raise ``NotImplementedError``
-naming the ROADMAP item they wait for.
+``"attn"``, a pre-norm residual block of GQA self-attention and an FFN,
+a SwiGLU MLP or, when ``cfg.moe`` and the layer uses it, the MoE block
+(``models/moe.py``).  Its cache is ``{"k", "v"}``, each (B, Smax, KVH,
+hd) in the compute dtype.  The other kinds (``local_attn``,
+``cross_attn``, ``rglru``, ``ssd``) and MLA raise
+``NotImplementedError`` naming the ROADMAP item they wait for.
 
 Functions take the block module ``p`` where the reference takes its
 parameter subtree, and return what the reference returns.
@@ -16,6 +17,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import MLP, RMSNorm, mlp, rmsnorm
 
 _WAITING = {
@@ -34,9 +36,9 @@ def _cdtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def check_ported(kind, cfg, *, use_moe=True) -> None:
+def check_ported(kind, cfg) -> None:
     """Raise ``NotImplementedError`` unless the port builds this
-    sublayer: kind "attn", GQA, dense FFN."""
+    sublayer: kind "attn" with GQA."""
     if kind in _WAITING:
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet: "
                                   f"{_WAITING[kind]}")
@@ -45,10 +47,6 @@ def check_ported(kind, cfg, *, use_moe=True) -> None:
     if cfg.mla:
         raise NotImplementedError("MLA attention is not ported yet (ROADMAP "
                                   "queue 1 item 12)")
-    if cfg.moe and use_moe:
-        raise NotImplementedError("MoE FFNs are not ported yet (ROADMAP queue "
-                                  "1 item 12, with K7 grouped matmul: queue 2 "
-                                  "item 7)")
 
 
 # ---------------------------------------------------------------------------
@@ -56,20 +54,23 @@ def check_ported(kind, cfg, *, use_moe=True) -> None:
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """norm1, mixer (GQA), norm2, ffn (SwiGLU MLP)."""
+    """norm1, mixer (GQA), norm2, ffn (SwiGLU MLP, or MoE when
+    ``cfg.moe and use_moe``)."""
 
     def __init__(self, kind, cfg, *, generator, device=None, use_moe=True):
         super().__init__()
-        check_ported(kind, cfg, use_moe=use_moe)
+        check_ported(kind, cfg)
         device = device or generator.device
         dt = _dtype(cfg)
         D = cfg.d_model
+        kw = dict(generator=generator, device=device)
         self.kind = kind
+        self.use_moe = use_moe
         self.norm1 = RMSNorm(D, dt, device=device)
-        self.mixer = attn.gqa_init(cfg, dt, generator=generator,
-                                   device=device)
+        self.mixer = attn.gqa_init(cfg, dt, **kw)
         self.norm2 = RMSNorm(D, dt, device=device)
-        self.ffn = MLP(D, cfg.d_ff, dt, generator=generator, device=device)
+        self.ffn = (moe_mod.moe_init(cfg, dt, **kw) if cfg.moe and use_moe
+                    else MLP(D, cfg.d_ff, dt, **kw))
 
 
 def sublayer_init(kind, cfg, *, generator, device=None, use_moe=True):
@@ -77,9 +78,17 @@ def sublayer_init(kind, cfg, *, generator, device=None, use_moe=True):
                  use_moe=use_moe)
 
 
+def _ffn_apply(p: Block, x, cfg):
+    """The block's FFN on x: (y, MoE aux loss or 0.0)."""
+    if cfg.moe and p.use_moe:
+        return moe_mod.moe_block(p.ffn, x, cfg)
+    return mlp(p.ffn, x), 0.0
+
+
 def sublayer_apply(p: Block, kind, x, pos, cfg, *, cache=None):
-    """Full-sequence causal forward.  Returns (x, aux, cache): ``cache``
-    is the populated prefill cache when a (zeroed) cache is passed, else
+    """Full-sequence causal forward.  Returns (x, aux, cache): ``aux`` is
+    the MoE load-balance loss (0.0 for a dense FFN); ``cache`` is the
+    populated prefill cache when a (zeroed) cache is passed, else
     None."""
     h = rmsnorm(x, p.norm1.scale, cfg.norm_eps)
     y, k, v = attn.gqa_forward(p.mixer, h, pos, cfg)
@@ -87,8 +96,8 @@ def sublayer_apply(p: Block, kind, x, pos, cfg, *, cache=None):
         cache = sublayer_prefill_cache(cache, k, v)
     x = x + y
     h2 = rmsnorm(x, p.norm2.scale, cfg.norm_eps)
-    x = x + mlp(p.ffn, h2)
-    return x, 0.0, cache
+    y2, aux = _ffn_apply(p, h2, cfg)
+    return x + y2, aux, cache
 
 
 # ---------------------------------------------------------------------------
@@ -114,8 +123,8 @@ def sublayer_decode(p: Block, kind, x, cache, cache_len, cfg):
     cache = dict(cache, k=ck, v=cv)
     x = x + y
     h2 = rmsnorm(x, p.norm2.scale, cfg.norm_eps)
-    x = x + mlp(p.ffn, h2)
-    return x, cache, 0.0
+    y2, aux = _ffn_apply(p, h2, cfg)
+    return x + y2, cache, aux
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,11 @@ version bit for bit — keys, values (-0.0 included), lengths and the
 mszip counters — and count its launch.  K6 flash attention must agree
 with its plain version within the reference sweep's tolerances (2e-4 in
 float32, 3e-2 in bf16: it sums each row tile by tile), and launch once
-per layer in a prefill and never in decode.
+per layer in a prefill and never in decode.  K7 grouped matmul must
+agree with its plain version within 1e-4 of the output's largest
+magnitude in float32 and one bf16 rounding (plus that 1e-4) in bf16,
+write exact zeros past the last group, and launch three times per MoE
+layer per forward pass.
 """
 import numpy as np
 import pytest
@@ -28,8 +32,11 @@ from repro_torch.kernels.chunk_sort import chunk_sort, chunk_sort_plain
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.fused_bucket import fused_bucket, fused_bucket_plain
+from repro_torch.kernels.grouped_matmul import (grouped_matmul,
+                                                grouped_matmul_plain)
 from repro_torch.kernels.merge_partitions import (merge_partitions,
                                                   merge_partitions_plain)
+from repro_torch.kernels.ops import sort_tokens_by_key
 from repro_torch.kernels.stream_merge import stream_merge, stream_merge_plain
 from repro_torch.kernels.stream_sort import stream_sort, stream_sort_plain
 from repro_torch.models import model as M
@@ -313,3 +320,90 @@ def test_engine_launches_flash_attention_once_per_layer(card):
         assert launched == (cfg.num_layers if impl == "pallas" else 0)
         outs[impl] = [r.out.tolist() for r in reqs]
     assert outs["pallas"] == outs["xla"]
+
+
+# tests/test_kernels_attn.py's sweep (T = 64), then ragged sizes (no
+# multiples of 8, empty groups, rows past the last group, a group of more
+# than 64 rows, F not a multiple of the 128-column tile), a single empty
+# group, and no groups at all
+GMM = [(64, 4, 16, 32, [8, 16, 0, 24]), (64, 3, 8, 8, [8, 8, 8]),
+       (64, 5, 32, 16, [0, 0, 40, 8, 0]), (64, 2, 64, 128, [32, 0]),
+       (37, 5, 24, 40, [3, 0, 17, 1, 9]), (300, 3, 64, 136, [170, 5, 0]),
+       (21, 4, 16, 8, [5, 6, 7, 3]), (10, 1, 8, 16, [0]),
+       (9, 0, 8, 24, []), (1024, 40, 256, 264, [8] * 40)]
+
+
+@pytest.mark.parametrize("T,E,D,F,sizes", GMM)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_matmul_kernel(card, T, E, D, F, sizes, dtype):
+    rng = np.random.default_rng(0)
+    x, w = _on(card, rng.standard_normal((T, D)).astype(np.float32),
+               rng.standard_normal((E, D, F)).astype(np.float32))
+    x, w = x.to(dtype), w.to(dtype)
+    (gs,) = _on(card, np.array(sizes, np.int32))
+    before = grouped_matmul.launches
+    got = grouped_matmul(x, w, gs)
+    torch.cuda.synchronize()
+    assert grouped_matmul.launches == before + 1
+    assert got.dtype == dtype and got.shape == (T, F)
+    want = grouped_matmul_plain(x, w, gs).float()
+    diff = (got.float() - want).abs()
+    top = float(want.abs().max()) if want.numel() else 0.0
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 1e-4 * top
+    else:  # one bf16 rounding; the float32 sums run in other orders
+        assert bool((diff <= 2 ** -7 * want.abs() + 1e-4 * top).all())
+    assert bool((got[sum(sizes):] == 0).all())
+
+
+def test_grouped_matmul_rejects_unsupported(card):
+    x = torch.zeros((16, 12), device=card)
+    sizes = torch.full((2,), 8, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        grouped_matmul(x, torch.zeros((2, 12, 8), device=card), sizes)
+    x = torch.zeros((16, 8), device=card)
+    with pytest.raises(TypeError):
+        grouped_matmul(x, torch.zeros((2, 8, 8), device=card,
+                                      dtype=torch.bfloat16), sizes)
+    with pytest.raises(ValueError, match="group_sizes"):
+        grouped_matmul(x, torch.zeros((3, 8, 8), device=card), sizes)
+
+
+@pytest.mark.parametrize("n", [8, 64, 1024, 8192, 100, 16384])
+def test_sort_tokens_by_key_cuda_branch(card, n):
+    """Powers of two from 8 to 8,192 go through K4 as one front; the rest
+    take the argsort.  Both give the torch route's permutation."""
+    (keys,) = _on(card, np.random.default_rng(n).integers(0, 128, n)
+                  .astype(np.int32))
+    before = stream_sort.launches
+    got_k, got_p = sort_tokens_by_key(keys, backend="cuda")
+    want_k, want_p = sort_tokens_by_key(keys, backend="torch")
+    assert stream_sort.launches - before == int(n & (n - 1) == 0
+                                                and n <= 8192)
+    _eq(want_p, got_p)
+    _eq(want_k, got_k)
+
+
+def test_engine_launches_grouped_matmul_per_moe_layer(card):
+    """Arctic's smoke config on the card: K7 three times per MoE layer per
+    forward pass (1 prefill + the decode steps), K6 once per layer, and
+    the greedy tokens of the CPU (plain versions) in float32."""
+    cfg = dataclasses.replace(cb.get_smoke_config("arctic_480b"),
+                              attn_impl="pallas", dtype="float32")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (40, 25)]
+    outs = {}
+    for dev in ("cpu", card):
+        model = M.init_params(cfg, torch.Generator().manual_seed(0),
+                              device=dev)
+        eng = Engine(cfg, model, max_batch=2, max_seq=64, device=dev)
+        kb.reset_launch_counts()
+        reqs = eng.generate([Request(prompt=p, max_new_tokens=6)
+                             for p in prompts])
+        counts = kb.launch_counts()
+        outs[str(dev)] = [r.out.tolist() for r in reqs]
+    passes = 1 + len(eng.stats["decode_s"])
+    assert counts["grouped_matmul"] == 3 * cfg.num_layers * passes
+    assert counts["flash_attention"] == cfg.num_layers
+    assert outs["cpu"] == outs[str(card)]

@@ -281,7 +281,8 @@ def test_launch_counts_reset():
     counts = kb.launch_counts()
     assert set(counts) == {"chunk_sort", "merge_partitions", "fused_bucket",
                            "fused_bucket.fused", "fused_bucket.large",
-                           "stream_sort", "stream_merge", "flash_attention"}
+                           "stream_sort", "stream_merge", "flash_attention",
+                           "grouped_matmul"}
     assert not any(counts.values())
 
 

@@ -1,13 +1,14 @@
-"""The port's dense LLM path against the JAX reference, on the CPU.
+"""The port's LLM path against the JAX reference, on the CPU.
 
-For the smoke configs of the four ported dense architectures (TinyLlama,
-Qwen1.5, Granite-3, Phi4-mini): the configs themselves, the elementary
-layers, ``forward`` / ``prefill`` / ``decode_step`` with the reference's
-weights carried across by ``params_from_jax``, and the serving engine's
-greedy tokens.  In float32 the logits agree within 1e-4; with the bf16
-default within 0.15, the bound ``tests/test_archs.py`` allows for bf16
-reorderings.
+For the smoke configs of the five ported architectures (the dense
+TinyLlama, Qwen1.5, Granite-3 and Phi4-mini, and the MoE Arctic): the
+configs themselves, the elementary layers, ``forward`` / ``prefill`` /
+``decode_step`` with the reference's weights carried across by
+``params_from_jax``, and the serving engine's greedy tokens.  In float32
+the logits agree within 1e-4; with the bf16 default within 0.15, the
+bound ``tests/test_archs.py`` allows for bf16 reorderings.
 """
+import contextlib
 import dataclasses
 
 import jax
@@ -60,8 +61,9 @@ def test_config_matches_reference(arch):
     assert tcb.get_config(arch.replace("_", "-")) == tcb.get_config(arch)
 
 
-@pytest.mark.parametrize("arch", ["arctic_480b", "deepseek_v2_236b",
-                                  "mamba2_780m", "whisper_small"])
+@pytest.mark.parametrize("arch", ["deepseek_v2_236b", "mamba2_780m",
+                                  "whisper_small", "llama_3_2_vision_11b",
+                                  "recurrentgemma_9b"])
 def test_unported_architectures_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcb.get_config(arch)
@@ -70,7 +72,7 @@ def test_unported_architectures_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TM.init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.check_ported("attn", dataclasses.replace(cfg, moe=True))
+        ttf.check_ported("attn", dataclasses.replace(cfg, mla=True))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -98,7 +100,10 @@ def test_layers_match_reference(arch, dtype):
     assert got.dtype == tdt
     np.testing.assert_allclose(_np(got), _np(want), **tol)
     jffn = jax.tree_util.tree_map(lambda a: a[0], jp["g0"]["s0"]["ffn"])
-    got = tlayers.mlp(model.layers[0].ffn, xt)
+    ffn = model.layers[0].ffn
+    if jcfg.moe:  # the MoE block's dense residual MLP (test_torch_moe.py
+        jffn, ffn = jffn["dense_mlp"], ffn.dense_mlp  # holds the block)
+    got = tlayers.mlp(ffn, xt)
     want = jlayers.mlp(jffn, xj)
     if dtype == "float32":
         np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=1e-5)
@@ -112,6 +117,17 @@ def test_layers_match_reference(arch, dtype):
                                              ("bfloat16", "xla"),
                                              ("bfloat16", "pallas")])
 def test_forward_prefill_decode_match_reference(arch, dtype, attn_impl):
+    """In bf16 an MoE reference runs eagerly, as the port does: under jit,
+    XLA's fusions round bf16 elsewhere, and for Arctic that flips one
+    token's top-2 experts (the jitted reference's logits differ from its
+    own eager ones by 1.99 at that token, where the port's and the eager
+    reference's differ by less than 0.06)."""
+    eager = tcb.get_smoke_config(arch).moe and dtype == "bfloat16"
+    with jax.disable_jit() if eager else contextlib.nullcontext():
+        _forward_prefill_decode(arch, dtype, attn_impl)
+
+
+def _forward_prefill_decode(arch, dtype, attn_impl):
     jcfg, tcfg, jp, model = _models(arch, dtype=dtype, attn_impl=attn_impl)
     tol = 1e-4 if dtype == "float32" else 0.15
     B, S = 2, 16

@@ -1,0 +1,239 @@
+"""The port's MoE path against the JAX reference, on the CPU.
+
+K7's plain version (``repro_torch.kernels.grouped_matmul`` on CPU
+tensors) against the reference's Pallas kernel in interpret mode and its
+``grouped_matmul_ref`` oracle on the sweep of
+``tests/test_kernels_attn.py``, and against the oracle alone on ragged
+group sizes; ``sort_tokens_by_key`` against the reference's ``xla``
+tier; ``moe_block`` against the reference's ``moe_block(dispatch=
+"einsum")`` with the weights carried across by ``params_from_jax``, for
+Arctic's smoke config (dense residual MLP) and DeepSeek-V2's smoke MoE
+settings (a shared expert, a leading dense layer), with and without
+dropped tokens; and the serving CLI on Arctic's smoke config.  Inputs
+come from a seeded numpy generator and go to both packages.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.core  # noqa: F401  (binds the reference's kernels package)
+from repro.configs import base as jcb
+from repro.kernels import ops as jops
+from repro.kernels.grouped_matmul import grouped_matmul_pallas
+from repro.kernels.ref import grouped_matmul_ref as jax_grouped_matmul_ref
+from repro.models import model as JM
+from repro.models import moe as jmoe
+from repro_torch.configs import base as tcb
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels.grouped_matmul import grouped_matmul, row_tile
+from repro_torch.launch import serve as tserve
+from repro_torch.models import moe as tmoe
+from repro_torch.models.convert import params_from_jax
+
+DTYPES = {"float32": (torch.float32, jnp.float32),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+BF16_ULP = 2.0 ** -7   # one bf16 rounding, relative
+
+# tests/test_kernels_attn.py's sweep: T = 64, sizes multiples of 8
+SWEEP = [(4, 16, 32, [8, 16, 0, 24]), (3, 8, 8, [8, 8, 8]),
+         (5, 32, 16, [0, 0, 40, 8, 0]), (2, 64, 128, [32, 0])]
+# sizes that are no multiples of 8, empty groups, rows past the last group
+RAGGED = [(37, 5, 24, 40, [3, 0, 17, 1, 9]), (80, 3, 64, 136, [70, 5, 0]),
+          (10, 1, 8, 16, [0]), (21, 4, 16, 8, [5, 6, 7, 3])]
+
+
+def _np(t):
+    if isinstance(t, torch.Tensor):
+        return t.float().numpy()
+    return np.asarray(t, np.float32)
+
+
+def _assert_one_rounding(got, want):
+    """|got - want| within one bf16 rounding of want (2**-7 of it) plus
+    1e-4 of the largest |want|: the float32 sums run in other orders."""
+    got, want = _np(got), _np(want)
+    assert got.shape == want.shape
+    bound = BF16_ULP * np.abs(want) + 1e-4 * np.abs(want).max()
+    assert (np.abs(got - want) <= bound).all(), np.abs(got - want).max()
+
+
+def _assert_close32(got, want, rel=1e-4):
+    """|got - want| within ``rel`` of the largest |want|."""
+    got, want = _np(got), _np(want)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= rel * np.abs(want).max()
+
+
+def _gmm_inputs(T, E, D, F, sizes, seed=1):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((T, D)).astype(np.float32)
+    w = rng.standard_normal((E, D, F)).astype(np.float32)
+    return x, w, np.array(sizes, np.int32)
+
+
+@pytest.mark.parametrize("E,D,F,sizes", SWEEP)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_matmul_plain_matches_pallas_and_ref(E, D, F, sizes, dtype):
+    tdt, jdt = DTYPES[dtype]
+    x, w, gs = _gmm_inputs(64, E, D, F, sizes)
+    got = grouped_matmul(torch.from_numpy(x).to(tdt),
+                         torch.from_numpy(w).to(tdt), torch.from_numpy(gs))
+    assert got.dtype == tdt and got.shape == (64, F)
+    xj, wj = jnp.asarray(x).astype(jdt), jnp.asarray(w).astype(jdt)
+    pallas = grouped_matmul_pallas(xj, wj, jnp.asarray(gs), bt=8)
+    oracle = jax_grouped_matmul_ref(xj.astype(jnp.float32),
+                                    wj.astype(jnp.float32), jnp.asarray(gs))
+    for want in (pallas, oracle):
+        if dtype == "float32":
+            _assert_close32(got, want)
+        else:
+            _assert_one_rounding(got, want)
+    assert not _np(got)[gs.sum():].any()
+
+
+@pytest.mark.parametrize("T,E,D,F,sizes", RAGGED)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_matmul_plain_ragged_sizes(T, E, D, F, sizes, dtype):
+    tdt, jdt = DTYPES[dtype]
+    x, w, gs = _gmm_inputs(T, E, D, F, sizes, seed=2)
+    got = grouped_matmul(torch.from_numpy(x).to(tdt),
+                         torch.from_numpy(w).to(tdt), torch.from_numpy(gs))
+    want = jax_grouped_matmul_ref(
+        jnp.asarray(x).astype(jdt).astype(jnp.float32),
+        jnp.asarray(w).astype(jdt).astype(jnp.float32), jnp.asarray(gs))
+    if dtype == "float32":
+        _assert_close32(got, want)
+    else:
+        _assert_one_rounding(got, want)
+    assert not _np(got)[gs.sum():].any()
+
+
+def test_grouped_matmul_row_tile():
+    # Arctic's decode (cap 8) and prefill (cap 40) groups, one tile each
+    assert row_tile(1024, 128) == 16 and row_tile(5120, 128) == 64
+    assert row_tile(64, 4) == 16 and row_tile(96, 3) == 32
+    assert row_tile(10, 0) == 16 and row_tile(700, 2) == 64
+
+
+@pytest.mark.parametrize("n", [8, 64, 256, 100, 1000])
+def test_sort_tokens_by_key_matches_reference(n):
+    keys = np.random.default_rng(n).integers(0, 8, n).astype(np.int32)
+    want_k, want_p = jops.sort_tokens_by_key(jnp.asarray(keys), backend="xla")
+    got_k, got_p = tops.sort_tokens_by_key(torch.from_numpy(keys),
+                                           backend="torch")
+    assert got_p.dtype == torch.int32
+    np.testing.assert_array_equal(got_p.numpy(), np.asarray(want_p))
+    np.testing.assert_array_equal(got_k.numpy(), np.asarray(want_k))
+    # "auto" on CPU tensors is the torch route; "cuda" refuses them
+    np.testing.assert_array_equal(
+        tops.sort_tokens_by_key(torch.from_numpy(keys))[1].numpy(),
+        got_p.numpy())
+    with pytest.raises(ValueError, match="cuda"):
+        tops.sort_tokens_by_key(torch.from_numpy(keys), backend="cuda")
+
+
+def _moe_config(name, **overrides):
+    """(reference config, port config): Arctic's smoke config, or
+    DeepSeek-V2's smoke MoE settings (one shared expert, a leading dense
+    layer) on GQA attention, since the port has no MLA yet."""
+    if name == "arctic":
+        jcfg = jcb.get_smoke_config("arctic_480b")
+    else:
+        jcfg = dataclasses.replace(jcb.get_smoke_config("deepseek_v2_236b"),
+                                   mla=False)
+    jcfg = dataclasses.replace(jcfg, **overrides)
+    return jcfg, tcb.ModelConfig(**dataclasses.asdict(jcfg))
+
+
+def _moe_blocks(jcfg, tcfg, seed=0):
+    """The reference's and the port's MoE blocks of the last layer, with
+    the same weights (carried across by params_from_jax)."""
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(seed))
+    model = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tcfg)
+    jffn = jax.tree_util.tree_map(lambda a: a[-1], jp["g0"]["s0"]["ffn"])
+    return jffn, model.layers[-1].ffn
+
+
+@pytest.mark.parametrize("name", ["arctic", "deepseek"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_block_matches_reference(name, dtype):
+    tdt, jdt = DTYPES[dtype]
+    jcfg, tcfg = _moe_config(name, dtype=dtype)
+    jffn, ffn = _moe_blocks(jcfg, tcfg)
+    x = np.random.default_rng(4).standard_normal(
+        (2, 12, jcfg.d_model)).astype(np.float32)
+    want, want_aux = jmoe.moe_block(jffn, jnp.asarray(x).astype(jdt), jcfg,
+                                    dispatch="einsum")
+    got, got_aux = tmoe.moe_block(ffn, torch.from_numpy(x).to(tdt), tcfg)
+    assert got.dtype == tdt and tuple(got.shape) == want.shape
+    if dtype == "float32":
+        np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(float(got_aux), float(want_aux),
+                                   rtol=1e-6)
+    else:  # bf16 matmuls and sums rounded at other places
+        np.testing.assert_allclose(_np(got), _np(want), rtol=0.05, atol=0.05)
+        np.testing.assert_allclose(float(got_aux), float(want_aux),
+                                   rtol=1e-3)
+
+
+@pytest.mark.parametrize("name", ["arctic", "deepseek"])
+def test_moe_block_drops_tokens_like_reference(name):
+    """T·k > 256 takes the capacity; at capacity factor 0.5 the experts
+    overflow, and the same assignments are dropped."""
+    jcfg, tcfg = _moe_config(name, dtype="float32", capacity_factor=0.5)
+    jffn, ffn = _moe_blocks(jcfg, tcfg, seed=1)
+    x = np.random.default_rng(5).standard_normal(
+        (2, 80, jcfg.d_model)).astype(np.float32)
+    xt = torch.from_numpy(x).reshape(-1, jcfg.d_model)
+    _, _, _, cap, pos, keep = tmoe._assign(ffn, xt, tcfg)
+    T = xt.shape[0]
+    assert T * tcfg.top_k > 256 and cap == 24
+    assert 0 < int((~keep).sum()) < T * tcfg.top_k
+    assert int(pos.max()) >= cap
+    want, want_aux = jmoe.moe_block(jffn, jnp.asarray(x), jcfg,
+                                    dispatch="einsum")
+    got, got_aux = tmoe.moe_block(ffn, torch.from_numpy(x), tcfg)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(float(got_aux), float(want_aux), rtol=1e-6)
+
+
+def test_moe_block_plain_gmm_is_the_same_block():
+    """The gmm argument (the card's checks pass the plain version) changes
+    which grouped matmul runs, not the block: on the CPU both are the
+    plain version."""
+    from repro_torch.kernels.grouped_matmul import grouped_matmul_plain
+
+    jcfg, tcfg = _moe_config("arctic", dtype="float32")
+    _, ffn = _moe_blocks(jcfg, tcfg)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (1, 5, jcfg.d_model)).astype(np.float32))
+    a, _ = tmoe.moe_block(ffn, x, tcfg)
+    b, _ = tmoe.moe_block(ffn, x, tcfg, gmm=grouped_matmul_plain)
+    assert torch.equal(a, b)
+
+
+def test_deepseek_moe_settings_forward_matches_reference():
+    """A leading dense layer then an MoE layer with a shared expert
+    (first_k_dense = 1): the whole forward, and its aux loss."""
+    jcfg, tcfg = _moe_config("deepseek", dtype="float32")
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(2))
+    model = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tcfg)
+    assert [type(b.ffn).__name__ for b in model.layers] == ["MLP", "MoE"]
+    toks = np.random.default_rng(7).integers(0, jcfg.vocab_size, (2, 10))
+    want, want_aux, _ = JM.forward(jp, jcfg, jnp.asarray(toks, jnp.int32))
+    from repro_torch.models import model as TM
+    got, got_aux, _ = TM.forward(model, tcfg, torch.from_numpy(toks))
+    assert np.abs(_np(got) - _np(want)).max() < 1e-4
+    np.testing.assert_allclose(float(got_aux), float(want_aux), rtol=1e-6)
+
+
+def test_serve_cli_arctic_smoke_on_cpu(capsys):
+    tserve.main(["--arch", "arctic-480b", "--smoke", "--device", "cpu",
+                 "--requests", "2", "--prompt-len", "6", "--new-tokens",
+                 "3", "--max-seq", "16"])
+    out = capsys.readouterr().out
+    assert "6 tokens in" in out and out.count("req") == 2
