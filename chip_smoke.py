@@ -26,17 +26,20 @@ drives the port's main path on one card:
            esc on the stand-ins, against scl-array everywhere) and
            ``scl-hash`` on the stand-ins against scl-array
   attention  K6 flash attention on the sweep of tests/test_kernels_attn.py
-           (float32 and bf16) and at TinyLlama's prefill shapes (B = 4,
-           S = 512 and B = 1, S = 4,096; H = 32, KVH = 4, hd = 64, bf16,
-           causal), held against its plain version on the same card
-           inputs within 2e-4 (float32) / 3e-2 (bf16), with its time, the
-           plain version's, SDPA's and its bound
+           (float32 on the fma route, bf16 on the wgmma route, each
+           route's counter checked) and at TinyLlama's prefill shapes
+           (B = 4, S = 512 and B = 1, S = 4,096; H = 32, KVH = 4, hd = 64,
+           bf16, causal), held against its plain version on the same card
+           inputs within 2e-4 (float32) / 3e-2 and one bf16 rounding
+           (bf16), with its time, TFLOP/s, the plain version's time,
+           SDPA's and its bound
   serve    the LLM path: TinyLlama-1.1B at full width (22 layers, random
            fp32 weights from SEED, bf16 compute, attn_impl="pallas")
            behind ``Engine(max_batch=4, max_seq=1024).generate`` on 4
            ragged prompts (512, 480, 400, 300 tokens) x 32 greedy tokens,
            counters set to 0 before and read after: K6 launched exactly
-           once per layer, nothing else; the prefill's last-token logits
+           once per layer, all on the wgmma route, nothing else; the
+           prefill's last-token logits
            held against attn_impl="xla" (plain blocked attention) within
            0.15 and finite; a 2-layer float32 model at full width held
            against the CPU (plain version) within 1e-3
@@ -49,14 +52,20 @@ drives the port's main path on one card:
            sweep of tests/test_kernels_attn.py, on ragged group sizes and
            at Arctic's four serve shapes (float32 within 1e-4 of the
            output's largest magnitude, bf16 within one rounding plus
-           that), with its time, the plain version's, torch.bmm's and its
-           bound; K6 at Arctic's prefill shape; one MoE block (bf16
-           weights from SEED) at 4 x 512 and 4 x 1 tokens through K7 vs
-           the plain grouped matmul (same keep mask, within 0.05);
-           serving behind ``Engine(max_batch=4, max_seq=1024).generate``
-           on TinyLlama's prompts x 32 greedy tokens, counters set to 0
-           before and read after: K6 once per layer, K7 three times per
-           layer per forward pass, nothing else; one profiled generate
+           that), with its time (float32 too), the plain version's,
+           torch.bmm's and its bound, in the contiguous layout and in the
+           counts layout (prefill: every expert keeps 1 to cap rows;
+           decode: 8 experts from SEED do; rows no expert keeps hold
+           noise and must come out exactly zero; held against the plain
+           version and the contiguous launch on the kept rows); K6 at
+           Arctic's prefill shape; one MoE block (bf16 weights from SEED)
+           at 4 x 512 and 4 x 1 tokens through K7 vs the plain grouped
+           matmul (same keep mask, within 0.05); serving behind
+           ``Engine(max_batch=4, max_seq=1024).generate`` on TinyLlama's
+           prompts x 32 greedy tokens, counters set to 0 before and read
+           after: K6 once per layer on the wgmma route, K7 three times
+           per layer per forward pass in the counts layout, nothing else;
+           one profiled generate
   kernels  every ported kernel and its launches on its path's run
 
 It imports nothing of JAX.  The JSON kernel table and the card's name
@@ -647,6 +656,20 @@ def _k6_check(torch, what, got, want, tol):
     return err
 
 
+def _k6_routed(torch, k6, q, k, v, **kw):
+    """K6's wrapper on card inputs, failing unless the launch took the
+    route of its dtype (bf16: wgmma, float32: fma)."""
+    route = "wgmma" if q.dtype == torch.bfloat16 else "fma"
+    before = dict(k6.flash_attention.routes)
+    out = k6.flash_attention(q, k, v, **kw)
+    after = k6.flash_attention.routes
+    if {r: after[r] - before[r] for r in after} != {
+            r: int(r == route) for r in after}:
+        raise AssertionError(f"K6 {q.dtype} did not take the {route} route "
+                             f"alone: {before} -> {after}")
+    return out
+
+
 def phase_attention(torch, np):
     """K6 against its plain version on the same card inputs: the sweep of
     tests/test_kernels_attn.py in float32 and bf16, then TinyLlama's
@@ -663,24 +686,26 @@ def phase_attention(torch, np):
         for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 3e-2)):
             q, k, v = _attn_inputs(torch, np, rng, B, Sq, Skv, H, KVH, hd,
                                    dtype)
-            got = k6.flash_attention(q, k, v, causal=causal, window=window)
+            got = _k6_routed(torch, k6, q, k, v, causal=causal,
+                             window=window)
             want = k6.flash_attention_plain(q, k, v, causal=causal,
                                             window=window)
             err = _k6_check(torch, f"K6 {case}", got, want, tol)
             worst[dtype] = max(worst.get(dtype, 0.0), err)
-    log(f"attention: K6 sweep, {len(ATTN_SWEEP)} cases x 2 dtypes within "
-        f"2e-4 / 3e-2 and one bf16 rounding of the plain version; max abs "
-        f"err float32 {worst[torch.float32]} bf16 {worst[torch.bfloat16]}")
+    log(f"attention: K6 sweep, {len(ATTN_SWEEP)} cases x 2 dtypes (fma and "
+        f"wgmma routes) within 2e-4 / 3e-2 and one bf16 rounding of the "
+        f"plain version; max abs err float32 {worst[torch.float32]} bf16 "
+        f"{worst[torch.bfloat16]}")
     rows = {}
     H, KVH, hd = 32, 4, 64
     for name, B, S in (("flash_attention", 4, 512),
                        ("flash_attention.4096", 1, 4096)):
         q, k, v = _attn_inputs(torch, np, rng, B, S, S, H, KVH, hd,
                                torch.float32)
-        err32 = _k6_check(torch, f"K6 {name} float32", k6.flash_attention(
-            q, k, v), k6.flash_attention_plain(q, k, v), 2e-4)
+        err32 = _k6_check(torch, f"K6 {name} float32", _k6_routed(
+            torch, k6, q, k, v), k6.flash_attention_plain(q, k, v), 2e-4)
         q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
-        got = k6.flash_attention(q, k, v)
+        got = _k6_routed(torch, k6, q, k, v)
         want = k6.flash_attention_plain(q, k, v)
         err = _k6_check(torch, f"K6 {name} bf16", got, want, 3e-2)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -708,9 +733,10 @@ def phase_attention(torch, np):
                              reps=5, warmup=1),
             bound_ms=b, bound_by=by, library_ms=time_ms(torch, sdpa),
             shape=f"B={B} S={S} H={H} KVH={KVH} hd={hd} bf16 causal")
+        rows[name]["tflops"] = ops / rows[name]["ms"] / 1e9
         log(f"attention: {name} {rows[name]['shape']} max_abs_err {err} "
             f"(float32 {err32}; SDPA vs plain {lib_err}) kernel_ms "
-            f"{rows[name]['ms']:.4f} "
+            f"{rows[name]['ms']:.4f} ({rows[name]['tflops']:.1f} TFLOP/s) "
             f"wrapper_ms {rows[name]['wrapper_ms']:.4f} plain_ms "
             f"{rows[name]['plain_ms']:.4f} bound_ms {b:.5f} ({by}) "
             f"library_ms {rows[name]['library_ms']:.4f} (SDPA, enable_gqa)")
@@ -767,11 +793,12 @@ def phase_serve(torch, np):
     reqs = generate()
     wall = time.perf_counter() - t0
     counts = kb.launch_counts()
-    others = {k: n for k, n in counts.items() if n and k != "flash_attention"}
-    if counts["flash_attention"] != cfg.num_layers or others:
-        raise AssertionError(f"one generate launched K6 "
-                             f"{counts['flash_attention']} times (want "
-                             f"{cfg.num_layers}) and {others}")
+    want = {"flash_attention": cfg.num_layers,
+            "flash_attention.wgmma": cfg.num_layers}
+    others = {k: n for k, n in counts.items() if n and k not in want}
+    if any(counts[k] != n for k, n in want.items()) or others:
+        raise AssertionError(f"one generate launched {counts} (want {want} "
+                             f"and nothing else)")
     for r in reqs:
         if r.out.shape != (SERVE_NEW_TOKENS,) or r.out.min() < 0 \
                 or r.out.max() >= cfg.vocab_size:
@@ -781,7 +808,8 @@ def phase_serve(torch, np):
     decode_ms = statistics.median(eng.stats["decode_s"]) * 1e3
     log(f"serve: generate of {len(reqs)} requests x {SERVE_NEW_TOKENS} "
         f"tokens (prompts {SERVE_PROMPTS}) in {wall * 1e3:.1f} ms; K6 "
-        f"launched {counts['flash_attention']} times, nothing else launched")
+        f"launched {counts['flash_attention']} times, all on the wgmma "
+        f"route, nothing else launched")
     log(f"serve: prefill_ms {prefill_ms:.3f}")
     log(f"serve: decode_ms_per_token {decode_ms:.3f} (median of "
         f"{len(eng.stats['decode_s'])} steps)")
@@ -925,10 +953,13 @@ def moe_kernel_checks(torch, np, cfg):
         for e in range(E):
             w32[e] = torch.randn((D, F), generator=gen, device=dev) * D ** -0.5
         gs = torch.full((E,), cap, dtype=torch.int32, device=dev)
-        err32 = _k7_check(torch, f"K7 {name} float32", k7.grouped_matmul(
-            x32, w32, gs), k7.grouped_matmul_plain(x32, w32, gs))
+        got = k7.grouped_matmul(x32, w32, gs)
+        err32 = _k7_check(torch, f"K7 {name} float32", got,
+                          k7.grouped_matmul_plain(x32, w32, gs))
+        fp32_ms = time_ms(torch, lambda: k7.launch(x32, w32, gs, got),
+                          reps=3, warmup=1)
         x, w = x32.to(torch.bfloat16), w32.to(torch.bfloat16)
-        del x32, w32
+        del x32, w32, got
         got = k7.grouped_matmul(x, w, gs)
         want = k7.grouped_matmul_plain(x, w, gs)
         err = _k7_check(torch, f"K7 {name} bf16", got, want)
@@ -949,13 +980,33 @@ def moe_kernel_checks(torch, np, cfg):
             plain_ms=time_ms(torch, lambda: k7.grouped_matmul_plain(x, w, gs),
                              reps=3, warmup=1),
             bound_ms=b, bound_by=by, library_ms=time_ms(torch, bmm, reps=10),
+            fp32_ms=fp32_ms,
             shape=f"T={T} E={E} D={D} F={F} groups of {cap} bf16")
         r = rows[f"grouped_matmul.{name}"]
         log(f"moe: K7 {name} {r['shape']} max_abs_err {err} (float32 "
             f"{err32}; largest |plain| {top}; torch.bmm vs plain {lib_err}) "
-            f"kernel_ms {r['ms']:.4f} wrapper_ms {r['wrapper_ms']:.4f} "
-            f"plain_ms {r['plain_ms']:.4f} bound_ms {b:.5f} ({by}) "
-            f"library_ms {r['library_ms']:.4f} (torch.bmm over (E, cap, D))")
+            f"kernel_ms {r['ms']:.4f} (float32 {fp32_ms:.4f}) wrapper_ms "
+            f"{r['wrapper_ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
+            f"{b:.5f} ({by}) library_ms {r['library_ms']:.4f} (torch.bmm "
+            f"over (E, cap, D))")
+        # the counts layout, as the MoE block launches K7: at the prefill
+        # every expert keeps 1 to cap rows, at decode 8 experts do
+        if name.startswith("prefill"):
+            counts = rng.integers(1, cap + 1, E)
+        else:
+            counts = np.zeros(E, np.int64)
+            counts[rng.choice(E, 8, replace=False)] = rng.integers(1, cap + 1,
+                                                                  8)
+        rows[f"grouped_matmul.{name}.counts"] = r = _k7_counts_row(
+            torch, np, k7, f"{name}.counts", x, w, cap, counts)
+        r["library_ms"] = rows[f"grouped_matmul.{name}"]["library_ms"]
+        log(f"moe: K7 {name}.counts {r['shape']} max_abs_err "
+            f"{r['max_abs_err']} (vs the contiguous launch on the kept rows "
+            f"{r['packed_err']}), unkept rows exactly zero; kernel_ms "
+            f"{r['ms']:.4f} wrapper_ms {r['wrapper_ms']:.4f} plain_ms "
+            f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.5f} "
+            f"({r['bound_by']}) library_ms {r['library_ms']:.4f} (torch.bmm "
+            f"over (E, cap, D), the same call as above)")
         del x, w, got, want, out
         torch.cuda.empty_cache()
 
@@ -963,10 +1014,11 @@ def moe_kernel_checks(torch, np, cfg):
     B, S = ARCTIC_BATCH, SERVE_PROMPTS[0]
     H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q, k, v = _attn_inputs(torch, np, rng, B, S, S, H, KVH, hd, torch.float32)
-    err32 = _k6_check(torch, "K6 arctic float32", k6.flash_attention(q, k, v),
+    err32 = _k6_check(torch, "K6 arctic float32", _k6_routed(torch, k6, q, k,
+                                                             v),
                       k6.flash_attention_plain(q, k, v), 2e-4)
     q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
-    got = k6.flash_attention(q, k, v)
+    got = _k6_routed(torch, k6, q, k, v)
     want = k6.flash_attention_plain(q, k, v)
     err = _k6_check(torch, "K6 arctic bf16", got, want, 3e-2)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -987,16 +1039,60 @@ def moe_kernel_checks(torch, np, cfg):
                          reps=5, warmup=1),
         bound_ms=b, bound_by=by, library_ms=time_ms(torch, sdpa),
         shape=f"B={B} S={S} H={H} KVH={KVH} hd={hd} bf16 causal")
+    r["tflops"] = ops / r["ms"] / 1e9
     log(f"moe: K6 flash_attention.arctic {r['shape']} max_abs_err {err} "
-        f"(float32 {err32}) kernel_ms {r['ms']:.4f} wrapper_ms "
+        f"(float32 {err32}) kernel_ms {r['ms']:.4f} ({r['tflops']:.1f} "
+        f"TFLOP/s) wrapper_ms "
         f"{r['wrapper_ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
         f"{b:.5f} ({by}) library_ms {r['library_ms']:.4f} (SDPA, enable_gqa)")
     return rows
 
 
+def _k7_counts_row(torch, np, k7, name, x, w, cap, counts):
+    """K7 in the counts layout on (T, D) rows of noise, group g keeping
+    its first counts[g] of cap rows: the unkept rows come out exactly
+    zero, the result agrees with the plain version and with the
+    contiguous launch on the kept rows packed together.  Returns the
+    kernel table's row; its bound counts the kept rows of x, the weights
+    of the experts that keep rows, and all of the output."""
+    (T, D), (E, _, F) = x.shape, w.shape
+    dev = x.device
+    kept = torch.zeros(T, dtype=torch.bool)
+    for g in np.nonzero(counts)[0]:
+        kept[g * cap:g * cap + min(int(counts[g]), cap)] = True
+    kept = kept.to(dev)
+    gs = torch.from_numpy(counts.astype(np.int32)).to(dev)
+    before = k7.grouped_matmul.routes["counts"]
+    got = k7.grouped_matmul(x, w, gs, cap=cap)
+    if k7.grouped_matmul.routes["counts"] != before + 1:
+        raise AssertionError(f"K7 {name} did not take the counts layout")
+    if not bool((got[~kept] == 0).all()):
+        raise AssertionError(f"K7 {name}: unkept rows are not zero")
+    want = k7.grouped_matmul_plain(x, w, gs, cap=cap)
+    err = _k7_check(torch, f"K7 {name} bf16", got, want)
+    sizes = torch.from_numpy(np.minimum(counts, cap).astype(np.int32)).to(dev)
+    packed_err = _k7_check(torch, f"K7 {name} vs the contiguous launch",
+                           got[kept], k7.grouped_matmul(x[kept], w, sizes))
+    n_kept, n_experts = int(kept.sum()), int((counts > 0).sum())
+    b, by = bound_ms(2 * (n_kept * D + n_experts * D * F + T * F) + 4 * E,
+                     2 * n_kept * D * F, BF16_OPS_PER_S)
+    out = torch.empty_like(got)
+    return dict(
+        max_abs_err=err, packed_err=packed_err,
+        ms=time_ms(torch, lambda: k7.launch(x, w, gs, out, cap=cap), reps=10),
+        wrapper_ms=time_ms(torch, lambda: k7.grouped_matmul(x, w, gs, cap=cap),
+                           reps=10),
+        plain_ms=time_ms(torch, lambda: k7.grouped_matmul_plain(
+            x, w, gs, cap=cap), reps=3, warmup=1),
+        bound_ms=b, bound_by=by,
+        shape=f"T={T} E={E} D={D} F={F} cap {cap}, {n_experts} experts "
+              f"keep {n_kept} rows, bf16")
+
+
 def _ptxas_summary(build, name):
     """One line per kernel of ``csrc/<name>.cu`` from the build's ``-Xptxas
-    -v`` log: its (mangled) entry name, registers and spills."""
+    -v`` log: its (mangled) entry name, registers and spills; then any
+    advisory of ptxas that it serialised wgmma (C75xx)."""
     import re
 
     text = (build.LIBS.build_dir / f"{name}.log").read_text()
@@ -1006,6 +1102,9 @@ def _ptxas_summary(build, name):
         spill = re.search(r"(\d+) bytes spill stores", entry)
         log(f"moe: ptxas {name}: {fn} {regs.group(1) if regs else '?'} "
             f"registers, {spill.group(1) if spill else '?'} bytes spilled")
+    advice = [line.strip() for line in text.splitlines() if "(C75" in line]
+    log(f"moe: ptxas {name}: {len(advice)} wgmma advisories"
+        + "".join(f"\n  {line}" for line in advice))
 
 
 def _moe_block_check(torch, cfg, ffn, x, label):
@@ -1104,7 +1203,9 @@ def phase_moe(torch, np, serve):
     counts = kb.launch_counts()
     passes = 1 + len(eng.stats["decode_s"])
     want = {"flash_attention": cfg.num_layers,
-            "grouped_matmul": 3 * cfg.num_layers * passes}
+            "flash_attention.wgmma": cfg.num_layers,
+            "grouped_matmul": 3 * cfg.num_layers * passes,
+            "grouped_matmul.counts": 3 * cfg.num_layers * passes}
     others = {k: n for k, n in counts.items() if n and k not in want}
     if any(counts[k] != n for k, n in want.items()) or others:
         raise AssertionError(f"one generate launched {counts} (want {want} "
@@ -1118,9 +1219,9 @@ def phase_moe(torch, np, serve):
     decode_ms = statistics.median(eng.stats["decode_s"]) * 1e3
     log(f"moe: generate of {len(reqs)} requests x {SERVE_NEW_TOKENS} tokens "
         f"(prompts {SERVE_PROMPTS}) in {wall * 1e3:.1f} ms; {passes} forward "
-        f"passes; K6 launched {counts['flash_attention']} times, K7 "
-        f"{counts['grouped_matmul']} times (3 x {cfg.num_layers} layers x "
-        f"{passes} passes), nothing else launched")
+        f"passes; K6 launched {counts['flash_attention']} times (wgmma "
+        f"route), K7 {counts['grouped_matmul']} times (3 x {cfg.num_layers} "
+        f"layers x {passes} passes, counts layout), nothing else launched")
     log(f"moe: max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"moe: prefill_ms {prefill_ms:.3f}")
@@ -1190,7 +1291,8 @@ def main() -> int:
     rows = {**res["kernel"], **res["attention"], **res["moe"]["rows"]}
     # each kernel's launches on its own path's run
     counts = {k: v for k, v in res["spgemm"][0].items()
-              if not k.startswith("stream_") and k != "flash_attention"}
+              if not k.startswith(("stream_", "flash_attention",
+                                   "grouped_matmul"))}
     counts.update((k, res["host"][k]) for k in ("stream_sort", "stream_merge"))
     counts["flash_attention"] = res["serve"]["counts"]["flash_attention"]
     counts["flash_attention.arctic"] = res["moe"]["counts"]["flash_attention"]
@@ -1223,7 +1325,8 @@ def main() -> int:
                       "wrapper_ms": r["wrapper_ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"],
-                      "library_ms": r["library_ms"]})
+                      "library_ms": r["library_ms"],
+                      **{x: r[x] for x in ("tflops", "fp32_ms") if x in r}})
     print(json.dumps({"kernels": table}))
     print(name)
     print(json.dumps({"ok": True, "device": {

@@ -112,19 +112,22 @@ KERNELS = {"chunk_sort": _k1.chunk_sort,
 
 
 def launch_counts() -> dict:
-    """Launches of each kernel, and buckets per fused_bucket route, since
-    the last :func:`reset_launch_counts`."""
+    """Launches of each kernel, and per route of the kernels that have
+    routes ("fused_bucket.large", "flash_attention.wgmma",
+    "grouped_matmul.counts", ...), since the last
+    :func:`reset_launch_counts`."""
     out = {name: fn.launches for name, fn in KERNELS.items()}
-    out.update({f"fused_bucket.{r}": n
-                for r, n in _k3.fused_bucket.routes.items()})
+    for name, fn in KERNELS.items():
+        out.update({f"{name}.{r}": n
+                    for r, n in getattr(fn, "routes", {}).items()})
     return out
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
-    for r in _k3.fused_bucket.routes:
-        _k3.fused_bucket.routes[r] = 0
+        for r in getattr(fn, "routes", {}):
+            fn.routes[r] = 0
 
 
 register_backend(

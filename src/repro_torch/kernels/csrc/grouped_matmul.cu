@@ -2,38 +2,48 @@
 //
 // Replaces the Pallas kernel
 // repro/kernels/grouped_matmul.py::grouped_matmul_pallas: x (T, D) rows
-// grouped by expert (group g owns rows [cum[g] - sizes[g], cum[g]) with
-// cum the running sum of sizes), w (E, D, F), sizes (E,) int32 on the card
-// -> out (T, F) in x's dtype.  Products are summed in float32 and rounded
-// once; rows at or past sum(sizes) are zero.  Sizes may be any values >= 0
-// with sum <= T: the Pallas kernel's rule that they are multiples of its
-// row tile is not needed here.  Its plain version is
-// kernels/ref.py::grouped_matmul_ref.
+// grouped by expert, w (E, D, F), sizes (E,) int32 on the card -> out
+// (T, F) in x's dtype.  Products are summed in float32 and rounded once.
+// Two layouts of the groups:
+//   contiguous (the Pallas kernel's): group g owns rows [cum[g] - sizes[g],
+//     cum[g]) with cum the running sum of sizes; rows at or past sum(sizes)
+//     are zero.  Sizes may be any values >= 0 with sum <= T: the Pallas
+//     rule that they are multiples of its row tile is not needed here.
+//   counts (the MoE block's capacity-padded buffer): group g owns rows
+//     [g cap, g cap + min(sizes[g], cap)); the rest of its cap rows, and
+//     the rows past E cap, are zero.
+// Its plain version is kernels/ref.py::grouped_matmul_ref.
 //
-// Bound.  At the MoE block's shapes (Arctic: E = 128, D = 7,168,
-// F = 4,864, bf16; capacity-padded groups of 40 rows in a 4 x 512 prefill,
-// 8 in a decode step) one launch must read all E x D x F weights, 8.9 GB,
-// while its 2 T D F operations are 0.07-0.36 ms at the tensor cores' rate:
-// it is bound by bytes (2.7 ms at 3.35 TB/s).  The design reads each
-// expert's weights once per launch and keeps the tensor cores far from
-// being the limit.
+// Bound.  The work is far under the tensor cores' rate at the MoE block's
+// shapes (Arctic: E = 128, D = 7,168, F = 4,864, bf16; 2 T D F operations
+// are 0.07-0.36 ms at 989 TFLOP/s), so the expert weights a launch must
+// read bound it.  In a prefill of 4 x 512 tokens every expert holds rows:
+// 8.9 GB, 2.7 ms at 3.35 TB/s.  In a decode step of 4 tokens at most 8
+// experts hold a kept row, and only their weights need reading: 558 MB,
+// 0.167 ms.  The design reads each non-empty expert's weights once per
+// launch and no others.
 //
 // Design.  The wrapper picks the row tile BM (16, 32 or 64) from the mean
-// group size, so that one tile covers a whole group of up to 64 rows.  One
-// CTA of 256 threads per (row tile inside one group, 128 output columns):
-// blockIdx.y numbers the row tiles, group by group, then the tiles of the
-// rows past the last group (written as zeros); the launch has an upper
-// bound of them (ceil(T / BM) + E + 1), and a CTA finds its own group with
-// one warp's prefix scan over the sizes, so the row -> group map is made on
-// the card and the host never reads the sizes.  CTAs without a tile exit.
-// The x tile (BM x 32) and the weight tile (32 x 128) stream through a
-// 4-stage cp.async ring in shared memory (rows padded by 16 bytes: no bank
-// conflicts for ldmatrix); CTAs that share a row tile are launched next to
-// each other, so x is read from L2.  bf16: each warp owns 16 columns and
-// every row of the tile, loads its fragments with ldmatrix and multiplies
-// with mma.sync m16n8k16 (bf16 in, float32 accumulators).  float32: the
-// same tiles, float32 FMAs on the CUDA cores in k order (no TF32).
-// wgmma and TMA are later work.
+// group size (the group stride cap in the counts layout), so that one tile
+// covers a whole group of up to 64 rows.  One CTA of 256 threads per (row
+// tile inside one group, 128 output columns); blockIdx.y numbers the row
+// tiles.  Contiguous layout: the tiles of the groups in order, then those
+// of the rows past the last group (written as zeros); the launch has an
+// upper bound of them (ceil(T / BM) + E + 1), and a CTA finds its own group
+// with one warp's prefix scan over the sizes, so the host never reads the
+// sizes.  Counts layout: group g's ceil(cap / BM) tiles are g ceil(cap / BM)
+// + j, then the tiles past E cap; a CTA reads its group's count, writes
+// zeros to its rows at or past the count, and exits before it reads a
+// weight byte when none of its rows is kept, so a launch reads only the
+// experts that hold rows.  CTAs without rows exit.  The x tile (BM x 32)
+// and the weight tile (32 x 128) stream through a 4-stage cp.async ring in
+// shared memory (rows padded by 16 bytes: no bank conflicts for ldmatrix);
+// CTAs that share a row tile are launched next to each other, so x is read
+// from L2.  bf16: each warp owns 16 columns and every row of the tile,
+// loads its fragments with ldmatrix and multiplies with mma.sync m16n8k16
+// (bf16 in, float32 accumulators).  float32: the same tiles, float32 FMAs
+// on the CUDA cores in k order (no TF32).  The launch is bound by bytes, so
+// wgmma and TMA would not move it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -59,7 +69,8 @@ struct Layout {  // shared-memory row strides (elements), 16 bytes of padding
 struct Tile {
   int group;  // -1: rows past the last group
   int row0;
-  int rows;   // 0: this CTA has no tile
+  int rows;   // rows computed from row0 on
+  int zeros;  // rows written as zeros after them
 };
 
 // Row tile `tile` of the launch: the groups in order, each cut into
@@ -90,7 +101,7 @@ __device__ Tile find_tile(const int* __restrict__ sizes, int E, int T, int BM,
       if (mine) {  // at most one lane
         const int j = tile - first;
         const int r0 = rows_before + s_inc - s + j * BM;
-        found = Tile{g, r0, max(0, min(min(BM, s - j * BM), T - r0))};
+        found = Tile{g, r0, max(0, min(min(BM, s - j * BM), T - r0)), 0};
       }
       done = __ballot_sync(kFull, mine) != 0;
       tiles_before += __shfl_sync(kFull, nt_inc, 31);
@@ -98,11 +109,28 @@ __device__ Tile find_tile(const int* __restrict__ sizes, int E, int T, int BM,
     }
     if (!done && lane == 0) {
       const int r0 = rows_before + (tile - tiles_before) * BM;
-      found = Tile{-1, r0, max(0, min(BM, T - r0))};
+      found = Tile{-1, r0, 0, max(0, min(BM, T - r0))};
     }
   }
   __syncthreads();
   return found;
+}
+
+// Row tile `tile` of a counts-layout launch: group g's tiles g * tpg + j
+// (tpg = ceil(cap / BM)) cover its cap rows, then the tiles past E * cap.
+__device__ Tile counts_tile(const int* __restrict__ counts, int E, int T,
+                            int cap, int BM, int tile) {
+  const int tpg = (cap + BM - 1) / BM;
+  if (tile < E * tpg) {
+    const int g = tile / tpg, j = tile % tpg;
+    const int r0 = g * cap + j * BM;
+    const int span = max(0, min(min(BM, cap - j * BM), T - r0));
+    const int kept = min(max(counts[g], 0), cap) - j * BM;
+    const int rows = max(0, min(kept, span));
+    return Tile{g, r0, rows, span - rows};
+  }
+  const int r0 = E * cap + (tile - E * tpg) * BM;
+  return Tile{-1, r0, 0, max(0, min(BM, T - r0))};
 }
 
 template <typename T>
@@ -264,20 +292,18 @@ template <typename T, int BM>
 __global__ void __launch_bounds__(kThreads)
 grouped_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
                       const int* __restrict__ sizes, T* __restrict__ out,
-                      int T_rows, int D, int F, int E) {
+                      int T_rows, int D, int F, int E, int cap) {
   using L = Layout<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
-  const Tile t = find_tile(sizes, E, T_rows, BM, blockIdx.y);
-  if (t.rows == 0) return;
+  const Tile t = cap > 0 ? counts_tile(sizes, E, T_rows, cap, BM, blockIdx.y)
+                         : find_tile(sizes, E, T_rows, BM, blockIdx.y);
   const int n0 = blockIdx.x * kBN;
-  if (t.group < 0) {  // rows past the last group
-    for (int i = threadIdx.x; i < t.rows * kBN; i += kThreads) {
-      const int r = i / kBN, c = n0 + i % kBN;
-      if (c < F) out[(long long)(t.row0 + r) * F + c] = zero<T>();
-    }
-    return;
+  for (int i = threadIdx.x; i < t.zeros * kBN; i += kThreads) {
+    const int r = t.rows + i / kBN, c = n0 + i % kBN;
+    if (c < F) out[(long long)(t.row0 + r) * F + c] = zero<T>();
   }
+  if (t.rows == 0) return;  // before a weight byte is read
   const T* wg = w + (long long)t.group * D * F;
   constexpr int kStage = L::template stage_elems<BM>();
   const int KT = (D + kBK - 1) / kBK;
@@ -308,7 +334,7 @@ grouped_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
 template <typename T, int BM>
 int launch(const void* x, const void* w, const int* sizes, void* out, int T_,
-           int D, int F, int E, cudaStream_t stream) {
+           int D, int F, int E, int cap, int grid_rows, cudaStream_t stream) {
   using L = Layout<T>;
   const size_t smem =
       (size_t)kStages * L::template stage_elems<BM>() * sizeof(T);
@@ -316,35 +342,42 @@ int launch(const void* x, const void* w, const int* sizes, void* out, int T_,
       grouped_matmul_kernel<T, BM>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((F + kBN - 1) / kBN, (T_ + BM - 1) / BM + E + 1);
+  const dim3 grid((F + kBN - 1) / kBN, grid_rows);
   grouped_matmul_kernel<T, BM><<<grid, kThreads, smem, stream>>>(
-      (const T*)x, (const T*)w, sizes, (T*)out, T_, D, F, E);
+      (const T*)x, (const T*)w, sizes, (T*)out, T_, D, F, E, cap);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_bm(const void* x, const void* w, const int* sizes, void* out,
-                int T_, int D, int F, int E, int bm, cudaStream_t st) {
-  if (bm <= 16) return launch<T, 16>(x, w, sizes, out, T_, D, F, E, st);
-  if (bm <= 32) return launch<T, 32>(x, w, sizes, out, T_, D, F, E, st);
-  return launch<T, 64>(x, w, sizes, out, T_, D, F, E, st);
+                int T_, int D, int F, int E, int cap, int bm, int grid_rows,
+                cudaStream_t st) {
+  if (bm <= 16)
+    return launch<T, 16>(x, w, sizes, out, T_, D, F, E, cap, grid_rows, st);
+  if (bm <= 32)
+    return launch<T, 32>(x, w, sizes, out, T_, D, F, E, cap, grid_rows, st);
+  return launch<T, 64>(x, w, sizes, out, T_, D, F, E, cap, grid_rows, st);
 }
 
 }  // namespace
 
 // x (T, D), w (E, D, F), out (T, F): contiguous, all bf16 (bf16 != 0) or
-// all float32; sizes (E,) int32 on the card.  D and F multiples of 8,
-// (T + bm - 1) / bm + E + 1 < 65,536, F > 0 and T > 0 (checked by the
-// wrapper).  bm: the row tile, 16, 32 or 64.
+// all float32; sizes (E,) int32 on the card.  cap > 0: the counts layout
+// with group stride cap, else the contiguous layout.  bm: the row tile,
+// 16, 32 or 64; grid_rows: the row tiles of the launch, ceil(T / bm) +
+// E + 1 (contiguous) or E ceil(cap / bm) + ceil(max(T - E cap, 0) / bm)
+// (counts), below 65,536.  D and F multiples of 8 (checked by the wrapper).
 extern "C" int zipper_grouped_matmul(const void* x, const void* w,
                                      const int* sizes, void* out, int bf16,
-                                     int T, int D, int F, int E, int bm,
-                                     void* stream) {
-  if (T == 0 || F == 0) return 0;
+                                     int T, int D, int F, int E, int cap,
+                                     int bm, int grid_rows, void* stream) {
+  if (T == 0 || F == 0 || grid_rows == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   if (bf16)
-    return dispatch_bm<__nv_bfloat16>(x, w, sizes, out, T, D, F, E, bm, st);
-  return dispatch_bm<float>(x, w, sizes, out, T, D, F, E, bm, st);
+    return dispatch_bm<__nv_bfloat16>(x, w, sizes, out, T, D, F, E, cap, bm,
+                                      grid_rows, st);
+  return dispatch_bm<float>(x, w, sizes, out, T, D, F, E, cap, bm, grid_rows,
+                            st);
 }
 
 extern "C" const char* zipper_error_string(int err) {

@@ -9,9 +9,15 @@ The kernel is ``csrc/flash_attention.cu``; its plain version is
 agree to float32 rounding (the kernel sums a row tile by tile), not bit
 for bit.
 
+The kernel has two routes, chosen by dtype: bfloat16 inputs take the
+``wgmma`` route (TMA loads, tensor-core products, P split into two bf16
+parts for the PV product), float32 inputs the ``fma`` route (CUDA-core
+FMAs).
+
 :func:`flash_attention` takes the plain version only for tensors on the
 CPU; on CUDA tensors it launches the kernel (counting the launch in
-``flash_attention.launches``) or raises.
+``flash_attention.launches`` and its route in ``flash_attention.routes``)
+or raises.
 """
 from __future__ import annotations
 
@@ -26,11 +32,27 @@ flash_attention_plain = flash_attention_ref
 MAX_HEAD_DIM = 128
 
 
+def wgmma_tiles(hd: int) -> tuple[int, int]:
+    """(query rows, keys) of one tile of the wgmma route at head dim hd:
+    128 query rows per CTA; 128-key tiles up to hd = 64, 64-key tiles
+    above (the accumulator of 128 columns takes twice the registers)."""
+    return 128, (128 if hd <= 64 else 64)
+
+
+def tma_ready(strides, data_ptr: int) -> bool:
+    """Whether a bf16 (B, S, heads, hd) tensor with these element strides
+    can be read by TMA in place: unit stride on hd, 16-byte-aligned base,
+    and batch, sequence and head strides positive multiples of 16 bytes."""
+    return (strides[3] == 1 and data_ptr % 16 == 0
+            and all(s > 0 and s % 8 == 0 for s in strides[:3]))
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
     """q: (B, Sq, H, hd); k/v: (B, Skv, KVH, hd) -> (B, Sq, H, hd) in
     q's dtype.  float32 or bfloat16 (all three alike); hd a multiple of
     8 up to 128; H a multiple of KVH.  Inputs are read in place through
-    their strides (the head dim must be contiguous, else it is copied)."""
+    their strides; one the kernel cannot read so (a head dim that is not
+    contiguous; for bf16 also a base or stride TMA refuses) is copied."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)
@@ -54,21 +76,31 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
     for t in (k, v):
         if t.device != q.device:
             raise ValueError(f"inputs on {q.device} and {t.device}")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    route = "wgmma" if q.dtype == torch.bfloat16 else "fma"
+    if route == "wgmma":
+        q, k, v = (t if tma_ready(t.stride(), t.data_ptr())
+                   else t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
+    else:
+        q, k, v = (t if t.stride(-1) == 1 else t.contiguous()
+                   for t in (q, k, v))
     o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     scale = scale if scale is not None else hd ** -0.5
     if B and Sq:
         launch(q, k, v, o, causal=causal, window=window, scale=scale)
         flash_attention.launches += 1
+        flash_attention.routes[route] += 1
     return o
 
 
 flash_attention.launches = 0
+flash_attention.routes = {"wgmma": 0, "fma": 0}
 
 
 def launch(q, k, v, o, *, causal, window, scale) -> None:
     """Launch K6 on checked CUDA tensors (``o`` allocated by the caller)
-    on the current stream; raise on a launch error."""
+    on the current stream; the route follows the dtype.  Raise on a
+    launch error."""
     lib = _build.LIBS.get("flash_attention")
     B, Sq, H, hd = q.shape
     Skv, KVH = k.shape[1], k.shape[2]

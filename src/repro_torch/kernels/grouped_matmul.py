@@ -4,16 +4,25 @@ version.
 Port of the Pallas kernel
 ``repro.kernels.grouped_matmul.grouped_matmul_pallas``: x (T, D) rows
 grouped by expert, w (E, D, F), group_sizes (E,) int32 -> (T, F) in x's
-dtype, each group's rows times its expert's weights, rows at or past
-``sum(group_sizes)`` zero.  The kernel is ``csrc/grouped_matmul.cu``; its
-plain version is ``ref.grouped_matmul_ref``.  Both sum in float32 and
-round once; they agree to float32 rounding (the kernel sums in another
-order), not bit for bit.
+dtype, each group's rows times its expert's weights.  Two layouts:
+
+- contiguous (the Pallas kernel's): the groups' rows follow each other;
+  rows at or past ``sum(group_sizes)`` are zero;
+- counts (``cap`` given; the MoE block's capacity-padded buffer): group g
+  owns rows ``[g cap, g cap + min(group_sizes[g], cap))``; its other
+  rows and the rows past ``E cap`` are zero, and a group that holds no
+  row costs no weight read.
+
+The kernel is ``csrc/grouped_matmul.cu``; its plain version is
+``ref.grouped_matmul_ref``.  Both sum in float32 and round once; they
+agree to float32 rounding (the kernel sums in another order), not bit
+for bit.
 
 :func:`grouped_matmul` takes the plain version only for tensors on the
 CPU; on CUDA tensors it launches the kernel (counting the launch in
-``grouped_matmul.launches``) or raises.  The sizes stay on the card: the
-kernel maps rows to groups itself, so a launch adds no host wait.
+``grouped_matmul.launches`` and its layout in ``grouped_matmul.routes``)
+or raises.  The sizes stay on the card: the kernel maps rows to groups
+itself, so a launch adds no host wait.
 """
 from __future__ import annotations
 
@@ -30,18 +39,31 @@ MAX_GRID_ROWS = 65535
 
 def row_tile(T: int, E: int) -> int:
     """The kernel's row tile: the smallest of 16, 32 and 64 that holds the
-    mean group size, so that one tile covers a capacity-padded group of
-    up to 64 rows and its expert's weights are read once per launch."""
+    mean group size (T / E; in the counts layout T = E cap, so the group
+    stride), so that one tile covers a capacity-padded group of up to 64
+    rows and its expert's weights are read once per launch."""
     mean = -(-T // max(E, 1))
     return next((bm for bm in (16, 32) if mean <= bm), 64)
 
 
-def grouped_matmul(x, w, group_sizes):
+def grid_rows(T: int, E: int, bm: int, cap: int | None = None) -> int:
+    """Row tiles of one launch: an upper bound of the groups' tiles plus
+    those of the rows past them, ceil(T / bm) + E + 1 (contiguous), or
+    ceil(cap / bm) per group plus the tiles of the rows past E cap
+    (counts)."""
+    if cap is None:
+        return -(-T // bm) + E + 1
+    return E * -(-cap // bm) + -(-max(T - E * cap, 0) // bm)
+
+
+def grouped_matmul(x, w, group_sizes, *, cap=None):
     """x: (T, D); w: (E, D, F) of x's dtype (float32 or bfloat16);
-    group_sizes: (E,) integer sizes >= 0 with sum <= T, on x's device.
-    D and F multiples of 8.  Returns (T, F) in x's dtype."""
+    group_sizes: (E,) integer sizes >= 0 on x's device, with sum <= T
+    (contiguous layout) or, when ``cap`` (an int >= 1) is given, each
+    group's kept rows at stride ``cap`` (counts layout).  D and F
+    multiples of 8.  Returns (T, F) in x's dtype."""
     if x.device.type == "cpu":
-        return grouped_matmul_plain(x, w, group_sizes)
+        return grouped_matmul_plain(x, w, group_sizes, cap=cap)
     if x.dim() != 2 or w.dim() != 3 or w.shape[1] != x.shape[1] \
             or group_sizes.shape != (w.shape[0],):
         raise ValueError(f"grouped_matmul takes x (T, D), w (E, D, F) and "
@@ -59,30 +81,36 @@ def grouped_matmul(x, w, group_sizes):
     for t in (w, group_sizes):
         if t.device != x.device:
             raise ValueError(f"inputs on {x.device} and {t.device}")
-    bm = row_tile(T, E)
-    if -(-T // bm) + E + 1 > MAX_GRID_ROWS:
+    if cap is not None and (not isinstance(cap, int) or cap < 1):
+        raise ValueError(f"group stride cap = {cap!r} is not an int >= 1")
+    bm = row_tile(T, E) if cap is None else row_tile(E * cap, E)
+    if grid_rows(T, E, bm, cap) > MAX_GRID_ROWS:
         raise ValueError(f"T = {T} rows in {E} groups exceed the grid's "
                          f"{MAX_GRID_ROWS} row tiles")
     x, w = x.contiguous(), w.contiguous()
     sizes = group_sizes.to(torch.int32).contiguous()
     out = torch.empty((T, F), dtype=x.dtype, device=x.device)
     if T and F:
-        launch(x, w, sizes, out)
+        launch(x, w, sizes, out, cap=cap)
         grouped_matmul.launches += 1
+        grouped_matmul.routes["contiguous" if cap is None else "counts"] += 1
     return out
 
 
 grouped_matmul.launches = 0
+grouped_matmul.routes = {"contiguous": 0, "counts": 0}
 
 
-def launch(x, w, sizes, out) -> None:
+def launch(x, w, sizes, out, *, cap=None) -> None:
     """Launch K7 on checked, contiguous CUDA tensors (``out`` allocated by
-    the caller) on the current stream; raise on a launch error."""
+    the caller) on the current stream, in the counts layout when ``cap``
+    is given; raise on a launch error."""
     lib = _build.LIBS.get("grouped_matmul")
     T, D = x.shape
     E, _, F = w.shape
+    bm = row_tile(T, E) if cap is None else row_tile(E * cap, E)
     err = lib.zipper_grouped_matmul(
         x.data_ptr(), w.data_ptr(), sizes.data_ptr(), out.data_ptr(),
-        int(x.dtype == torch.bfloat16), T, D, F, E, row_tile(T, E),
-        stream_of(x))
+        int(x.dtype == torch.bfloat16), T, D, F, E, cap or 0, bm,
+        grid_rows(T, E, bm, cap), stream_of(x))
     _build.check(lib, err, "grouped_matmul")

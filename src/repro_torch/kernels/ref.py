@@ -176,17 +176,30 @@ def mha_ref(q, k, v, *, causal=True, window=0, scale=None):
 # grouped (per-expert) matmul oracle
 # ---------------------------------------------------------------------------
 
-def grouped_matmul_ref(x, w, group_sizes):
-    """x: (T, D) rows grouped by expert (group g owns rows [cum[g] -
-    group_sizes[g], cum[g])); w: (E, D, F).  Rows at or past the last
-    group are zero.  Returns (T, F) in x's dtype.
+def grouped_matmul_ref(x, w, group_sizes, *, cap=None):
+    """x: (T, D) rows grouped by expert; w: (E, D, F).  Contiguous layout
+    (``cap`` None): group g owns rows [cum[g] - group_sizes[g], cum[g]),
+    and rows at or past the last group are zero.  Counts layout: group g
+    owns rows [g cap, g cap + min(group_sizes[g], cap)), and every other
+    row is zero.  Returns (T, F) in x's dtype.
 
     The plain version of K7 (``grouped_matmul.py``): a loop over the
     groups, ``x[s:e].float() @ w[g].float()`` rounded once to x's dtype.
-    It reads the sizes to the host and never builds the reference's
-    ``w[gid]``, a (T, D, F) tensor."""
+    In the counts layout a group that holds rows multiplies all its cap
+    rows with the others zeroed (they are never read), so its kept rows
+    come out bit for bit as the contiguous layout gives them over the
+    zero-padded buffer.  It reads the sizes to the host and never builds
+    the reference's ``w[gid]``, a (T, D, F) tensor."""
     T, F = x.shape[0], w.shape[2]
     out = torch.zeros((T, F), dtype=x.dtype, device=x.device)
+    if cap is not None:
+        for g, n in enumerate(group_sizes.tolist()):
+            s, e, n = g * cap, min((g + 1) * cap, T), min(max(n, 0), cap)
+            if n and e > s:
+                xg = torch.zeros((e - s, x.shape[1]), device=x.device)
+                xg[:n] = x[s:s + n].float()
+                out[s:e] = (xg @ w[g].float()).to(x.dtype)
+        return out
     start = 0
     for g, n in enumerate(group_sizes.tolist()):
         end = min(start + max(n, 0), T)

@@ -7,8 +7,10 @@ kept), each assignment takes its rank inside its expert as its position,
 assignments past the expert's capacity are dropped, and the kept ones
 are packed into a capacity-padded (E, cap, D) buffer.  The three expert
 products run over that buffer as one grouped matmul each (K7,
-``kernels.grouped_matmul``, with every group ``cap`` rows); the outputs
-are weighted by the router and summed back per token.
+``kernels.grouped_matmul``, in its counts layout: group g's kept rows
+are the first ``counts[g]`` of its ``cap``, so an expert that holds no
+kept token is never read); the outputs are weighted by the router and
+summed back per token.
 
 The reference's production path (``_shardmap_moe``: sequence-sharded
 tokens, an all_to_all over the expert-parallel axis) waits for the
@@ -84,17 +86,18 @@ def _router(p: MoE, x, cfg):
     return ids.to(torch.int32), torch.softmax(w, dim=-1), logits
 
 
-def _expert_ffn(we: Experts, xe, *, gmm=grouped_matmul):
-    """xe: (E, C, D) -> (E, C, D): the SwiGLU of each expert over its C
-    rows, each product one grouped matmul with every group C rows.
-    ``gmm`` is K7's wrapper; ``kernels.grouped_matmul.grouped_matmul_plain``
-    gives the same block through the plain version (the card's checks)."""
+def _expert_ffn(we: Experts, xe, counts, *, gmm=grouped_matmul):
+    """xe: (E, C, D) with expert e's kept rows first, ``counts`` (E,)
+    int32 of them -> (E, C, D): the SwiGLU of each expert over its kept
+    rows, zeros in the rest; each product one grouped matmul in the
+    counts layout (group stride C).  ``gmm`` is K7's wrapper;
+    ``kernels.grouped_matmul.grouped_matmul_plain`` gives the same block
+    through the plain version (the card's checks)."""
     E, C, D = xe.shape
-    sizes = torch.full((E,), C, dtype=torch.int32, device=xe.device)
     xt = xe.reshape(E * C, D)
-    h = F.silu(gmm(xt, we.w1.to(xe.dtype), sizes))
-    h = h * gmm(xt, we.w3.to(xe.dtype), sizes)
-    return gmm(h, we.w2.to(xe.dtype), sizes).reshape(E, C, D)
+    h = F.silu(gmm(xt, we.w1.to(xe.dtype), counts, cap=C))
+    h = h * gmm(xt, we.w3.to(xe.dtype), counts, cap=C)
+    return gmm(h, we.w2.to(xe.dtype), counts, cap=C).reshape(E, C, D)
 
 
 def _capacity(T, k, E, cf):
@@ -164,7 +167,12 @@ def _einsum_moe(p: MoE, x, cfg, *, gmm=grouped_matmul):
     slot = torch.where(keep, flat_ids * cap + pos, E * cap)
     buf = torch.zeros((E * cap + 1, D), dtype=x.dtype, device=x.device)
     buf.index_copy_(0, slot, xt[tok])
-    ye = _expert_ffn(p.experts, buf[:E * cap].view(E, cap, D), gmm=gmm)
+    # kept rows per expert, on the device (integer adds: any order gives
+    # the same counts; bincount would read its max to the host)
+    counts = torch.zeros(E, dtype=torch.int32, device=x.device)
+    counts.scatter_add_(0, flat_ids, keep.to(torch.int32))
+    ye = _expert_ffn(p.experts, buf[:E * cap].view(E, cap, D), counts,
+                     gmm=gmm)
     yt = ye.reshape(E * cap, D)[torch.where(keep, slot, 0)]
     yt = torch.where(keep[:, None], yt, 0) * w.reshape(-1)[:, None].to(x.dtype)
     # each token's k outputs summed in order from zero, in x's dtype (the

@@ -3,8 +3,10 @@
 K6's plain version (``repro_torch.kernels.flash_attention`` on CPU
 tensors) against the reference's Pallas kernel in interpret mode and
 its ``mha_ref`` oracle on the sweep of ``tests/test_kernels_attn.py``;
-the plain blocked attention; and the GQA forward and decode with the
-reference's weights carried across by ``params_from_jax``.  Inputs come
+a plain-torch emulation of the kernel's bf16 (wgmma) route against the
+Pallas kernel; the plain blocked attention; and the GQA forward and
+decode with the reference's weights carried across by
+``params_from_jax``.  Inputs come
 from a seeded numpy generator and go to both packages.
 """
 import dataclasses
@@ -23,7 +25,8 @@ from repro.models import attention as jattn
 from repro.models import model as JM
 from repro_torch.configs import base as tcb
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention, tma_ready,
+                                                 wgmma_tiles)
 from repro_torch.models import attention as tattn
 from repro_torch.models.convert import params_from_jax
 
@@ -73,6 +76,122 @@ def test_flash_attention_plain_matches_pallas_and_mha_ref(
         np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-5)
     else:  # both round one float32 result to bf16 once
         np.testing.assert_allclose(got, pallas, rtol=BF16_ULP, atol=1e-6)
+
+
+def _wgmma_route(q, k, v, *, causal, window, parts=3):
+    """K6's bf16 (wgmma) route in plain torch: bf16 operands, float32
+    scores and accumulators tile by tile at the kernel's (BQ, BK), the
+    tiles each query block visits in the kernel's order (causal and
+    window skips; KV tails zero-filled and masked), the softmax in base 2
+    (scores scaled by float32 scale * log2(e)), and P split into
+    ``parts`` bf16 parts (the kernel's three) for the PV product, each
+    the rounding of what the parts before it leave."""
+    B, Sq, H, hd = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    BQ, BK = wgmma_tiles(hd)
+    scale = torch.tensor(hd ** -0.5) * torch.tensor(1.4426950408889634)
+    off, n_kt = Skv - Sq, -(-Skv // BK)
+    pad = n_kt * BK - Skv
+    kf, vf = (torch.nn.functional.pad(t.float(), (0, 0, 0, 0, 0, pad))
+              .repeat_interleave(H // KVH, dim=2) for t in (k, v))
+    out = torch.empty((B, Sq, H, hd), dtype=torch.bfloat16)
+    for q0 in range(0, Sq, BQ):
+        qb = q[:, q0:q0 + BQ].float()
+        qpos = torch.arange(q0, q0 + qb.shape[1])[:, None] + off
+        kt_lo, kt_hi = 0, n_kt
+        if causal:
+            q_last = int(qpos[-1])
+            kt_hi = 0 if q_last < 0 else min(n_kt, q_last // BK + 1)
+        if window:
+            kt_lo = max(0, q0 + off - window + 1) // BK
+        m = torch.full((B, H, qb.shape[1]), tref.NEG_INF)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, H, qb.shape[1], hd))
+        for kt in range(kt_lo, kt_hi):
+            keys = slice(kt * BK, (kt + 1) * BK)
+            s = torch.einsum("bqhd,bkhd->bhqk", qb, kf[:, keys]) * scale
+            kpos = torch.arange(kt * BK, (kt + 1) * BK)[None, :]
+            ok = kpos < Skv
+            if causal:
+                ok = ok & (qpos >= kpos)
+            if window:
+                ok = ok & (qpos - kpos < window)
+            s = torch.where(ok, s, tref.NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp2(s - m_new[..., None])
+            alpha = torch.exp2(m - m_new)
+            l = l * alpha + p.sum(-1)
+            pieces, rest = [], p
+            for _ in range(parts):
+                pieces.append(rest.to(torch.bfloat16).float())
+                rest = rest - pieces[-1]
+            acc = acc * alpha[..., None] + sum(
+                torch.einsum("bhqk,bkhd->bhqd", piece, vf[:, keys])
+                for piece in pieces)
+            m = m_new
+        o = acc / torch.clamp_min(l, 1e-30)[..., None]
+        out[:, q0:q0 + BQ] = o.permute(0, 2, 1, 3).to(torch.bfloat16)
+    return out
+
+
+# hd 64 (one swizzle atom, 128-key tiles) and 128 (two atoms, 64-key
+# tiles); causal, windowed (whole tiles below the window for some rows of
+# a block: wiped by the next valid tile), bidirectional, ragged Sq and Skv
+WGMMA_CASES = [
+    (1, 256, 256, 4, 2, 64, True, 0),
+    (1, 256, 256, 2, 1, 64, True, 32),
+    (1, 200, 330, 4, 1, 128, True, 0),
+    (2, 130, 130, 4, 4, 128, False, 0),
+    (1, 160, 160, 2, 1, 128, True, 40),
+    (1, 100, 100, 2, 2, 96, True, 0),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KVH,hd,causal,window", WGMMA_CASES)
+def test_wgmma_route_arithmetic_matches_pallas(B, Sq, Skv, H, KVH, hd,
+                                               causal, window):
+    """The bf16 route's arithmetic (P in three bf16 parts) stays within
+    the card's gate for that route, one bf16 rounding plus 1e-6, of the
+    Pallas kernel and of the plain version."""
+    q, k, v = _qkv(B, Sq, Skv, H, KVH, hd, seed=3)
+    qt, kt, vt = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = _np(_wgmma_route(qt, kt, vt, causal=causal, window=window))
+    pallas = _np(flash_attention_pallas(
+        *(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)),
+        causal=causal, window=window, interpret=True))
+    plain = _np(flash_attention(qt, kt, vt, causal=causal, window=window))
+    for want in (pallas, plain):
+        np.testing.assert_allclose(got, want, rtol=BF16_ULP, atol=1e-6)
+
+
+@pytest.mark.parametrize("H,KVH,hd", [(32, 4, 64), (56, 8, 128)])
+def test_wgmma_route_arithmetic_at_serving_shapes(H, KVH, hd):
+    """TinyLlama's and Arctic's prefill (B = 4, S = 512, causal): millions
+    of outputs, rows that see few keys among them.  Three bf16 parts of P
+    keep the gate, one bf16 rounding plus 1e-6; two parts miss it (the
+    reason the kernel takes three)."""
+    q, k, v = _qkv(4, 512, 512, H, KVH, hd, seed=0)
+    qt, kt, vt = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    want = _np(flash_attention(qt, kt, vt))
+    beyond = {}
+    for parts in (2, 3):
+        got = _np(_wgmma_route(qt, kt, vt, causal=True, window=0,
+                               parts=parts))
+        beyond[parts] = (np.abs(got - want) - BF16_ULP * np.abs(want)).max()
+    assert beyond[3] <= 1e-6 < beyond[2]
+
+
+def test_wgmma_tiles_and_tma_ready():
+    assert wgmma_tiles(64) == (128, 128) and wgmma_tiles(8) == (128, 128)
+    assert wgmma_tiles(96) == (128, 64) and wgmma_tiles(128) == (128, 64)
+    # TinyLlama's q (4, 512, 32, 64), contiguous, and k, v sliced from one
+    # packed (.., 40, 64) projection: strides of 8 values, 16-byte bases
+    assert tma_ready((512 * 32 * 64, 32 * 64, 64, 1), 2 ** 20)
+    assert tma_ready((512 * 40 * 64, 40 * 64, 64, 1), 2 ** 20 + 32 * 128)
+    assert not tma_ready((512 * 32 * 64, 32 * 64, 64, 1), 2 ** 20 + 8)
+    assert not tma_ready((512 * 32 * 64, 32 * 64, 1, 32), 2 ** 20)
+    assert not tma_ready((512 * 32 * 60, 32 * 60, 60, 1), 2 ** 20)
+    assert not tma_ready((0, 32 * 64, 64, 1), 2 ** 20)
 
 
 @pytest.mark.parametrize("B,Sq,Skv,H,KVH,hd,causal,window", SWEEP)

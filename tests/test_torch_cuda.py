@@ -11,12 +11,14 @@ of its routes, K4 stream sort, K5 stream merge) must equal its plain
 version bit for bit — keys, values (-0.0 included), lengths and the
 mszip counters — and count its launch.  K6 flash attention must agree
 with its plain version within the reference sweep's tolerances (2e-4 in
-float32, 3e-2 in bf16: it sums each row tile by tile), and launch once
-per layer in a prefill and never in decode.  K7 grouped matmul must
-agree with its plain version within 1e-4 of the output's largest
-magnitude in float32 and one bf16 rounding (plus that 1e-4) in bf16,
-write exact zeros past the last group, and launch three times per MoE
-layer per forward pass.
+float32, one bf16 rounding plus 1e-6 in bf16: it sums each row tile by
+tile), take the wgmma route for bf16 and the fma route for float32, and
+launch once per layer in a prefill and never in decode.  K7 grouped
+matmul must agree with its plain version within 1e-4 of the output's
+largest magnitude in float32 and one bf16 rounding (plus that 1e-4) in
+bf16, in both of its layouts, write exact zeros in every row no group
+keeps, and launch three times per MoE layer per forward pass, in the
+counts layout.
 """
 import numpy as np
 import pytest
@@ -265,10 +267,12 @@ def test_flash_attention_kernel(card, B, Sq, Skv, H, KVH, hd, causal, window,
                           ((B, Sq, H, hd), (B, Skv, KVH, hd),
                            (B, Skv, KVH, hd))))
     q, k, v = (t.to(dtype) for t in (q, k, v))
-    before = flash_attention.launches
+    route = "wgmma" if dtype == torch.bfloat16 else "fma"
+    before = flash_attention.launches, flash_attention.routes[route]
     got = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
+    assert (flash_attention.launches,
+            flash_attention.routes[route]) == (before[0] + 1, before[1] + 1)
     assert got.dtype == dtype and got.shape == q.shape
     want = flash_attention_plain(q, k, v, causal=causal, window=window)
     if dtype == torch.float32:
@@ -278,16 +282,27 @@ def test_flash_attention_kernel(card, B, Sq, Skv, H, KVH, hd, causal, window,
                                    atol=1e-6)
 
 
-def test_flash_attention_strided_inputs(card):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_strided_inputs(card, dtype):
     """q, k and v read in place through their strides (slices of one
-    packed projection)."""
+    packed projection); in bf16 also a copy of inputs whose base TMA
+    cannot take (8 bytes past a 16-byte boundary)."""
     rng = np.random.default_rng(1)
-    (qkv,) = _on(card, rng.standard_normal((2, 70, 12, 32)).astype(np.float32))
-    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
-    got = flash_attention(q, k, v)
-    want = flash_attention_plain(q.contiguous(), k.contiguous(),
-                                 v.contiguous())
-    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    (qkv,) = _on(card, rng.standard_normal((2, 70, 12, 40)).astype(np.float32))
+    qkv = qkv.to(dtype)
+    cases = [(qkv[:, :, :8, :32], qkv[:, :, 8:10, :32], qkv[:, :, 10:, :32])]
+    if dtype == torch.bfloat16:
+        cases.append((qkv[:, :, :8, 4:36], qkv[:, :, 8:10, 4:36],
+                      qkv[:, :, 10:, 4:36]))
+    for q, k, v in cases:
+        got = flash_attention(q, k, v)
+        want = flash_attention_plain(q.contiguous(), k.contiguous(),
+                                     v.contiguous())
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+        else:
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=2 ** -7, atol=1e-6)
 
 
 def test_flash_attention_rejects_unsupported(card):
@@ -356,6 +371,53 @@ def test_grouped_matmul_kernel(card, T, E, D, F, sizes, dtype):
     assert bool((got[sum(sizes):] == 0).all())
 
 
+# (T, E, cap, D, F, counts): Arctic's decode stride with 8 kept experts,
+# empty groups, counts past cap, rows past E cap, T short of E cap, a
+# stride of more than one 64-row tile
+GMM_COUNTS = [(1024, 128, 8, 64, 72, None), (40, 4, 8, 16, 32, [3, 0, 8, 5]),
+              (30, 3, 10, 8, 24, [10, 1, 0]), (13, 2, 4, 16, 8, [7, 2]),
+              (20, 2, 12, 16, 8, [12, 6]), (300, 3, 90, 64, 136, [90, 70, 1])]
+
+
+@pytest.mark.parametrize("T,E,cap,D,F,counts", GMM_COUNTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_matmul_counts_layout(card, T, E, cap, D, F, counts, dtype):
+    """The counts layout against its plain version and against the
+    contiguous layout on the kept rows; unkept rows hold noise that must
+    not reach the output, which is exactly zero there."""
+    rng = np.random.default_rng(4)
+    if counts is None:  # 8 kept experts of 1 to cap rows
+        counts = np.zeros(E, np.int32)
+        counts[rng.choice(E, 8, replace=False)] = rng.integers(1, cap + 1, 8)
+        counts = counts.tolist()
+    x, w = _on(card, rng.standard_normal((T, D)).astype(np.float32),
+               rng.standard_normal((E, D, F)).astype(np.float32))
+    x, w = x.to(dtype), w.to(dtype)
+    (gs,) = _on(card, np.array(counts, np.int32))
+    kept = torch.zeros(T, dtype=torch.bool)
+    for g, n in enumerate(counts):
+        kept[g * cap:min(g * cap + min(n, cap), T)] = True
+    kept = kept.to(card)
+    before = grouped_matmul.launches, grouped_matmul.routes["counts"]
+    got = grouped_matmul(x, w, gs, cap=cap)
+    torch.cuda.synchronize()
+    assert (grouped_matmul.launches,
+            grouped_matmul.routes["counts"]) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == dtype and got.shape == (T, F)
+    assert bool((got[~kept] == 0).all())
+    want = grouped_matmul_plain(x, w, gs, cap=cap).float()
+    sizes = torch.tensor([int(kept[g * cap:(g + 1) * cap].sum())
+                          for g in range(E)], dtype=torch.int32, device=card)
+    packed = grouped_matmul(x[kept], w, sizes).float()
+    top = float(want.abs().max()) if want.numel() else 0.0
+    for ref, g in ((want, got.float()), (packed, got[kept].float())):
+        diff = (g - ref).abs()
+        if dtype == torch.float32:
+            assert float(diff.max()) <= 1e-4 * top
+        else:
+            assert bool((diff <= 2 ** -7 * ref.abs() + 1e-4 * top).all())
+
+
 def test_grouped_matmul_rejects_unsupported(card):
     x = torch.zeros((16, 12), device=card)
     sizes = torch.full((2,), 8, dtype=torch.int32, device=card)
@@ -367,6 +429,8 @@ def test_grouped_matmul_rejects_unsupported(card):
                                       dtype=torch.bfloat16), sizes)
     with pytest.raises(ValueError, match="group_sizes"):
         grouped_matmul(x, torch.zeros((3, 8, 8), device=card), sizes)
+    with pytest.raises(ValueError, match="cap"):
+        grouped_matmul(x, torch.zeros((2, 8, 8), device=card), sizes, cap=0)
 
 
 @pytest.mark.parametrize("n", [8, 64, 1024, 8192, 100, 16384])
@@ -405,5 +469,6 @@ def test_engine_launches_grouped_matmul_per_moe_layer(card):
         outs[str(dev)] = [r.out.tolist() for r in reqs]
     passes = 1 + len(eng.stats["decode_s"])
     assert counts["grouped_matmul"] == 3 * cfg.num_layers * passes
+    assert counts["grouped_matmul.counts"] == counts["grouped_matmul"]
     assert counts["flash_attention"] == cfg.num_layers
     assert outs["cpu"] == outs[str(card)]

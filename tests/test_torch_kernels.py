@@ -282,7 +282,9 @@ def test_launch_counts_reset():
     assert set(counts) == {"chunk_sort", "merge_partitions", "fused_bucket",
                            "fused_bucket.fused", "fused_bucket.large",
                            "stream_sort", "stream_merge", "flash_attention",
-                           "grouped_matmul"}
+                           "flash_attention.wgmma", "flash_attention.fma",
+                           "grouped_matmul", "grouped_matmul.contiguous",
+                           "grouped_matmul.counts"}
     assert not any(counts.values())
 
 

@@ -4,12 +4,15 @@ K7's plain version (``repro_torch.kernels.grouped_matmul`` on CPU
 tensors) against the reference's Pallas kernel in interpret mode and its
 ``grouped_matmul_ref`` oracle on the sweep of
 ``tests/test_kernels_attn.py``, and against the oracle alone on ragged
-group sizes; ``sort_tokens_by_key`` against the reference's ``xla``
-tier; ``moe_block`` against the reference's ``moe_block(dispatch=
-"einsum")`` with the weights carried across by ``params_from_jax``, for
-Arctic's smoke config (dense residual MLP) and DeepSeek-V2's smoke MoE
-settings (a shared expert, a leading dense layer), with and without
-dropped tokens; and the serving CLI on Arctic's smoke config.  Inputs
+group sizes; its counts layout against the contiguous one and the
+oracle; ``sort_tokens_by_key`` against the reference's ``xla`` tier;
+``moe_block`` (through the counts layout, and through the contiguous
+layout over the padded buffer) against the reference's
+``moe_block(dispatch="einsum")`` with the weights carried across by
+``params_from_jax``, for Arctic's smoke config (dense residual MLP) and
+DeepSeek-V2's smoke MoE settings (a shared expert, a leading dense
+layer), with and without dropped tokens; and the serving CLI on
+Arctic's smoke config.  Inputs
 come from a seeded numpy generator and go to both packages.
 """
 import dataclasses
@@ -29,7 +32,8 @@ from repro.models import model as JM
 from repro.models import moe as jmoe
 from repro_torch.configs import base as tcb
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.grouped_matmul import grouped_matmul, row_tile
+from repro_torch.kernels.grouped_matmul import (grid_rows, grouped_matmul,
+                                                row_tile)
 from repro_torch.launch import serve as tserve
 from repro_torch.models import moe as tmoe
 from repro_torch.models.convert import params_from_jax
@@ -119,6 +123,76 @@ def test_grouped_matmul_row_tile():
     assert row_tile(10, 0) == 16 and row_tile(700, 2) == 64
 
 
+def test_grouped_matmul_grid_rows():
+    # contiguous: ceil(T / bm) + E + 1, an upper bound of the groups' tiles
+    assert grid_rows(1024, 128, 16) == 64 + 128 + 1
+    assert grid_rows(37, 5, 16) == 3 + 5 + 1
+    # counts: ceil(cap / bm) tiles per group, then the rows past E cap
+    assert grid_rows(1024, 128, 16, cap=8) == 128          # Arctic decode
+    assert grid_rows(5120, 128, 64, cap=40) == 128         # Arctic prefill
+    assert grid_rows(100, 2, 16, cap=40) == 2 * 3 + 2      # 20 rows past
+    assert grid_rows(60, 2, 64, cap=40) == 2               # T < E cap
+    assert grid_rows(9, 0, 16, cap=8) == 1
+
+
+# (T, E, cap, D, F, counts): kept rows per group at stride cap; empty
+# groups, a count past cap (clamped), rows past E cap, T short of E cap
+COUNTS = [(32, 4, 8, 16, 32, [3, 0, 8, 5]), (30, 3, 10, 8, 24, [10, 1, 0]),
+          (30, 5, 6, 32, 16, [0, 0, 0, 0, 0]), (13, 2, 4, 16, 8, [7, 2]),
+          (20, 2, 12, 16, 8, [12, 6])]
+
+
+@pytest.mark.parametrize("T,E,cap,D,F,counts", COUNTS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_matmul_plain_counts_layout(T, E, cap, D, F, counts, dtype):
+    """The counts layout equals the contiguous layout over the same
+    buffer with the unkept rows zeroed (value for value), ignores what
+    the unkept rows hold, and matches the reference's oracle on the kept
+    rows packed contiguously."""
+    tdt, jdt = DTYPES[dtype]
+    x, w, gs = _gmm_inputs(T, E, D, F, counts, seed=3)
+    xt, wt = torch.from_numpy(x).to(tdt), torch.from_numpy(w).to(tdt)
+    kept = np.zeros(T, bool)
+    for g, n in enumerate(counts):
+        kept[g * cap:min(g * cap + min(n, cap), T)] = True
+    got = grouped_matmul(xt, wt, torch.from_numpy(gs), cap=cap)
+    assert got.dtype == tdt and got.shape == (T, F)
+    assert not _np(got)[~kept].any()
+    padded = torch.where(torch.from_numpy(kept)[:, None], xt, 0)
+    n_full = min(E, -(-T // cap))
+    full = torch.tensor([min(cap, T - g * cap) for g in range(n_full)]
+                        + [0] * (E - n_full), dtype=torch.int32)
+    assert torch.equal(got, grouped_matmul(padded, wt, full))
+    if not kept.any():
+        return
+    sizes = [int(kept[g * cap:(g + 1) * cap].sum()) for g in range(E)]
+    want = jax_grouped_matmul_ref(
+        jnp.asarray(x[kept]).astype(jdt).astype(jnp.float32),
+        jnp.asarray(w).astype(jdt).astype(jnp.float32),
+        jnp.asarray(sizes, jnp.int32))
+    if dtype == "float32":
+        _assert_close32(got[torch.from_numpy(kept)], want)
+    else:
+        _assert_one_rounding(got[torch.from_numpy(kept)], want)
+
+
+def test_expert_ffn_counts_rows_only():
+    """_expert_ffn reads each expert's first counts[e] rows only: what the
+    other rows hold does not reach the output, which is zero there."""
+    jcfg, tcfg = _moe_config("arctic", dtype="float32")
+    _, ffn = _moe_blocks(jcfg, tcfg)
+    E, C, D = tcfg.num_experts, 5, tcfg.d_model
+    rng = np.random.default_rng(8)
+    xe = torch.from_numpy(rng.standard_normal((E, C, D)).astype(np.float32))
+    counts = torch.from_numpy(rng.integers(0, C + 1, E).astype(np.int32))
+    kept = torch.arange(C)[None, :] < counts[:, None]
+    got = tmoe._expert_ffn(ffn.experts, xe, counts)
+    clean = tmoe._expert_ffn(ffn.experts, torch.where(kept[..., None], xe, 0),
+                             counts)
+    assert torch.equal(got, clean)
+    assert not got[~kept].any() and got[kept].abs().min() > 0
+
+
 @pytest.mark.parametrize("n", [8, 64, 256, 100, 1000])
 def test_sort_tokens_by_key_matches_reference(n):
     keys = np.random.default_rng(n).integers(0, 8, n).astype(np.int32)
@@ -158,9 +232,16 @@ def _moe_blocks(jcfg, tcfg, seed=0):
     return jffn, model.layers[-1].ffn
 
 
+def _contiguous_gmm(x, w, counts, *, cap):
+    """The contiguous layout over the padded buffer: every group all
+    ``cap`` rows, kept or not."""
+    return grouped_matmul(x, w, torch.full_like(counts, cap))
+
+
 @pytest.mark.parametrize("name", ["arctic", "deepseek"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_moe_block_matches_reference(name, dtype):
+@pytest.mark.parametrize("layout", ["counts", "contiguous"])
+def test_moe_block_matches_reference(name, dtype, layout):
     tdt, jdt = DTYPES[dtype]
     jcfg, tcfg = _moe_config(name, dtype=dtype)
     jffn, ffn = _moe_blocks(jcfg, tcfg)
@@ -168,7 +249,9 @@ def test_moe_block_matches_reference(name, dtype):
         (2, 12, jcfg.d_model)).astype(np.float32)
     want, want_aux = jmoe.moe_block(jffn, jnp.asarray(x).astype(jdt), jcfg,
                                     dispatch="einsum")
-    got, got_aux = tmoe.moe_block(ffn, torch.from_numpy(x).to(tdt), tcfg)
+    gmm = grouped_matmul if layout == "counts" else _contiguous_gmm
+    got, got_aux = tmoe.moe_block(ffn, torch.from_numpy(x).to(tdt), tcfg,
+                                  gmm=gmm)
     assert got.dtype == tdt and tuple(got.shape) == want.shape
     if dtype == "float32":
         np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
