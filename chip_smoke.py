@@ -6,11 +6,13 @@ drives the port's main path on one card:
 
   device   the card's name and power limit, the torch version, the build
   kernel   each kernel (K1 chunk sort, K2 partition merge — also on one
-           row of 2^20 slots, past a block's shared memory — K3 fused
-           bucket on both routes, K4 stream sort, K5 stream merge) at the
-           main paths' shapes, held bit for bit against its plain torch
-           version on the same card inputs, with its time, the plain
-           version's time and its bound
+           row of 2^20 slots, its long-row route over many CTAs, timed
+           with and without the counters — K3 fused bucket on both
+           routes, K4 stream sort, K5 stream merge in its chunk form and
+           in the pointer form the host driver launches, issue by issue
+           through a merge round) at the main paths' shapes, held bit for
+           bit against its plain torch version on the same card inputs,
+           with its time, the plain version's time and its bound
   spgemm   the fused path: ``spgemm(A, A, engine="spz")`` on the 13 Table
            III stand-ins, the three SuiteSparse-scale ones and
            dense-row-full, with every launch counter set to 0 before and
@@ -19,7 +21,10 @@ drives the port's main path on one card:
            card and structure-identical against the scl-array oracle
   host     the host-driver path: ``engine="spz-host"`` on the same 16
            matrices, counters set to 0 before and read after; every call
-           launches K4 exactly n_mssort and K5 exactly n_mszip times; held
+           launches K4 exactly n_mssort times and K5's pointer form
+           between n_mszip times and 7 more per merge round (idle issues
+           past the last live one; a flag is read at most once per 8
+           issues, and not once a round's bound on issues is reached); held
            against ``backend="torch"`` on the card (stand-ins: CSR and six
            counters) and against the fused result (CSR and four counters)
   engines  ``esc`` on the 16 matrices (bit for bit against the port's CPU
@@ -29,10 +34,13 @@ drives the port's main path on one card:
            (float32 on the fma route, bf16 on the wgmma route, each
            route's counter checked) and at TinyLlama's prefill shapes
            (B = 4, S = 512 and B = 1, S = 4,096; H = 32, KVH = 4, hd = 64,
-           bf16, causal), held against its plain version on the same card
+           bf16, causal) and RecurrentGemma-9B's local attention (B = 1,
+           S = 4,096, H = 16, KVH = 1, hd = 256, window 2,048) on both
+           routes, held against its plain version on the same card
            inputs within 2e-4 (float32) / 3e-2 and one bf16 rounding
            (bf16), with its time, TFLOP/s, the plain version's time,
-           SDPA's and its bound
+           SDPA's and its bound; also hd = 20 and B * H = 65,536, and no
+           ptxas spill or wgmma advisory at hd = 256
   serve    the LLM path: TinyLlama-1.1B at full width (22 layers, random
            fp32 weights from SEED, bf16 compute, attn_impl="pallas")
            behind ``Engine(max_batch=4, max_seq=1024).generate`` on 4
@@ -44,9 +52,11 @@ drives the port's main path on one card:
            0.15 and finite; a 2-layer float32 model at full width held
            against the CPU (plain version) within 1e-3
   profile  host wall clock vs device kernel time of one spz call on the
-           two SuiteSparse-scale fused-route matrices, of one spz-host
-           call on cage11-full, with its waits for the card per issue,
-           and of one TinyLlama generate (torch.profiler)
+           two SuiteSparse-scale fused-route matrices and on
+           dense-row-full (K2's device total), of spz-host on the first
+           8 groups of cage11-full (launches per issue), the waits for
+           the card per issue over one whole spz-host call on
+           cage11-full, and one TinyLlama generate (torch.profiler)
   moe      Arctic-480B at full width, 2 of its 35 layers (TinyLlama's
            engine and model dropped first): K7 grouped matmul on the
            sweep of tests/test_kernels_attn.py, on ragged group sizes and
@@ -109,14 +119,19 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, reps=10, warmup=2):
+def time_ms(torch, fn, reps=10, warmup=2, setup=None):
     """Median of ``reps`` runs after ``warmup``, each between two CUDA
-    events, with the device synchronised around the whole."""
+    events, with the device synchronised around the whole; ``setup()``
+    (untimed) before each run restores state a run changes in place."""
     for _ in range(warmup):
+        if setup:
+            setup()
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if setup:
+            setup()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -200,6 +215,46 @@ def _bucket(np, rng, S, L, key_hi):
     keys = np.where(mask, rng.integers(0, key_hi, (S, L)), 2**31 - 1)
     vals = np.where(mask, rng.standard_normal((S, L)), 0.0)
     return keys.astype(np.int32), vals.astype(np.float32), plens
+
+
+def k2_long_row(torch, np, rng, k2, R):
+    """K2 on one row of La + Lb = 2^20 slots, the long-row route: the
+    row's valid elements cut into tiles of 2,048 over as many CTAs, the
+    counters by pointer jumping.  Lengths as dense-row-full's row 0 has
+    (<= 39,082 uniques a side), so the plain advance loop stays short.
+    Held bit for bit (counters too) against the plain version, and timed
+    with the counters (ms) and without (payload_ms)."""
+    dev = torch.device("cuda")
+    L = 2**19
+    args = [torch.from_numpy(a).to(dev) for a in
+            (*_sorted_partitions(np, rng, 1, L, 3 * L, max_len=39082),
+             *_sorted_partitions(np, rng, 1, L, 3 * L, max_len=39082))]
+    got = k2.merge_partitions(*args, R=R)
+    want = k2.merge_partitions_plain(*args, R=R)
+    err = max_abs_err(torch, got[:3], want[:3])
+    if [int(x) for x in got[3]] != [int(x) for x in want[3]]:
+        raise AssertionError(f"K2 long-row counters {got[3]} != {want[3]}")
+    payload = k2.merge_partitions(*args, R=R, with_counters=False)
+    max_abs_err(torch, payload[:3], want[:3])
+    valid = int(args[2].sum() + args[5].sum())
+    adds = valid - int(got[2].sum())
+    # each valid input element read once, every output slot written once
+    b, by = bound_ms(8 * valid + 8 + nbytes(*got[:3]) + 16, adds)
+    outs = [torch.empty_like(t) for t in got[:3]]
+    cnt = torch.zeros((4, 1), dtype=torch.int32, device=dev)
+    return dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: k2.launch(*args, R, True, *outs, cnt),
+                   reps=10, warmup=2),
+        payload_ms=time_ms(torch, lambda: k2.launch(*args, R, False, *outs,
+                                                    cnt), reps=10, warmup=2),
+        wrapper_ms=time_ms(torch, lambda: k2.merge_partitions(*args, R=R),
+                           reps=10, warmup=2),
+        plain_ms=time_ms(torch, lambda: k2.merge_partitions_plain(
+            *args, R=R), reps=2, warmup=0),
+        bound_ms=b, bound_by=by, library_ms=None,
+        shape=f"N=1 La=Lb={L}, {valid} valid, counters "
+              f"{[int(x) for x in got[3]]}")
 
 
 def phase_kernel(torch, np):
@@ -295,31 +350,7 @@ def phase_kernel(torch, np):
                 keys, vals, plens, R=R, detailed=True), reps=10, warmup=1),
             bound_ms=b, bound_by=by, library_ms=None,
             shape=f"S={S} L={L} R={R}")
-    # K2 on one row of La + Lb = 2^20 slots: its bits and prefixes live
-    # in device memory.  Lengths as dense-row-full's row 0 has (<= 39,082
-    # uniques a side), so the plain advance loop stays short.
-    L = 2**19
-    args = cuda(*_sorted_partitions(np, rng, 1, L, 3 * L, max_len=39082),
-                *_sorted_partitions(np, rng, 1, L, 3 * L, max_len=39082))
-    got = k2.merge_partitions(*args, R=R)
-    want = k2.merge_partitions_plain(*args, R=R)
-    err = max_abs_err(torch, got[:3], want[:3])
-    if [int(x) for x in got[3]] != [int(x) for x in want[3]]:
-        raise AssertionError(f"K2 long-row counters {got[3]} != {want[3]}")
-    adds = int(args[2].sum() + args[5].sum() - got[2].sum())
-    b, by = bound_ms(nbytes(*args, *got[:3]) + 16, adds)
-    outs = [torch.empty_like(t) for t in got[:3]]
-    cnt = torch.zeros((4, 1), dtype=torch.int32, device=dev)
-    rows["merge_partitions.long"] = dict(
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: k2.launch(*args, R, True, *outs, cnt),
-                   reps=5, warmup=1),
-        wrapper_ms=time_ms(torch, lambda: k2.merge_partitions(*args, R=R),
-                           reps=5, warmup=1),
-        plain_ms=time_ms(torch, lambda: k2.merge_partitions_plain(
-            *args, R=R), reps=2, warmup=0),
-        bound_ms=b, bound_by=by, library_ms=None,
-        shape=f"N=1 La=Lb={L}")
+    rows["merge_partitions.long"] = k2_long_row(torch, np, rng, k2, R)
 
     # K4: one host-driver front, S = 512 streams of R = 16 products
     keys, vals, plens = cuda(*_bucket(np, rng, 512, R, cols))
@@ -350,7 +381,7 @@ def phase_kernel(torch, np):
     err = max_abs_err(torch, got, want)
     b, by = bound_ms(nbytes(*args, *got), int(got[4].sum() + got[5].sum()))
     outs = [torch.empty_like(t) for t in got]
-    rows["stream_merge"] = dict(
+    rows["stream_merge.chunk"] = dict(
         max_abs_err=err,
         ms=time_ms(torch, lambda: k5.launch(*args, *outs), reps=50, warmup=5),
         wrapper_ms=time_ms(torch, lambda: k5.stream_merge(*args), reps=50,
@@ -358,13 +389,97 @@ def phase_kernel(torch, np):
         plain_ms=time_ms(torch, lambda: k5.stream_merge_plain(*args),
                          reps=10, warmup=1),
         bound_ms=b, bound_by=by, library_ms=None, shape=f"S=512 R={R}")
+    rows["stream_merge"] = _k5_pointer_row(torch, np, rng, k5, R)
     for name, r in rows.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        extra = f" payload_ms {r['payload_ms']:.4f}" if "payload_ms" in r \
+            else ""
         log(f"kernel: {name} {r['shape']} bit-exact (max_abs_err "
-            f"{r['max_abs_err']}) kernel_ms {r['ms']:.4f} wrapper_ms "
+            f"{r['max_abs_err']}) kernel_ms {r['ms']:.4f}{extra} wrapper_ms "
             f"{r['wrapper_ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
             f"{r['bound_ms']:.5f} ({r['bound_by']}) library_ms {lib}")
     return rows
+
+
+def _k5_pointer_row(torch, np, rng, k5, R, S=512, L=64):
+    """K5's pointer form against its plain composition (take_chunk ->
+    stream_merge_ref -> put_rows -> pointer updates) on one host-driver
+    merge round of S = 512 streams (partitions of up to 64 keys a side,
+    the second round's width): every issue's pointers, zip elements,
+    appended rows, flag and count of issues that did work equal, through
+    2 idle issues past the end.
+    Times one issue from the round's start, state restored before each."""
+    dev = torch.device("cuda")
+    parts = []
+    for _ in range(2):
+        k, v, n = _sorted_partitions(np, rng, S, L, 2 * L)
+        parts += [torch.from_numpy(k).to(dev), torch.from_numpy(v).to(dev),
+                  torch.from_numpy(n.astype(np.int64)).to(dev)]
+    Ka, Va, la, Kb, Vb, lb = parts
+    Lo = 2 * L
+
+    def fresh():
+        z = torch.zeros(S, dtype=torch.int64, device=dev)
+        return [z.clone() for _ in range(4)] + [
+            torch.full((S, Lo + 1), 2**31 - 1, dtype=torch.int32, device=dev),
+            torch.zeros((S, Lo + 1), dtype=torch.float32, device=dev)]
+
+    def issue(fn, st, flag, worked):
+        pa, pb, optr, zips, Ko, Vo = st
+        fn(Ka, Va, la, Kb, Vb, lb, pa, pb, optr, Ko, Vo, zips, flag, worked,
+           R=R)
+
+    kern, plain = fresh(), fresh()
+    worked = torch.zeros(2, dtype=torch.int64, device=dev)
+    idle = issues = 0
+    err = 0.0
+    while idle < 2:
+        flags = torch.zeros(2, dtype=torch.int32, device=dev)
+        issue(k5.stream_merge_ptr, kern, flags[0:1], worked[0:1])
+        issue(k5.stream_merge_ptr_plain, plain, flags[1:2], worked[1:2])
+        err = max(err, max_abs_err(
+            torch, plain[:4] + [plain[4][:, :Lo], plain[5][:, :Lo]],
+            kern[:4] + [kern[4][:, :Lo], kern[5][:, :Lo]]))
+        f, w = flags.tolist(), worked.tolist()
+        if f[0] != f[1] or w[0] != w[1]:
+            raise AssertionError(f"K5 pointer flag {f[0]} != plain {f[1]} "
+                                 f"or issues with work {w[0]} != {w[1]}")
+        if issues == 0:  # the timed issue: fronts read, rows written, and
+            # per stream 2 lengths read, 4 pointers read and written
+            live = (la > 0) & (lb > 0)
+            front = (la.clamp(max=R) + lb.clamp(max=R))[live].sum()
+            nbytes_issue = 8 * int(front) + 8 * int(kern[2].sum()) \
+                + 8 * 10 * S + 4
+        issues += 1
+        idle += not f[0] & 1
+    start = fresh()
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    done = torch.zeros(1, dtype=torch.int64, device=dev)
+
+    def reset():
+        for t, s0 in zip(kern, start):
+            t.copy_(s0)
+        flag.zero_()
+
+    def raw():
+        pa, pb, optr, zips, Ko, Vo = kern
+        k5.launch_ptr(Ka, Va, la, Kb, Vb, lb, pa, pb, optr, Ko, Vo, zips,
+                      flag, done, R)
+
+    b, by = bound_ms(nbytes_issue, 0)
+    return dict(
+        max_abs_err=err,
+        ms=time_ms(torch, raw, reps=50, warmup=5, setup=reset),
+        wrapper_ms=time_ms(torch, lambda: issue(k5.stream_merge_ptr, kern,
+                                                flag, done),
+                           reps=50, warmup=5, setup=reset),
+        plain_ms=time_ms(torch, lambda: issue(k5.stream_merge_ptr_plain, kern,
+                                              flag, done),
+                         reps=10, warmup=1, setup=reset),
+        bound_ms=b, bound_by=by, library_ms=None,
+        shape=f"pointer form, one issue of S={S} R={R} (partitions of "
+              f"<= {L} a side; {issues - 2} live issues in the round, each "
+              f"held against the plain composition, 2 idle past it)")
 
 
 FIELDS = ("n_mssort", "sort_elems", "n_mszip", "zip_elems", "chunk_loads",
@@ -443,29 +558,41 @@ def phase_spgemm(torch, np, mats, oracles):
 
 def phase_host(torch, np, mats, fused):
     """The host-driver path on the card: every spz-host call launches K4
-    n_mssort and K5 n_mszip times; results held against the torch
-    backend on the card (stand-ins) and the fused path (all)."""
+    n_mssort times and K5 in its pointer form between n_mszip times and
+    MERGE_FLAG_EVERY - 1 more per merge round (the issues past the last
+    live one; n_mszip itself is held against the torch backend);
+    results held against the torch backend on the card (stand-ins) and
+    the fused path (all)."""
     from repro_torch.core import spgemm
+    from repro_torch.core import spgemm_engines as sg
     from repro_torch.core.formats import csr_to_numpy
     from repro_torch.data import table3
     from repro_torch.kernels import backend as kb
 
+    k = sg.MERGE_FLAG_EVERY
+
     def call(n, A):
-        """One spz-host call: K4 launched n_mssort and K5 n_mszip times,
-        and nothing else."""
+        """One spz-host call: K4 launched n_mssort times, K5's pointer
+        form n_mszip times plus at most k - 1 per merge round, nothing
+        else."""
         before = kb.launch_counts()
         t0 = time.perf_counter()
         out, st = spgemm(A, A, engine="spz-host", return_stats=True)
         ms = (time.perf_counter() - t0) * 1e3
         after = kb.launch_counts()
-        delta = {k: after[k] - before[k] for k in after}
+        delta = {key: after[key] - before[key] for key in after}
         k4, k5 = delta.pop("stream_sort"), delta.pop("stream_merge")
-        if (k4, k5) != (st.n_mssort, st.n_mszip):
-            raise AssertionError(f"{n}: K4/K5 launches {k4}/{k5} != n_mssort"
-                                 f"/n_mszip {st.n_mssort}/{st.n_mszip}")
+        ptr = delta.pop("stream_merge.pointer")
+        rounds = st.merge_rounds
+        if k4 != st.n_mssort or k5 != ptr or not \
+                st.n_mszip <= ptr <= st.n_mszip + (k - 1) * rounds:
+            raise AssertionError(
+                f"{n}: K4 {k4} (n_mssort {st.n_mssort}), K5 {k5} of which "
+                f"pointer form {ptr} over {rounds} merge rounds (n_mszip "
+                f"{st.n_mszip}, at most {k - 1} more a round)")
         if any(delta.values()):
             raise AssertionError(f"{n}: spz-host launched {delta}")
-        return out, st, ms, k4, k5
+        return out, st, ms, k4, ptr
 
     stand_ins = table3.names()
     results = {}
@@ -480,12 +607,14 @@ def phase_host(torch, np, mats, fused):
             timed = (f" | median of 3 warm calls {statistics.median(times):.1f}"
                      f" ms ({', '.join(f'{t:.1f}' for t in times)})")
         results[n] = (csr_to_numpy(out), [getattr(st, f) for f in FIELDS])
-        log(f"host: {n} first call {ms:.1f} ms{timed} | K4 {k4} K5 {k5} | "
+        log(f"host: {n} first call {ms:.1f} ms{timed} | K4 {k4} K5 {k5} "
+            f"(pointer form: n_mszip {st.n_mszip} with work, "
+            f"{k5 - st.n_mszip} idle over {st.merge_rounds} merge rounds) | "
             f"t_expand {st.t_expand * 1e3:.1f} t_sort {st.t_sort * 1e3:.1f} "
             f"t_output {st.t_output * 1e3:.1f} ms | "
             + " ".join(f"{f}={v}" for f, v in zip(FIELDS, results[n][1])))
     counts = kb.launch_counts()
-    _launched(counts, ("stream_sort", "stream_merge"), "spz-host")
+    _launched(counts, ("stream_sort", "stream_merge.pointer"), "spz-host")
     for n, (csr, stats) in results.items():
         fcsr, fstats = fused[n]
         if not _csr_equal(np, csr, fcsr) or stats[:4] != fstats[:4]:
@@ -545,14 +674,9 @@ def _count_waits(torch, fn):
     return sum("synchronizing" in str(w.message) for w in caught), out
 
 
-def _rows(A, n_rows):
-    """The first ``n_rows`` rows of a CPU CSR."""
-    from repro_torch.core.formats import csr_from_numpy, csr_to_numpy
-
-    indptr, indices, data = csr_to_numpy(A)
-    nnz = int(indptr[n_rows])
-    return csr_from_numpy(indptr[:n_rows + 1], indices[:nnz], data[:nnz],
-                          (n_rows, A.n_cols))
+def _kernel_name(key: str) -> str:
+    """A profiler key's kernel name, without namespace and arguments."""
+    return key.replace("(anonymous namespace)::", "").split("(")[0]
 
 
 def _profiled(torch, label, fn):
@@ -582,10 +706,12 @@ def _profiled(torch, label, fn):
     if not kernels:
         log(f"profile: {label} wall {wall:.1f} ms under the profiler; device "
             f"time not measured (no CUDA events recorded)")
-        return
+        return None
+    launches = sum(e.count for e in kernels)
+    api = sum(e.count for e in events if e.key == "cudaLaunchKernel")
     log(f"profile: {label} wall {wall:.1f} ms under the profiler, device "
-        f"kernels {busy:.1f} ms over {sum(e.count for e in kernels)} "
-        f"launches, device idle share {1 - busy / wall:.3f}")
+        f"kernels {busy:.1f} ms over {launches} launches "
+        f"({api} cudaLaunchKernel), device idle share {1 - busy / wall:.3f}")
     for e in sorted(kernels, key=dev_us, reverse=True)[:6]:
         log(f"profile:   device {dev_us(e) / 1e3:9.2f} ms x{e.count:6d} "
             f"{e.key[:90]}")
@@ -594,13 +720,42 @@ def _profiled(torch, label, fn):
                     reverse=True)[:6]:
         log(f"profile:   host   {e.self_cpu_time_total / 1e3:9.2f} ms "
             f"x{e.count:6d} {e.key[:90]}")
+    return dict(wall=wall, busy=busy, launches=launches, api=api,
+                kernels={e.key: (e.count, dev_us(e) / 1e3) for e in kernels})
+
+
+def _rows(A, n_rows):
+    """The first ``n_rows`` rows of a CPU CSR."""
+    from repro_torch.core.formats import csr_from_numpy, csr_to_numpy
+
+    indptr, indices, data = csr_to_numpy(A)
+    nnz = int(indptr[n_rows])
+    return csr_from_numpy(indptr[:n_rows + 1], indices[:nnz], data[:nnz],
+                          (n_rows, A.n_cols))
+
+
+def k2_device_total(prof, label):
+    """Log and return K2's device total in a :func:`_profiled` run: every
+    kernel whose name holds ``merge_partitions``, as (ms, launches,
+    {kernel: (launches, ms)})."""
+    k2 = {_kernel_name(key): v for key, v in prof["kernels"].items()
+          if "merge_partitions" in key}
+    ms = sum(t for _, t in k2.values())
+    launches = sum(c for c, _ in k2.values())
+    log(f"profile: {label}: K2 device total {ms:.3f} ms over {launches} "
+        f"kernel launches ("
+        + "; ".join(f"{key} x{c} {t:.3f} ms" for key, (c, t) in k2.items())
+        + ")")
+    return ms, launches, k2
 
 
 def phase_profile(torch, serve):
     """Where one call's time goes: host wall clock vs device kernel time
     (torch.profiler), for one spz call on the two SuiteSparse-scale
-    fused-route matrices, for spz-host on a steady window of cage11-full
-    (its first 8 groups of 512 rows: a whole call records ~800K events,
+    fused-route matrices and on dense-row-full (K2's device total on its
+    long rows), for spz-host on a steady window of cage11-full (its
+    first 8 groups of 512 rows, with launches per kernel issue from the
+    window's own SpzStats: a whole call records ~130K device events,
     whose processing alone takes minutes), and for one TinyLlama
     generate, plus the waits for the card per kernel issue over one
     whole spz-host call on cage11-full."""
@@ -613,18 +768,32 @@ def phase_profile(torch, serve):
     issues = st.n_mssort + st.n_mszip
     log(f"profile: cage11-full spz-host: {waits} waits for the card over "
         f"{issues} kernel issues ({st.n_mssort} K4 + {st.n_mszip} K5): "
-        f"{waits / issues:.3f} per issue" if waits else
+        f"{waits / issues:.4f} per issue" if waits else
         "profile: cage11-full spz-host: waits per issue not measured (sync "
         "debug mode reported none)")
     for n, engine, rows in (("cage11-full", "spz", None),
                             ("email-Enron-full", "spz", None),
+                            (table3.LONG_ROW, "spz", None),
                             ("cage11-full", "spz-host", 8 * 512)):
         B = table3.build(n)
         A = B if rows is None else _rows(B, rows)
         spgemm(A, B, engine=engine)  # warm
         label = n if rows is None else f"{n} rows 0-{rows - 1}"
-        _profiled(torch, f"{label} {engine}",
-                  lambda: spgemm(A, B, engine=engine))
+        stats = []
+        prof = _profiled(torch, f"{label} {engine}", lambda: stats.append(
+            spgemm(A, B, engine=engine, return_stats=True)[1]))
+        if prof is None:
+            continue
+        if n == table3.LONG_ROW:
+            k2_device_total(prof, f"{n} spz")
+        if engine == "spz-host":
+            st = stats[-1]
+            n_issues = st.n_mssort + st.n_mszip
+            log(f"profile: {label} spz-host: {n_issues} kernel issues "
+                f"({st.n_mssort} K4 + {st.n_mszip} K5): "
+                f"{prof['launches'] / n_issues:.3f} device launches and "
+                f"{prof['api'] / n_issues:.3f} cudaLaunchKernel per issue, "
+                f"device idle share {1 - prof['busy'] / prof['wall']:.3f}")
     _profiled(torch, f"tinyllama-1.1b generate ({len(SERVE_PROMPTS)} x "
               f"{SERVE_NEW_TOKENS} tokens)", serve["generate"])
 
@@ -740,6 +909,110 @@ def phase_attention(torch, np):
             f"wrapper_ms {rows[name]['wrapper_ms']:.4f} plain_ms "
             f"{rows[name]['plain_ms']:.4f} bound_ms {b:.5f} ({by}) "
             f"library_ms {rows[name]['library_ms']:.4f} (SDPA, enable_gqa)")
+    rows.update(_k6_head_dims(torch, np, rng, k6))
+    return rows
+
+
+# RecurrentGemma-9B's local attention (configs/recurrentgemma_9b.py: 16
+# heads over 1 KV head, head_dim 256, attention window 2,048) at S = 4,096
+RG9B = dict(B=1, S=4096, H=16, KVH=1, hd=256, window=2048)
+
+
+def _k6_head_dims(torch, np, rng, k6):
+    """K6 past hd = 128: at RecurrentGemma-9B's attention shape on both
+    routes (bf16 wgmma with 32-key tiles in a 4-stage ring, float32 fma
+    with 214,016 bytes of shared memory), with times, bound and SDPA's
+    (causal window as a boolean mask); hd = 20 (copied into 24 zero-padded
+    columns) and B * H = 65,536 (heads on grid.x), each held against the
+    plain version; ptxas's spills and wgmma advisories for the hd = 256
+    instantiations, which must be none."""
+    import re
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+
+    text = (_build.LIBS.build_dir / "flash_attention.log").read_text()
+    for entry in text.split("Compiling entry function '")[1:]:
+        fn = entry.split("'", 1)[0]
+        if "ILi256E" not in fn:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores", entry)
+        regs = re.search(r"Used (\d+) registers", entry)
+        log(f"attention: ptxas {fn}: {regs.group(1) if regs else '?'} "
+            f"registers, {spill.group(1) if spill else '?'} bytes spilled")
+        if spill is None or int(spill.group(1)):
+            raise AssertionError(f"ptxas: {fn} spills")
+    advice = [line.strip() for line in text.splitlines() if "(C75" in line]
+    if advice:
+        raise AssertionError("ptxas serialised wgmma: " + "; ".join(advice))
+    log("attention: ptxas flash_attention: 0 wgmma advisories")
+
+    rows = {}
+    B, S, H, KVH, hd, W = (RG9B[x] for x in ("B", "S", "H", "KVH", "hd",
+                                              "window"))
+    q32, k32, v32 = _attn_inputs(torch, np, rng, B, S, S, H, KVH, hd,
+                                 torch.float32)
+    pos = torch.arange(S, device="cuda")
+    mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < W)
+    # (query, key) pairs the causal window keeps: min(i + 1, W) for query i
+    pairs = int(torch.clamp(pos + 1, max=W).sum())
+    ops = 4 * hd * B * H * pairs
+    for dtype, route, tol, rate in ((torch.bfloat16, "wgmma", 3e-2,
+                                     BF16_OPS_PER_S),
+                                    (torch.float32, "fma", 2e-4,
+                                     FP32_OPS_PER_S)):
+        q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+        got = _k6_routed(torch, k6, q, k, v, window=W)
+        want = k6.flash_attention_plain(q, k, v, window=W)
+        err = _k6_check(torch, f"K6 rg9b {dtype}", got, want, tol)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        lib_err = float((sdpa().transpose(1, 2).float() - want.float())
+                        .abs().max())
+        if not lib_err <= 3e-2:
+            raise AssertionError(f"SDPA at RG9B {dtype}: max abs err "
+                                 f"{lib_err} > 3e-2")
+        b, by = bound_ms(nbytes(q, k, v, got), ops, rate)
+        out = torch.empty_like(q)
+        name = "flash_attention.rg9b" + ("" if route == "wgmma" else ".fma")
+        r = rows[name] = dict(
+            max_abs_err=err,
+            ms=time_ms(torch, lambda: k6.launch(q, k, v, out, causal=True,
+                                                window=W, scale=hd ** -0.5)),
+            wrapper_ms=time_ms(torch, lambda: k6.flash_attention(q, k, v,
+                                                                 window=W)),
+            plain_ms=time_ms(torch, lambda: k6.flash_attention_plain(
+                q, k, v, window=W), reps=3, warmup=1),
+            bound_ms=b, bound_by=by, library_ms=time_ms(torch, sdpa),
+            shape=f"B={B} S={S} H={H} KVH={KVH} hd={hd} window={W} "
+                  f"{str(dtype)[6:]} ({route} route)")
+        r["tflops"] = ops / r["ms"] / 1e9
+        log(f"attention: {name} {r['shape']} max_abs_err {err} (SDPA vs "
+            f"plain {lib_err}) kernel_ms {r['ms']:.4f} ({r['tflops']:.1f} "
+            f"TFLOP/s) wrapper_ms {r['wrapper_ms']:.4f} plain_ms "
+            f"{r['plain_ms']:.4f} bound_ms {b:.5f} ({by}) library_ms "
+            f"{r['library_ms']:.4f} (SDPA, boolean window mask, enable_gqa)")
+        del q, k, v, got, want, out
+    del q32, k32, v32, mask
+    torch.cuda.empty_cache()
+    for what, (B, Sq, H, KVH, hd, window) in (
+            ("hd = 20", (2, 300, 8, 2, 20, 0)),
+            ("B * H = 65,536", (4096, 16, 16, 4, 16, 0))):
+        for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 3e-2)):
+            q, k, v = _attn_inputs(torch, np, rng, B, Sq, Sq, H, KVH, hd,
+                                   dtype)
+            got = _k6_routed(torch, k6, q, k, v, window=window)
+            err = _k6_check(torch, f"K6 {what} {dtype}", got,
+                            k6.flash_attention_plain(q, k, v, window=window),
+                            tol)
+            log(f"attention: K6 at {what} (B={B} Sq={Sq} H={H} KVH={KVH} "
+                f"hd={hd}) {str(dtype)[6:]}: max abs err {err} against the "
+                f"plain version (within {tol} and one bf16 rounding)")
     return rows
 
 
@@ -1293,7 +1566,8 @@ def main() -> int:
     counts = {k: v for k, v in res["spgemm"][0].items()
               if not k.startswith(("stream_", "flash_attention",
                                    "grouped_matmul"))}
-    counts.update((k, res["host"][k]) for k in ("stream_sort", "stream_merge"))
+    counts.update((k, res["host"][k]) for k in ("stream_sort", "stream_merge",
+                                                "stream_merge.chunk"))
     counts["flash_attention"] = res["serve"]["counts"]["flash_attention"]
     counts["flash_attention.arctic"] = res["moe"]["counts"]["flash_attention"]
     counts["grouped_matmul"] = res["moe"]["counts"]["grouped_matmul"]
@@ -1326,7 +1600,8 @@ def main() -> int:
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"],
                       "library_ms": r["library_ms"],
-                      **{x: r[x] for x in ("tflops", "fp32_ms") if x in r}})
+                      **{x: r[x] for x in ("tflops", "fp32_ms", "payload_ms")
+                         if x in r}})
     print(json.dumps({"kernels": table}))
     print(name)
     print(json.dumps({"ok": True, "device": {

@@ -21,8 +21,10 @@ Port of ``repro.core.spgemm``:
 The fused driver keeps every bucket's output and counters on the device
 and reads them back once per call: the output as one COO assembly, the
 counters as one small tensor.  The host driver keeps its partitions on
-the device too and waits for the card once per merge issue, to decide
-whether the lock-step loop goes on.
+the device too: each merge issue is one pointer-form K5 launch that reads
+its fronts and advances its pointers on the card, and the loop reads the
+card at most once per ``MERGE_FLAG_EVERY`` issues, to decide whether it
+goes on, and not at all once the round's bound on issues is reached.
 """
 from __future__ import annotations
 
@@ -37,7 +39,12 @@ from repro_torch.core.formats import (CSR, EMPTY, csr_from_coo, csr_to_numpy,
                                       row_ids_from_indptr)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import backend as kb
-from repro_torch.kernels.ref import run_sums
+from repro_torch.kernels.ref import put_rows, run_sums, take_chunk
+
+# The host driver's merge loop launches up to this many K5 issues between
+# two reads of a flag; issues after the last live one are idle (every
+# stream exits before any write), at most MERGE_FLAG_EVERY - 1 a round.
+MERGE_FLAG_EVERY = 8
 
 
 # ---------------------------------------------------------------------------
@@ -231,6 +238,7 @@ class SpzStats:
     zip_elems: int = 0       # key-value tuples moved through merge
     chunk_loads: int = 0     # mlxe.t analogue (chunk fronts built)
     chunk_stores: int = 0    # msxe.t analogue
+    merge_rounds: int = 0    # host driver: merge rounds that issued mszip
     t_preprocess: float = 0.0  # row-work calc (+ rsort row ordering)
     t_expand: float = 0.0      # stream expansion (multiplications)
     t_sort: float = 0.0        # stream sorting + merging (host enqueue,
@@ -313,46 +321,30 @@ def sort_phase(products, R, S, backend, stats: SpzStats, cap_s=None,
     return parts
 
 
-def _take_chunk(K, V, lens, ptr, R):
-    """Chunk front: slots [ptr, min(ptr + R, lens)) of each stream, with
-    gathers (no wait for the card).  K/V: (S, L) padded; returns (keys
-    (S, R) int32, vals (S, R), n (S,) int32)."""
-    L = K.shape[1]
-    idx = ptr[:, None] + torch.arange(R, device=K.device)
-    ok = idx < lens[:, None]
-    idx_c = idx.clamp(max=L - 1)
-    keys = torch.where(ok, torch.gather(K, 1, idx_c), EMPTY)
-    vals = torch.where(ok, torch.gather(V, 1, idx_c), 0.0)
-    return keys, vals, ok.sum(1, dtype=torch.int32)
-
-
-def _put_rows(K, V, optr, src_k, src_v, n):
-    """Append: write src[s, :n[s]] at K[s, optr[s]:...] with one scatter
-    per array (no wait for the card).  K/V are (S, L + 1): the masked
-    lanes all land in the spill column L, which the caller drops."""
-    W = src_k.shape[1]
-    spill = K.shape[1] - 1
-    j = torch.arange(W, device=K.device)
-    idx = torch.where(j[None, :] < n[:, None], optr[:, None] + j, spill)
-    K.scatter_(1, idx, src_k)
-    V.scatter_(1, idx, src_v)
-
-
-def merge_round(A, B, R, backend, stats: SpzStats, acc, cap_s=None):
+def merge_round(A, B, R, backend, stats: SpzStats, acc):
     """Merge a partition pair lock-step across streams, chunk by chunk:
-    one K5 issue (``merge_chunks``) per step, then the copy-through of
-    the side that is left.
+    one mszip issue (the backend's pointer-form ``stream_merge_ptr``) per
+    step, then the copy-through of the side that is left.
 
     A, B: (keys (S, La), vals, lens (S,), live (S,) host bool) padded
-    partitions on the device.  ``acc``: a (2, S) int64 device tensor
-    that gathers the zip elements per stream (row 0) and the tail stores
-    (element [1, 0]), read once per call.  The loop waits for the card
-    once per issue, to learn whether any stream still has both sides;
-    whether any does before the first issue is known on the host.
+    partitions on the device.  ``acc``: a (3, S) int64 device tensor
+    that gathers the zip elements per stream (row 0), the tail stores
+    (element [1, 0]) and the issues that did work (element [2, 0]),
+    read once per call.  Each issue reads its fronts at the streams'
+    pointers and advances them on the card.  A live stream's issue takes
+    a whole R-front of one side or exhausts a side, so a round takes at
+    most ceil(La/R) + ceil(Lb/R) - 1 issues; the loop launches them
+    ``MERGE_FLAG_EVERY`` at a time, up to that bound, and reads the last
+    issue's flag (bit 1: a stream is still live) only before the bound.
+    Issues after the last live one are idle: every stream exits before
+    any write.  Whether any stream is live before the first issue is
+    known on the host.  The pointer form reads the partitions in place,
+    so the stream axis needs no padding to a fixed capacity.
     Returns the merged (keys (S, La+Lb), vals, lens, live)."""
     (Ka, Va, lens_a, live_a), (Kb, Vb, lens_b, live_b) = A, B
     S, La = Ka.shape
-    Lo = La + Kb.shape[1]
+    Lb = Kb.shape[1]
+    Lo = La + Lb
     dev = Ka.device
     Ko = torch.full((S, Lo + 1), EMPTY, dtype=torch.int32, device=dev)
     Vo = torch.zeros((S, Lo + 1), dtype=torch.float32, device=dev)
@@ -361,28 +353,21 @@ def merge_round(A, B, R, backend, stats: SpzStats, acc, cap_s=None):
     pb = torch.zeros_like(pa)
     optr = torch.zeros_like(pa)
     if (live_a & live_b).any():
-        # only streams with BOTH sides unexhausted participate (the
-        # copy-through below handles the rest)
-        both = (lens_a > 0) & (lens_b > 0)
-        while True:
-            ka, va, la = _take_chunk(Ka, Va, torch.where(both, lens_a, 0),
-                                     pa, R)
-            kb_, vb, lb = _take_chunk(Kb, Vb, torch.where(both, lens_b, 0),
-                                      pb, R)
-            klo, vlo, khi, vhi, ca, cb, ol = kvstream.merge_chunks(
-                ka, va, la, kb_, vb, lb, backend=backend, cap_s=cap_s)
-            stats.n_mszip += 1
-            stats.chunk_loads += 2
-            stats.chunk_stores += 1
-            acc[0] += la
-            acc[0] += lb
-            _put_rows(Ko, Vo, optr, torch.cat([klo, khi], 1),
-                      torch.cat([vlo, vhi], 1), ol)
-            optr += ol
-            pa += ca
-            pb += cb
-            both = (pa < lens_a) & (pb < lens_b)
-            if not bool(both.any()):  # the issue's one wait for the card
+        bk = kb.resolve_backend(backend, dev)
+        stats.merge_rounds += 1
+        bound = -(-La // R) + -(-Lb // R) - 1
+        flags = torch.empty(MERGE_FLAG_EVERY, dtype=torch.int32, device=dev)
+        issued = 0
+        while issued < bound:
+            n = min(MERGE_FLAG_EVERY, bound - issued)
+            flags.zero_()
+            for i in range(n):
+                bk.stream_merge_ptr(Ka, Va, lens_a, Kb, Vb, lens_b, pa, pb,
+                                    optr, Ko, Vo, acc[0], flags[i:i + 1],
+                                    acc[2, :1], R=R)
+            issued += n
+            # the one wait for the card per batch, short of the bound
+            if issued < bound and not int(flags[n - 1]) & 2:
                 break
     # copy-through tails (one side exhausted)
     for K, V, lens, ptr, live in ((Ka, Va, lens_a, pa, live_a),
@@ -390,14 +375,14 @@ def merge_round(A, B, R, backend, stats: SpzStats, acc, cap_s=None):
         if not live.any():
             continue
         rem = (lens - ptr).clamp(min=0)
-        src_k, src_v, _ = _take_chunk(K, V, lens, ptr, K.shape[1])
-        _put_rows(Ko, Vo, optr, src_k, src_v, rem)
+        src_k, src_v, _ = take_chunk(K, V, lens, ptr, K.shape[1])
+        put_rows(Ko, Vo, optr, src_k, src_v, rem)
         optr += rem
         acc[1, 0] += ((rem + R - 1) // R).max()
     return Ko[:, :Lo], Vo[:, :Lo], optr, live_a | live_b
 
 
-def merge_tree_host(parts, R, backend, stats: SpzStats, acc, cap_s=None):
+def merge_tree_host(parts, R, backend, stats: SpzStats, acc):
     """Zip-merge tree: halve the partition count per round, lock-step;
     an odd partition passes through.  Returns the single surviving
     partition (keys, vals, lens, live) or None."""
@@ -405,7 +390,7 @@ def merge_tree_host(parts, R, backend, stats: SpzStats, acc, cap_s=None):
         nxt = []
         for j in range(0, len(parts) - 1, 2):
             nxt.append(merge_round(parts[j], parts[j + 1], R, backend,
-                                   stats, acc, cap_s=cap_s))
+                                   stats, acc))
         if len(parts) % 2:
             nxt.append(parts[-1])
         parts = nxt
@@ -421,7 +406,7 @@ def _spz_host_driver(A, B, R, S, order, backend, stats, device):
     a_indptr, a_idx, a_val = csr_to_numpy(A)
     b_indptr, b_idx, b_val = csr_to_numpy(B)
     coo: list = []
-    totals = torch.zeros(2, dtype=torch.int64, device=device)
+    totals = torch.zeros(3, dtype=torch.int64, device=device)
     for g0 in range(0, A.n_rows, S):
         rows = order[g0:g0 + S]
         cap_g = _group_cap(len(rows), S)
@@ -432,16 +417,18 @@ def _spz_host_driver(A, B, R, S, order, backend, stats, device):
         stats.t_expand += t2 - t1
         parts = sort_phase(products, R, len(rows), backend, stats,
                            cap_s=cap_g, device=device)
-        acc = torch.zeros((2, len(rows)), dtype=torch.int64, device=device)
-        final = merge_tree_host(parts, R, backend, stats, acc, cap_s=cap_g)
+        acc = torch.zeros((3, len(rows)), dtype=torch.int64, device=device)
+        final = merge_tree_host(parts, R, backend, stats, acc)
         if final is not None:
             row_ids = _to_device(np.asarray(rows, np.int64), device)
             coo.append((row_ids, *final[:3]))
             totals += acc.sum(1)
         stats.t_sort += time.perf_counter() - t2
-    zip_elems, tails = totals.tolist()
+    zip_elems, tails, worked = totals.tolist()
     stats.zip_elems += zip_elems
-    stats.chunk_stores += tails
+    stats.n_mszip += worked
+    stats.chunk_loads += 2 * worked
+    stats.chunk_stores += worked + tails
     return coo
 
 

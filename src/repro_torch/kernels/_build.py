@@ -41,14 +41,17 @@ SIGNATURES = {
         "zipper_chunk_sort": ([_P, _P, _P, _I, _I, _P, _P, _P, _P], _I),
     },
     "merge_partitions": {
-        "zipper_merge_partitions": ([_P] * 6 + [_I] * 5 + [_P] * 9, _I),
-        "zipper_merge_scratch_words": ([_I, _I, _I], _L),
+        "zipper_merge_partitions": ([_P] * 6 + [_I] * 5 + [_P] * 10, _I),
+        "zipper_merge_scratch_words": ([_I] * 5, _L),
+        "zipper_merge_table_words": ([_I] * 4, _L),
     },
     "stream_sort": {
         "zipper_stream_sort": ([_P, _P, _P, _I, _I, _I, _P, _P, _P, _P], _I),
     },
     "stream_merge": {
         "zipper_stream_merge": ([_P] * 6 + [_I] * 2 + [_P] * 8, _I),
+        "zipper_stream_merge_ptr": ([_P, _P, _L, _P, _P, _P, _L, _P, _I, _I]
+                                    + [_P] * 5 + [_L] + [_P] * 4, _I),
     },
     "fused_bucket": {
         "zipper_fused_bucket": ([_P, _P, _P, _I, _I, _I] + [_P] * 8, _I),

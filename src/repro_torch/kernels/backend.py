@@ -11,6 +11,8 @@ primitives the fused spz pipeline runs —
                         work bucket
   ``stream_sort``       the host tier's mssort: one (S, R) front
   ``stream_merge``      the host tier's mszip: two (S, R) fronts
+  ``stream_merge_ptr``  the same mszip as one issue of a merge round on
+                        pointers into the padded partitions, in place
 
 — and the registry resolves a backend once, at plan time.  Registered:
 
@@ -52,6 +54,7 @@ class KernelBackend:
     fused_bucket: Callable
     stream_sort: Callable
     stream_merge: Callable
+    stream_merge_ptr: Callable
     device_type: Optional[str] = None
     description: str = ""
 
@@ -137,9 +140,10 @@ register_backend(
     fused_bucket=_k3.fused_bucket_plain,
     stream_sort=ref.stream_sort_ref,
     stream_merge=ref.stream_merge_ref,
+    stream_merge_ptr=ref.stream_merge_ptr_ref,
     description="plain torch oracles (sort_chunks_linear, the union merge "
                 "and advance loop, zip_merge_tree, stream_sort_ref, "
-                "stream_merge_ref) on any device")
+                "stream_merge_ref and its pointer form) on any device")
 register_backend(
     name="cuda",
     chunk_sort=_k1.chunk_sort,
@@ -147,7 +151,8 @@ register_backend(
     fused_bucket=_k3.fused_bucket,
     stream_sort=_k4.stream_sort,
     stream_merge=_k5.stream_merge,
+    stream_merge_ptr=_k5.stream_merge_ptr,
     device_type="cuda",
     description="hand-written sm_90a kernels: K1 chunk sort, K2 partition "
                 "merge, K3 fused bucket (large buckets: K1 + K2 per round), "
-                "K4 stream sort, K5 stream merge")
+                "K4 stream sort, K5 stream merge (chunk and pointer forms)")

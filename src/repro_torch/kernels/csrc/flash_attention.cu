@@ -20,17 +20,21 @@
 // and keep them fed.
 //
 // bf16 route (wgmma), FlashAttention-3's forward shape.  One CTA of three
-// warpgroups per (128 query rows, b * H + h).  Warpgroup 0 is the
+// warpgroups per (b * H + h, 128 query rows): heads on grid.x, query tiles
+// on grid.y, so B * H may reach grid.x's 2^31 - 1.  Warpgroup 0 is the
 // producer: it gives its registers up (setmaxnreg.dec) and one thread
-// issues TMA loads, Q once and the K and V tiles into a 3-stage ring of
-// shared memory, each stage with a full and an empty mbarrier.  The
+// issues TMA loads, Q once and the K and V tiles into a ring of shared
+// memory (3 stages; 4 of 32-key tiles at hd = 256, 192 KB with Q), each
+// stage with a full and an empty mbarrier.  The
 // tensor maps are 4-d (hd, S, heads, B) over the caller's strides, built
 // on the host per call; TMA zero-fills what lies past Sq, Skv or hd, so
 // ragged tails and hd < 64 need no masking of loads.  Rows are 128-byte
-// swizzle atoms of 64 bf16 values; hd = 128 is two atoms side by side.
-// Warpgroups 1 and 2 (setmaxnreg.inc) each own 64 query rows:
+// swizzle atoms of 64 bf16 values; hd = 128 is two atoms side by side and
+// hd = 256 four.  Warpgroups 1 and 2 (setmaxnreg.inc) each own 64 query
+// rows:
 //   S = Q K^T   wgmma m64nBKk16, Q and K both K-major in shared memory
-//               (BK = 128 keys up to hd = 64, 64 above);
+//               (BK = 128 keys up to hd = 64, 64 up to 128, 32 up to
+//               256, where O alone takes 128 floats a thread);
 //   softmax     on the accumulator fragment, in base 2 (ex2): a row lives
 //               in the 4 threads of a quad, so its max and sum are two
 //               shfl_xor each; only tiles that cross the diagonal, the
@@ -63,7 +67,8 @@
 // causal blocks (the last query rows) are issued first.
 //
 // float32 route (fma, not on any serving path).  One CTA of 256 threads
-// per (64 query rows, b * H + h) loops over 64-key tiles; q, k and v are
+// per (b * H + h, 64 query rows) loops over 64-key tiles (hd = 256: 214,016
+// bytes of shared memory); q, k and v are
 // read through their strides into padded shared-memory tiles, and both
 // products are float32 FMAs on the CUDA cores in a 16 x 16 thread grid
 // (row max and sum are xor-butterflies over the 16 lanes of a row).
@@ -128,8 +133,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* Vs = Ks + kBK * LD;
   float* Ps = Vs + kBK * LD;
 
-  const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / G;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // heavy tiles first
+  const int b = blockIdx.x / H, h = blockIdx.x % H, kvh = h / G;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heavy tiles first
   const int off = Skv - Sq;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
@@ -252,7 +257,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
+  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, H,
       H / KVH, Sq, Skv, hd, qs, ks, vs, os, scale, causal, window);
@@ -269,7 +274,10 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
   if (hd <= 64)
     return launch<64>(q, k, v, o, B, H, KVH, Sq, Skv, hd, qs, ks, vs, os,
                       scale, causal, window, st);
-  return launch<128>(q, k, v, o, B, H, KVH, Sq, Skv, hd, qs, ks, vs, os,
+  if (hd <= 128)
+    return launch<128>(q, k, v, o, B, H, KVH, Sq, Skv, hd, qs, ks, vs, os,
+                       scale, causal, window, st);
+  return launch<256>(q, k, v, o, B, H, KVH, Sq, Skv, hd, qs, ks, vs, os,
                      scale, causal, window, st);
 }
 
@@ -281,17 +289,17 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 namespace wgmma_route {
 
 constexpr int kBQ = 128;       // query rows per CTA, 64 per consumer
-constexpr int kStages = 3;     // K/V ring depth
 constexpr int kThreads = 384;  // producer + 2 consumer warpgroups
 constexpr int kConsumers = 256;
 constexpr int kAtom = 64;      // bf16 values in a 128-byte swizzled row
 constexpr int kRowBytes = 128;
 
 // Shared memory of one CTA, in bytes from a 1024-byte-aligned base: Q as
-// [consumer][atom][64 rows][128 B], K and V as [stage][atom][BK rows][128 B],
-// then the mbarriers.
-template <int HD, int BK>
+// [consumer][atom][64 rows][128 B], K and V as [stage][atom][BK rows][128 B]
+// in a ring of ST stages, then the mbarriers.
+template <int HD, int BK, int ST>
 struct Smem {
+  static constexpr int kStages = ST;
   static constexpr int kAtoms = HD / kAtom;
   static constexpr int kQAtom = 64 * kRowBytes;          // 64 rows, 8 KB
   static constexpr int kQBytes = 2 * kAtoms * kQAtom;
@@ -369,6 +377,22 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// D (64 x 32) (+)= A (64 x 16, shared) * B (32 x 16, shared)^T, both K-major
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // D (64 x 64) (+)= A (64 x 16, shared) * B (64 x 16, shared)^T, both K-major
@@ -594,7 +618,7 @@ __device__ __forceinline__ void issue_pv(float (&acc)[A][32],
     }
 }
 
-template <int HD, int BK>
+template <int HD, int BK, int ST>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
@@ -602,15 +626,16 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                 __nv_bfloat16* __restrict__ o, Strides os, int H, int G,
                 int Sq, int Skv, int hd, float scale, int causal,
                 int window) {
-  using L = Smem<HD, BK>;
+  using L = Smem<HD, BK, ST>;
   constexpr int A = L::kAtoms;
+  constexpr int kStages = ST;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_full = base + L::kBar;
   const uint32_t full0 = q_full + 8, empty0 = full0 + 8 * kStages;
 
-  const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / G;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // heavy tiles first
+  const int b = blockIdx.x / H, h = blockIdx.x % H, kvh = h / G;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heavy tiles first
   const int off = Skv - Sq;
   // the KV tiles any row of this block can see
   const int n_kt = (Skv + BK - 1) / BK;
@@ -821,39 +846,45 @@ bool make_map(CUtensorMap* map, const void* ptr, int hd, int S, int heads,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD, int BK>
+template <int HD, int BK, int ST>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int KVH, int Sq, int Skv, int hd, Strides qs, Strides ks,
            Strides vs, Strides os, float scale, int causal, int window,
            cudaStream_t stream) {
-  using L = Smem<HD, BK>;
+  using L = Smem<HD, BK, ST>;
   CUtensorMap qmap, kmap, vmap;
   if (!make_map(&qmap, q, hd, Sq, H, B, qs, 64) ||
       !make_map(&kmap, k, hd, Skv, KVH, B, ks, BK) ||
       !make_map(&vmap, v, hd, Skv, KVH, B, vs, BK))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_wgmma<HD, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L::kBytes);
+      flash_fwd_wgmma<HD, BK, ST>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
-  flash_fwd_wgmma<HD, BK><<<grid, kThreads, L::kBytes, stream>>>(
+  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
+  flash_fwd_wgmma<HD, BK, ST><<<grid, kThreads, L::kBytes, stream>>>(
       qmap, kmap, vmap, (__nv_bfloat16*)o, os, H, H / KVH, Sq, Skv, hd, scale,
       causal, window);
   return (int)cudaGetLastError();
 }
 
 // hd <= 64 takes one swizzle atom and 128-key tiles; up to 128, two atoms
-// and 64-key tiles (registers: O is 64 floats a thread there)
+// and 64-key tiles (registers: O is 64 floats a thread there); up to 256,
+// four atoms and 32-key tiles in a 4-stage ring (O is 128 floats a thread,
+// S 16 and the three parts of P 24, inside setmaxnreg's 232; shared memory
+// 64 KB of Q + 4 x 32 KB of K and V)
 int dispatch(const void* q, const void* k, const void* v, void* o, int B,
              int H, int KVH, int Sq, int Skv, int hd, Strides qs, Strides ks,
              Strides vs, Strides os, float scale, int causal, int window,
              cudaStream_t st) {
   if (hd <= 64)
-    return launch<64, 128>(q, k, v, o, B, H, KVH, Sq, Skv, hd, qs, ks, vs,
-                           os, scale, causal, window, st);
-  return launch<128, 64>(q, k, v, o, B, H, KVH, Sq, Skv, hd, qs, ks, vs, os,
-                         scale, causal, window, st);
+    return launch<64, 128, 3>(q, k, v, o, B, H, KVH, Sq, Skv, hd, qs, ks, vs,
+                              os, scale, causal, window, st);
+  if (hd <= 128)
+    return launch<128, 64, 3>(q, k, v, o, B, H, KVH, Sq, Skv, hd, qs, ks, vs,
+                              os, scale, causal, window, st);
+  return launch<256, 32, 4>(q, k, v, o, B, H, KVH, Sq, Skv, hd, qs, ks, vs,
+                            os, scale, causal, window, st);
 }
 
 }  // namespace wgmma_route
@@ -863,8 +894,10 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 // unit stride on hd and the given element strides on (batch, seq, head);
 // bf16 != 0: all four are bf16 (the wgmma route; q, k and v 16-byte
 // aligned with strides that are multiples of 8), else float32 (the fma
-// route).  hd a multiple of 8 up to 128, H a multiple of KVH,
-// B * H < 65,536 (checked by the wrapper).
+// route).  hd a multiple of 8 up to 256 (the wrapper pads any other hd
+// up to 256 with zero columns), H a multiple of KVH; B * H runs on
+// grid.x and the query tiles on grid.y, so Sq / 64 < 65,536 (checked by
+// the wrapper).
 extern "C" int zipper_flash_attention(
     const void* q, const void* k, const void* v, void* o, int bf16, int B,
     int H, int KVH, int Sq, int Skv, int hd, long long qsb, long long qss,

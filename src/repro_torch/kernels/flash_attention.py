@@ -10,9 +10,11 @@ agree to float32 rounding (the kernel sums a row tile by tile), not bit
 for bit.
 
 The kernel has two routes, chosen by dtype: bfloat16 inputs take the
-``wgmma`` route (TMA loads, tensor-core products, P split into two bf16
-parts for the PV product), float32 inputs the ``fma`` route (CUDA-core
-FMAs).
+``wgmma`` route (TMA loads, tensor-core products, P split into three
+bf16 parts for the PV product), float32 inputs the ``fma`` route
+(CUDA-core FMAs).  Both take any head dim up to ``MAX_HEAD_DIM`` (256,
+the widest of the reference's configs); one that is not a multiple of 8
+is first copied into a zero-padded head dim.
 
 :func:`flash_attention` takes the plain version only for tensors on the
 CPU; on CUDA tensors it launches the kernel (counting the launch in
@@ -22,6 +24,7 @@ or raises.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import stream_of
@@ -29,14 +32,17 @@ from repro_torch.kernels.ref import flash_attention_ref
 
 flash_attention_plain = flash_attention_ref
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
+# query tiles run on grid.y: at most 65,535 of 64 rows (fma route)
+MAX_QUERY_TILES = 65535
 
 
 def wgmma_tiles(hd: int) -> tuple[int, int]:
     """(query rows, keys) of one tile of the wgmma route at head dim hd:
-    128 query rows per CTA; 128-key tiles up to hd = 64, 64-key tiles
-    above (the accumulator of 128 columns takes twice the registers)."""
-    return 128, (128 if hd <= 64 else 64)
+    128 query rows per CTA; 128-key tiles up to hd = 64, 64-key tiles up
+    to 128 and 32-key tiles above (the output accumulator takes hd / 2
+    registers a thread)."""
+    return 128, (128 if hd <= 64 else 64 if hd <= 128 else 32)
 
 
 def tma_ready(strides, data_ptr: int) -> bool:
@@ -49,10 +55,13 @@ def tma_ready(strides, data_ptr: int) -> bool:
 
 def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
     """q: (B, Sq, H, hd); k/v: (B, Skv, KVH, hd) -> (B, Sq, H, hd) in
-    q's dtype.  float32 or bfloat16 (all three alike); hd a multiple of
-    8 up to 128; H a multiple of KVH.  Inputs are read in place through
-    their strides; one the kernel cannot read so (a head dim that is not
-    contiguous; for bf16 also a base or stride TMA refuses) is copied."""
+    q's dtype.  float32 or bfloat16 (all three alike); hd up to 256; H a
+    multiple of KVH.  Inputs are read in place through their strides; one
+    the kernel cannot read so (a head dim that is not contiguous; for
+    bf16 also a base or stride TMA refuses) is copied.  An hd that is not
+    a multiple of 8 is copied once into zero columns up to the next
+    multiple of 8 (a zero column adds nothing to a score); the scale
+    comes from the true hd and the output is cut back to it."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)
@@ -62,13 +71,13 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
         raise ValueError(f"flash_attention takes q (B, Sq, H, hd) and k, v "
                          f"(B, Skv, KVH, hd); got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if hd % 8 or not 0 < hd <= MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {hd} is not a multiple of 8 in "
-                         f"[8, {MAX_HEAD_DIM}]")
+    if not 0 < hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {hd} is outside [1, {MAX_HEAD_DIM}]")
     if KVH == 0 or H % KVH:
         raise ValueError(f"{H} query heads do not group over {KVH} KV heads")
-    if B * H >= 65536:
-        raise ValueError(f"B * H = {B * H} exceeds the grid's 65,535 rows")
+    if -(-Sq // 64) > MAX_QUERY_TILES:
+        raise ValueError(f"Sq = {Sq} exceeds the grid's {MAX_QUERY_TILES} "
+                         f"query tiles of 64 rows")
     if q.dtype not in (torch.float32, torch.bfloat16) \
             or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, v "
@@ -77,6 +86,13 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
         if t.device != q.device:
             raise ValueError(f"inputs on {q.device} and {t.device}")
     route = "wgmma" if q.dtype == torch.bfloat16 else "fma"
+    scale = scale if scale is not None else hd ** -0.5
+    if hd % 8:
+        pad = -hd % 8
+        q, k, v = (F.pad(t, (0, pad)) for t in (q, k, v))
+        o = flash_attention(q, k, v, causal=causal, window=window,
+                            scale=scale)
+        return o[..., :hd].contiguous()
     if route == "wgmma":
         q, k, v = (t if tma_ready(t.stride(), t.data_ptr())
                    else t.clone(memory_format=torch.contiguous_format)
@@ -85,7 +101,6 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
         q, k, v = (t if t.stride(-1) == 1 else t.contiguous()
                    for t in (q, k, v))
     o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
-    scale = scale if scale is not None else hd ** -0.5
     if B and Sq:
         launch(q, k, v, o, causal=causal, window=window, scale=scale)
         flash_attention.launches += 1

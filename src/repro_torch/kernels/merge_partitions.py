@@ -11,7 +11,12 @@ is ``csrc/merge_partitions.cu``; its plain version is the oracle
 The kernel reports per-stream (steps, zip elements, tail chunks per
 side); the wrapper reduces them per pair of ``pair_streams`` rows with a
 few torch ops, as the Pallas wrapper does: a pair's issue count is the
-max over its streams, zip elements a sum, tails the max per side.
+max over its streams, zip elements a sum, tails the max per side.  Rows
+of more than 4,096 slots take the long-row route: each row's merged
+elements are cut into tiles of 2,048 over many CTAs, and its counters
+come from pointer jumping over the candidate cutoffs; the wrapper
+allocates that route's zeroed scratch (tile status) and tables, and
+counts one launch per call.
 :func:`merge_partitions` takes the plain version only for CPU tensors;
 on CUDA tensors it launches the kernel (``merge_partitions.launches``)
 or raises.
@@ -35,18 +40,21 @@ def launch(ka, va, la, kb, vb, lb, R: int, with_counters: bool, ok, ov, ol,
     lib = _build.LIBS.get("merge_partitions")
     N, La = ka.shape
     Lb = kb.shape[1]
-    # rows too long for a block's shared memory keep the kernel's bits
-    # and prefixes in device memory
-    words = lib.zipper_merge_scratch_words(N, La, Lb)
-    scratch = torch.empty(words, dtype=torch.int32, device=ka.device) \
+    # long rows (La + Lb > 4,096) spread over many CTAs: their tiles'
+    # look-back status and the pointer-jumping tables of the counters
+    dev = ka.device
+    words = lib.zipper_merge_scratch_words(N, La, Lb, R, int(with_counters))
+    scratch = torch.zeros(words, dtype=torch.int32, device=dev) \
         if words else None
+    tw = lib.zipper_merge_table_words(N, La, Lb, int(with_counters))
+    tables = torch.empty(tw, dtype=torch.int32, device=dev) if tw else None
     err = lib.zipper_merge_partitions(
         ka.data_ptr(), va.data_ptr(), la.data_ptr(), kb.data_ptr(),
         vb.data_ptr(), lb.data_ptr(), N, La, Lb, R,
         int(with_counters), ok.data_ptr(), ov.data_ptr(), ol.data_ptr(),
         cnt[0].data_ptr(), cnt[1].data_ptr(), cnt[2].data_ptr(),
         cnt[3].data_ptr(), scratch.data_ptr() if words else None,
-        stream_of(ka))
+        tables.data_ptr() if tw else None, stream_of(ka))
     _build.check(lib, err, "merge_partitions")
 
 

@@ -16,6 +16,13 @@ same inputs:
     registers) tell the driver how far each input advanced.  The merged
     chunk of up to 2R tuples is split into a low and a high half.
 
+``stream_merge_ptr_ref``
+    One issue of the host driver's merge round in pointer form: the
+    fronts gathered at the pointers (``take_chunk``, the mlxe.t
+    analogue), ``stream_merge_ref``, the merged rows appended at the
+    output pointers (``put_rows``, msxe.t), and the pointer, zip-element
+    and flag updates, in place.
+
 A duplicate run is summed from zero left to right in sorted order, one
 add per element (``0 + v0 + v1 + ...``), the order in which the
 reference's ``segment_sum`` adds on the CPU; the sort is stable, as
@@ -118,6 +125,61 @@ def stream_merge_ref(ka, va, la, kb, vb, lb):
     k, v, out_lens = _sort_combine_compress(cat_k.to(torch.int32), cat_v)
     return (k[:, :R], v[:, :R], k[:, R:], v[:, R:], consumed_a, consumed_b,
             out_lens)
+
+
+def take_chunk(K, V, lens, ptr, R):
+    """Chunk front: slots [ptr, min(ptr + R, lens)) of each stream, with
+    gathers (no wait for the card).  K/V: (S, L) padded; returns (keys
+    (S, R) int32, vals (S, R), n (S,) int32)."""
+    L = K.shape[1]
+    idx = ptr[:, None] + torch.arange(R, device=K.device)
+    ok = idx < lens[:, None]
+    idx_c = idx.clamp(max=L - 1)
+    keys = torch.where(ok, torch.gather(K, 1, idx_c), EMPTY)
+    vals = torch.where(ok, torch.gather(V, 1, idx_c), 0.0)
+    return keys, vals, ok.sum(1, dtype=torch.int32)
+
+
+def put_rows(K, V, optr, src_k, src_v, n):
+    """Append: write src[s, :n[s]] at K[s, optr[s]:...] with one scatter
+    per array (no wait for the card).  K/V are (S, L + 1): the masked
+    lanes all land in the spill column L, which the caller drops."""
+    W = src_k.shape[1]
+    spill = K.shape[1] - 1
+    j = torch.arange(W, device=K.device)
+    idx = torch.where(j[None, :] < n[:, None], optr[:, None] + j, spill)
+    K.scatter_(1, idx, src_k)
+    V.scatter_(1, idx, src_v)
+
+
+def stream_merge_ptr_ref(Ka, Va, lens_a, Kb, Vb, lens_b, pa, pb, optr, Ko,
+                         Vo, zips, flag, worked, *, R: int):
+    """One mszip issue of a merge round, on pointers, in place.
+
+    Ka/Va (S, La) and Kb/Vb (S, Lb) padded partitions with int64 lengths
+    (S,); pa, pb, optr, zips (S,) int64; Ko/Vo (S, Lo + 1), the last
+    column a spill column the caller drops; flag a one-element int32
+    tensor; worked a one-element int64 tensor.  A stream takes part when pa < lens_a and pb < lens_b (else
+    its fronts are empty): its fronts at (pa, pb) are merged by
+    ``stream_merge_ref``, the merged uniques appended at optr, pa, pb and
+    optr advanced, and the front sizes added to zips.  flag gets bit 0
+    when a stream took part and bit 1 when one still can after the
+    issue, and worked one when a stream took part.  Nothing is read back
+    to the host."""
+    both = (pa < lens_a) & (pb < lens_b)
+    ka, va, la = take_chunk(Ka, Va, torch.where(both, lens_a, 0), pa, R)
+    kb, vb, lb = take_chunk(Kb, Vb, torch.where(both, lens_b, 0), pb, R)
+    klo, vlo, khi, vhi, ca, cb, ol = stream_merge_ref(ka, va, la, kb, vb, lb)
+    put_rows(Ko, Vo, optr, torch.cat([klo, khi], 1),
+             torch.cat([vlo, vhi], 1), ol)
+    optr += ol
+    pa += ca
+    pb += cb
+    zips += la
+    zips += lb
+    more = (pa < lens_a) & (pb < lens_b)
+    flag.bitwise_or_((both.any().int() + 2 * more.any().int()).reshape(1))
+    worked += both.any()
 
 
 def _attention_mask(Sq, Skv, causal, window, device):

@@ -78,6 +78,46 @@ def test_flash_attention_plain_matches_pallas_and_mha_ref(
         np.testing.assert_allclose(got, pallas, rtol=BF16_ULP, atol=1e-6)
 
 
+# head dims past the sweep's: RecurrentGemma-9B's 256 (windowed, as its
+# local attention is), and 20, which the kernel takes padded to 24
+HEAD_DIMS = [(1, 96, 96, 4, 1, 256, True, 32), (1, 64, 64, 2, 2, 256, False, 0),
+             (2, 48, 64, 4, 2, 20, True, 0), (1, 40, 40, 3, 1, 20, True, 16)]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KVH,hd,causal,window", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_attention_plain_head_dims(B, Sq, Skv, H, KVH, hd, causal,
+                                         window, dtype):
+    """The plain version at hd = 256 and hd = 20 against the Pallas
+    kernel (interpret mode), at the sweep's tolerances: 1e-5 in float32,
+    one bf16 rounding plus 1e-6 in bf16."""
+    tdt, jdt = DTYPES[dtype]
+    q, k, v = _qkv(B, Sq, Skv, H, KVH, hd, seed=hd)
+    got = flash_attention(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
+                          causal=causal, window=window)
+    assert got.dtype == tdt and got.shape == (B, Sq, H, hd)
+    pallas = _np(flash_attention_pallas(
+        *(jnp.asarray(a).astype(jdt) for a in (q, k, v)), causal=causal,
+        window=window, bq=32, bk=16, interpret=True))
+    if dtype == "float32":
+        np.testing.assert_allclose(_np(got), pallas, rtol=1e-5, atol=1e-5)
+    else:
+        np.testing.assert_allclose(_np(got), pallas, rtol=BF16_ULP,
+                                   atol=1e-6)
+
+
+def test_zero_padded_head_dim_changes_nothing():
+    """What the wrapper does for an hd that is not a multiple of 8: zero
+    columns up to 24 with the scale of the true hd, then the output cut
+    back, gives the unpadded result (float32, to rounding)."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 40, 40, 4, 2, 20))
+    want = tref.flash_attention_ref(q, k, v, window=8)
+    pad = [torch.nn.functional.pad(t, (0, 4)) for t in (q, k, v)]
+    got = tref.flash_attention_ref(*pad, window=8, scale=20 ** -0.5)
+    torch.testing.assert_close(got[..., :20], want, rtol=1e-6, atol=1e-6)
+    assert not got[..., 20:].any()
+
+
 def _wgmma_route(q, k, v, *, causal, window, parts=3):
     """K6's bf16 (wgmma) route in plain torch: bf16 operands, float32
     scores and accumulators tile by tile at the kernel's (BQ, BK), the
@@ -134,8 +174,8 @@ def _wgmma_route(q, k, v, *, causal, window, parts=3):
     return out
 
 
-# hd 64 (one swizzle atom, 128-key tiles) and 128 (two atoms, 64-key
-# tiles); causal, windowed (whole tiles below the window for some rows of
+# hd 64 (one swizzle atom, 128-key tiles), 128 (two atoms, 64-key tiles)
+# and 256 (four atoms, 32-key tiles); causal, windowed (whole tiles below the window for some rows of
 # a block: wiped by the next valid tile), bidirectional, ragged Sq and Skv
 WGMMA_CASES = [
     (1, 256, 256, 4, 2, 64, True, 0),
@@ -144,6 +184,8 @@ WGMMA_CASES = [
     (2, 130, 130, 4, 4, 128, False, 0),
     (1, 160, 160, 2, 1, 128, True, 40),
     (1, 100, 100, 2, 2, 96, True, 0),
+    (1, 130, 130, 2, 1, 256, True, 0),   # four atoms, 32-key tiles
+    (1, 96, 96, 2, 2, 256, True, 40),
 ]
 
 
@@ -184,6 +226,7 @@ def test_wgmma_route_arithmetic_at_serving_shapes(H, KVH, hd):
 def test_wgmma_tiles_and_tma_ready():
     assert wgmma_tiles(64) == (128, 128) and wgmma_tiles(8) == (128, 128)
     assert wgmma_tiles(96) == (128, 64) and wgmma_tiles(128) == (128, 64)
+    assert wgmma_tiles(136) == (128, 32) and wgmma_tiles(256) == (128, 32)
     # TinyLlama's q (4, 512, 32, 64), contiguous, and k, v sliced from one
     # packed (.., 40, 64) projection: strides of 8 values, 16-byte bases
     assert tma_ready((512 * 32 * 64, 32 * 64, 64, 1), 2 ** 20)

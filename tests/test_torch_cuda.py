@@ -6,14 +6,16 @@ only, so it runs on a machine without JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Each kernel (K1 chunk sort, K2 partition merge, K3 fused bucket on both
-of its routes, K4 stream sort, K5 stream merge) must equal its plain
-version bit for bit — keys, values (-0.0 included), lengths and the
-mszip counters — and count its launch.  K6 flash attention must agree
-with its plain version within the reference sweep's tolerances (2e-4 in
-float32, one bf16 rounding plus 1e-6 in bf16: it sums each row tile by
-tile), take the wgmma route for bf16 and the fma route for float32, and
-launch once per layer in a prefill and never in decode.  K7 grouped
+Each kernel (K1 chunk sort, K2 partition merge on short rows and on
+long rows spread over many CTAs, K3 fused bucket on both of its routes,
+K4 stream sort, K5 stream merge in its chunk and pointer forms) must
+equal its plain version bit for bit — keys, values (-0.0 included),
+lengths and the mszip counters — and count its launch.  K6 flash
+attention must agree with its plain version within the reference
+sweep's tolerances (2e-4 in float32, one bf16 rounding plus 1e-6 in
+bf16: it sums each row tile by tile) at head dims up to 256 and
+B * H = 65,536, take the wgmma route for bf16 and the fma route for
+float32, and launch once per layer in a prefill and never in decode.  K7 grouped
 matmul must agree with its plain version within 1e-4 of the output's
 largest magnitude in float32 and one bf16 rounding (plus that 1e-4) in
 bf16, in both of its layouts, write exact zeros in every row no group
@@ -39,7 +41,9 @@ from repro_torch.kernels.grouped_matmul import (grouped_matmul,
 from repro_torch.kernels.merge_partitions import (merge_partitions,
                                                   merge_partitions_plain)
 from repro_torch.kernels.ops import sort_tokens_by_key
-from repro_torch.kernels.stream_merge import stream_merge, stream_merge_plain
+from repro_torch.kernels.stream_merge import (stream_merge, stream_merge_plain,
+                                              stream_merge_ptr,
+                                              stream_merge_ptr_plain)
 from repro_torch.kernels.stream_sort import stream_sort, stream_sort_plain
 from repro_torch.models import model as M
 from repro_torch.serving.engine import Engine, Request
@@ -128,6 +132,84 @@ def test_merge_partitions_kernel(card, N, La, Lb, R, S):
     for w, g in zip(want[:3], got[:3]):
         _eq(w, g)
     assert [int(x) for x in want[3]] == [int(x) for x in got[3]]
+
+
+def _long_rows(rng, N, La, Lb, max_len):
+    """Long rows of max_len / 2 to max_len keys a side below 2 max_len
+    (so duplicates fall on many of the 2,048-element tile boundaries):
+    row 1 all duplicates (B holds A's keys), row 2 with an empty B side."""
+    out = []
+    for L in (La, Lb):
+        hi = min(L, max_len)
+        lens = rng.integers(hi // 2, hi + 1, N).astype(np.int32)
+        keys = np.full((N, L), EMPTY, np.int32)
+        vals = np.zeros((N, L), np.float32)
+        for s in range(N):
+            keys[s, :lens[s]] = np.sort(rng.choice(2 * max_len, lens[s],
+                                                   replace=False))
+            vals[s, :lens[s]] = rng.standard_normal(lens[s])
+        out += [keys, vals, lens]
+    ka, va, la, kb, vb, lb = out
+    if N > 1:
+        n = min(la[1], Lb)
+        kb[1], vb[1] = EMPTY, 0.0
+        kb[1, :n], lb[1] = ka[1, :n], n
+    if N > 2:
+        kb[2], vb[2], lb[2] = EMPTY, 0.0, 0
+    return ka, va, la, kb, vb, lb
+
+
+@pytest.mark.parametrize("N,La,Lb,R", [(1, 2**15, 2**15, 16),
+                                       (3, 2**14, 2**12, 16),
+                                       (3, 2**13, 2**13, 8),
+                                       (1, 2**19, 2**19, 16)])
+def test_merge_partitions_long_rows(card, N, La, Lb, R):
+    """K2's long-row route: a row's merged elements are cut into tiles of
+    2,048 across CTAs, and its counters come from pointer jumping; keys,
+    values, lengths and the counters per row equal the plain version."""
+    rng = np.random.default_rng(La + 3 * Lb + N)
+    args = _on(card, *_long_rows(rng, N, La, Lb, 40_000))
+    assert int(args[2][0] + args[5][0]) > 2048  # more than one tile
+    before = merge_partitions.launches
+    got = merge_partitions(*args, R=R, pair_streams=1)
+    assert merge_partitions.launches == before + 1
+    want = merge_partitions_plain(*args, R=R, pair_streams=1)
+    for w, g in zip(want[:3], got[:3]):
+        _eq(w, g)
+    assert [int(x) for x in want[3]] == [int(x) for x in got[3]]
+    # per-row counters: each row its own pair
+    for s in range(N):
+        row = [a[s:s + 1] for a in args]
+        assert [int(x) for x in merge_partitions(*row, R=R)[3]] == \
+            [int(x) for x in merge_partitions_plain(*row, R=R)[3]]
+    got = merge_partitions(*args, R=R, with_counters=False)
+    for w, g in zip(want[:3], got[:3]):
+        _eq(w, g)
+
+
+def test_merge_partitions_long_rows_unusual_inputs(card):
+    """Inputs the plain advance loop admits beyond sorted, non-negative
+    keys: an EMPTY inside A's length where B runs out first (pointer
+    jumping), and negative keys (the plain loop in one warp)."""
+    L = 4096
+    ka = np.full((2, L), EMPTY, np.int32)
+    kb = np.full((2, L), EMPTY, np.int32)
+    va = np.ones((2, L), np.float32)
+    vb = np.full((2, L), 2.0, np.float32)
+    ka[0, :3000] = np.arange(0, 6000, 2)
+    kb[0, :1000] = np.arange(1, 2000, 2)
+    la = np.array([3001, 3000], np.int32)  # A[0, 3000] is EMPTY
+    lb = np.array([1000, 2500], np.int32)
+    ka[1, :3000] = np.arange(-3000, 3000, 2)
+    kb[1, :2500] = np.arange(-2000, 3000, 2)
+    args = _on(card, ka, va, la, kb, vb, lb)
+    for s in range(2):
+        row = [a[s:s + 1] for a in args]
+        got = merge_partitions(*row, R=16)
+        want = merge_partitions_plain(*row, R=16)
+        for w, g in zip(want[:3], got[:3]):
+            _eq(w, g)
+        assert [int(x) for x in want[3]] == [int(x) for x in got[3]]
 
 
 @pytest.mark.parametrize("S,L,R,route", [(64, 512, 16, "fused"),
@@ -234,6 +316,71 @@ def test_stream_merge_one_side_empty(card):
     assert int(got[4].sum()) == int(got[5].sum()) == int(got[6].sum()) == 0
 
 
+def _ptr_pair(rng, S, La, Lb):
+    hi = La + Lb
+    out = []
+    for L in (La, Lb):
+        lens = rng.integers(0, L + 1, S)
+        lens[S // 2] = 0  # one side empty
+        K = np.full((S, L), EMPTY, np.int32)
+        V = np.zeros((S, L), np.float32)
+        for s in range(S):
+            K[s, :lens[s]] = np.sort(rng.choice(hi, lens[s], replace=False))
+            V[s, :lens[s]] = rng.standard_normal(lens[s])
+        V[rng.random((S, L)) < 0.1] = -0.0
+        out += [K, V, lens.astype(np.int64)]
+    return out
+
+
+@pytest.mark.parametrize("S,La,Lb,R", [(512, 64, 48, 16), (37, 200, 40, 8),
+                                       (3, 16, 16, 4)])
+def test_stream_merge_pointer_form(card, S, La, Lb, R):
+    """Issue by issue through a merge round and 3 idle issues past its
+    end, on partitions whose rows lie Lo + 1 apart (as the host driver's
+    merged partitions do): the kernel's pointers, zip elements, appended
+    rows, flag and count of issues that did work equal the plain
+    composition's; an idle issue writes nothing; every launch counts as
+    a pointer-form launch."""
+    rng = np.random.default_rng(S + La)
+    Ka, Va, la, Kb, Vb, lb = _ptr_pair(rng, S, La, Lb)
+    Kw, Vw = _on(card, np.pad(Ka, ((0, 0), (0, 5)), constant_values=EMPTY),
+                 np.pad(Va, ((0, 0), (0, 5))))
+    Ka, Va = Kw[:, :La], Vw[:, :La]  # rows La + 5 apart
+    Kb, Vb, la, lb = _on(card, Kb, Vb, la, lb)
+    Lo = La + Lb
+    state = {}
+    for form in ("kernel", "plain"):
+        z = torch.zeros(S, dtype=torch.int64, device=card)
+        state[form] = [z.clone() for _ in range(4)] + [
+            torch.full((S, Lo + 1), EMPTY, dtype=torch.int32, device=card),
+            torch.zeros((S, Lo + 1), dtype=torch.float32, device=card)]
+    worked = torch.zeros(2, dtype=torch.int64, device=card)
+    idle = issues = 0
+    while idle < 3:
+        flags = torch.zeros(2, dtype=torch.int32, device=card)
+        before = (stream_merge.launches, stream_merge.routes["pointer"])
+        pa, pb, optr, zips, Ko, Vo = state["kernel"]
+        stream_merge_ptr(Ka, Va, la, Kb, Vb, lb, pa, pb, optr, Ko, Vo, zips,
+                         flags[0:1], worked[0:1], R=R)
+        assert (stream_merge.launches, stream_merge.routes["pointer"]) == (
+            before[0] + 1, before[1] + 1)
+        pa, pb, optr, zips, Ko, Vo = state["plain"]
+        stream_merge_ptr_plain(Ka, Va, la, Kb, Vb, lb, pa, pb, optr, Ko, Vo,
+                               zips, flags[1:2], worked[1:2], R=R)
+        for w, g in zip(state["plain"][:4], state["kernel"][:4]):
+            _eq(w, g)
+        for w, g in zip(state["plain"][4:], state["kernel"][4:]):
+            _eq(w[:, :Lo], g[:, :Lo])
+        assert not bool((state["kernel"][4][:, Lo] != EMPTY).any())
+        f = flags.tolist()
+        assert f[0] == f[1]
+        w = worked.tolist()
+        assert w[0] == w[1]
+        issues += 1
+        idle += not f[0] & 1
+    assert issues > 4
+
+
 @pytest.mark.parametrize("engine", ["spz-host", "esc"])
 def test_engine_cuda_matches_cpu(card, engine):
     A = random_sparse(700, 700, 0.02, seed=3, pattern="powerlaw")
@@ -255,7 +402,10 @@ def test_engine_cuda_matches_cpu(card, engine):
 ATTN = [(2, 64, 64, 4, 2, 16, True, 0), (1, 96, 96, 8, 1, 32, True, 32),
         (2, 48, 64, 4, 4, 16, True, 0), (1, 64, 64, 2, 2, 8, False, 0),
         (1, 128, 128, 4, 1, 64, True, 0), (2, 100, 300, 24, 8, 128, True, 0),
-        (1, 200, 200, 6, 2, 96, False, 50), (4, 512, 512, 32, 4, 64, True, 0)]
+        (1, 200, 200, 6, 2, 96, False, 50), (4, 512, 512, 32, 4, 64, True, 0),
+        (1, 300, 300, 4, 1, 256, True, 100), (2, 130, 200, 4, 2, 256, True, 0),
+        (2, 70, 70, 3, 1, 200, False, 0), (1, 100, 120, 4, 2, 20, True, 0),
+        (2, 33, 33, 2, 2, 5, True, 7)]
 
 
 @pytest.mark.parametrize("B,Sq,Skv,H,KVH,hd,causal,window", ATTN)
@@ -305,8 +455,26 @@ def test_flash_attention_strided_inputs(card, dtype):
                                        rtol=2 ** -7, atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_many_heads(card, dtype):
+    """B * H = 65,536 (heads run on grid.x): held against the plain
+    version."""
+    rng = np.random.default_rng(4)
+    B, S, H, KVH, hd = 4096, 12, 16, 4, 16
+    q, k, v = (t.to(dtype) for t in _on(card, *(
+        rng.standard_normal(s).astype(np.float32)
+        for s in ((B, S, H, hd), (B, S, KVH, hd), (B, S, KVH, hd)))))
+    got = flash_attention(q, k, v)
+    want = flash_attention_plain(q, k, v)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                                   atol=1e-6)
+
+
 def test_flash_attention_rejects_unsupported(card):
-    q = torch.zeros((1, 8, 2, 136), device=card)
+    q = torch.zeros((1, 8, 2, 264), device=card)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention(q, q, q)
     q = torch.zeros((1, 8, 3, 16), device=card, dtype=torch.float16)

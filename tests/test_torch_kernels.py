@@ -23,6 +23,7 @@ from repro_torch.kernels.chunk_sort import chunk_sort, chunk_sort_plain
 from repro_torch.kernels.fused_bucket import fused_bucket, fused_bucket_plain
 from repro_torch.kernels.merge_partitions import (merge_partitions,
                                                   merge_partitions_plain)
+from repro_torch.kernels.merge_tree import _advance_counters
 
 torch.set_num_threads(2)
 
@@ -171,6 +172,180 @@ def test_merge_partitions_without_counters():
 
 
 # ---------------------------------------------------------------------------
+# K2's long-row route (csrc/merge_partitions.cu), its arithmetic emulated in
+# numpy at tiles small enough to cut every row many times
+# ---------------------------------------------------------------------------
+
+def _merge_path(a, b, d):
+    """A elements among the first d of the merged order, A first on ties."""
+    lo, hi = max(0, d - len(b)), min(d, len(a))
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if a[mid] <= b[d - 1 - mid]:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def _long_payload(A, VA, na, B, VB, nb, tile):
+    """merge_partitions_long_payload on one row: diagonal tiles of ``tile`` merged
+    elements, each element placed at its merged position less the B
+    duplicates before it (earlier tiles' from the look-back sum, its own
+    tile's from a prefix), EMPTY / 0 past the merged length."""
+    M, L = na + nb, len(A) + len(B)
+    ok, ov = np.full(L, EMPTY, np.int32), np.zeros(L, np.float32)
+    excl = 0
+    for d0 in range(0, M, tile):
+        d1 = min(d0 + tile, M)
+        i0, i1 = _merge_path(A[:na], B[:nb], d0), _merge_path(A[:na], B[:nb], d1)
+        j0, j1 = d0 - i0, d1 - i1
+        As, Bs, n = A[i0:i1], B[j0:j1], d1 - d0
+        keys, vals = np.zeros(n, np.int32), np.zeros(n, np.float32)
+        dup = np.zeros(n, bool)
+        for a, k in enumerate(As):
+            r = int(np.searchsorted(Bs, k, "left"))
+            v = VA[i0 + a]
+            if Bs[r] == k if r < len(Bs) else j1 < nb and B[j1] == k:
+                v = v + (VB[j0 + r] if r < len(Bs) else VB[j1])
+            keys[a + r], vals[a + r] = k, v
+        for b, k in enumerate(Bs):
+            r = int(np.searchsorted(As, k, "right"))
+            keys[b + r], vals[b + r] = k, VB[j0 + b]
+            dup[b + r] = As[r - 1] == k if r > 0 else i0 > 0 and A[i0 - 1] == k
+        before = np.cumsum(dup) - dup
+        keep = ~dup
+        ok[d0 - excl + np.arange(n)[keep] - before[keep]] = keys[keep]
+        ov[d0 - excl + np.arange(n)[keep] - before[keep]] = vals[keep]
+        excl += int(dup.sum())
+    return ok, ov, M - excl
+
+
+def _well_formed(k):
+    """Sorted, duplicate-free, non-negative, EMPTY only at the end."""
+    return bool((k >= 0).all() and ((k[:-1] < k[1:]) | (k[1:] == EMPTY)).all())
+
+
+def _jump_counters(A, na, B, nb, R):
+    """merge_partitions_long_jump_{init,round,final} on one row: (steps, zips,
+    tail_a, tail_b) of the chain of cutoffs by pointer jumping, or None
+    for a row the kernel hands to the plain advance loop."""
+    if not (_well_formed(A[:na]) and _well_formed(B[:nb])):
+        return None
+    ea = int(np.searchsorted(A[:na], EMPTY))
+    eb = int(np.searchsorted(B[:nb], EMPTY))
+
+    def state(x):  # (pa, pb) at candidate x, None for an EMPTY key
+        if x == 0:
+            return 0, 0
+        if x <= na:
+            i = x - 1
+            return None if i >= ea else (
+                i + 1, int(np.searchsorted(B[:eb], A[i], "right")))
+        j = x - 1 - na
+        return None if j >= eb else (
+            int(np.searchsorted(A[:ea], B[j], "right")), j + 1)
+
+    n = na + nb + 1
+    nxt, steps, zips = list(range(n)), [0] * n, [0] * n
+    for x in range(n):
+        st = state(x)
+        if st is None or not (st[0] < na and st[1] < nb):
+            continue
+        pa, pb = st
+        fa, fb = min(na - pa, R), min(nb - pb, R)
+        xa, xb = min(pa + fa, ea), min(pb + fb, eb)
+        mxa = A[xa - 1] if xa > pa else -1
+        mxb = B[xb - 1] if xb > pb else -1
+        if mxa >= 0 and mxb >= 0:
+            nxt[x] = xa if mxa <= mxb else na + xb
+            steps[x], zips[x] = 1, fa + fb
+    more = nxt[0] != 0
+    rounds = 0  # 2^rounds >= (La + Lb) / R + 2 steps, the kernel's bound
+    while 2 ** rounds < (len(A) + len(B)) // R + 2:
+        rounds += 1
+    for _ in range(rounds):
+        if not more:
+            break
+        nxt2 = [nxt[nxt[x]] for x in range(n)]
+        steps = [steps[x] + (steps[nxt[x]] if nxt[x] != x else 0)
+                 for x in range(n)]
+        zips = [zips[x] + (zips[nxt[x]] if nxt[x] != x else 0)
+                for x in range(n)]
+        more = nxt[nxt2[0]] != nxt2[0]
+        nxt = nxt2
+    assert nxt[nxt[0]] == nxt[0]  # the chain ended within the bound
+    pa, pb = state(nxt[0])
+    return (steps[0], zips[0], -(-max(na - pa, 0) // R),
+            -(-max(nb - pb, 0) // R))
+
+
+def _long_rows(seed, N, La, Lb, key_hi):
+    rng = np.random.default_rng(seed)
+    rows = _partition(rng, N, La, key_hi) + _partition(rng, N, Lb, key_hi)
+    ka, va, la, kb, vb, lb = rows
+    if N > 1:  # one side empty
+        ka[0], va[0], la[0] = EMPTY, 0.0, 0
+    lb[-1] = min(lb[-1], 1)  # one key against many
+    kb[-1, lb[-1]:], vb[-1, lb[-1]:] = EMPTY, 0.0
+    if N > 2:  # the same keys on both sides: every B element a duplicate
+        n = min(la[1], lb[1])
+        kb[1, :n], la[1], lb[1] = ka[1, :n], n, n
+        kb[1, n:] = EMPTY
+    return rows
+
+
+@pytest.mark.parametrize("tile", [1, 3, 8, 64])
+@pytest.mark.parametrize("N,La,Lb,key_hi", [(4, 40, 40, 90), (3, 64, 24, 70),
+                                           (5, 33, 70, 400), (3, 16, 16, 20)])
+def test_long_row_payload_emulation(N, La, Lb, key_hi, tile):
+    """Tiles of the merged diagonal (tile = 1 cuts every duplicate pair
+    across two tiles) give the plain union merge bit for bit."""
+    ka, va, la, kb, vb, lb = _long_rows(La * Lb + tile, N, La, Lb, key_hi)
+    want = ref_mt.merge_partitions(*_j(ka, va, la, kb, vb, lb), R=8,
+                                   with_counters=False)
+    for s in range(N):
+        ok, ov, n = _long_payload(ka[s], va[s], int(la[s]), kb[s], vb[s],
+                                  int(lb[s]), tile)
+        _eq(np.asarray(want[0])[s], ok)
+        _eq(np.asarray(want[1])[s], ov)
+        assert n == int(want[2][s])
+
+
+@pytest.mark.parametrize("R", [2, 4, 16])
+@pytest.mark.parametrize("N,La,Lb,key_hi", [(4, 40, 40, 90), (3, 64, 24, 70),
+                                           (5, 33, 70, 400), (6, 200, 150,
+                                                              1000)])
+def test_long_row_counters_emulation(N, La, Lb, key_hi, R):
+    """The chain of cutoffs by pointer jumping gives the plain advance
+    loop's four counters bit for bit, per row; a row with an EMPTY inside
+    its length whose other side runs out first too."""
+    ka, va, la, kb, vb, lb = _long_rows(La + Lb + R, N, La, Lb, key_hi)
+    ka[-1], kb[-1] = EMPTY, EMPTY
+    ka[-1, :2], la[-1] = (7, 11), 3  # an EMPTY inside A's length ...
+    kb[-1, 0], lb[-1] = 6, 1  # ... where B runs out first
+    for s in range(N):
+        got = _jump_counters(ka[s], int(la[s]), kb[s], int(lb[s]), R)
+        k_a, l_a, k_b, l_b = _t(ka[s:s + 1], la[s:s + 1], kb[s:s + 1],
+                                lb[s:s + 1])
+        steps, zips, tails = _advance_counters(k_a, l_a, k_b, l_b, R=R,
+                                               pair_streams=1)
+        assert got == (int(steps[0]), int(zips), int(tails[0, 0]),
+                       int(tails[0, 1])), s
+
+
+def test_long_row_counters_emulation_hands_malformed_rows_on():
+    """Rows out of order, with a duplicate or a negative key go to the
+    plain loop (None); well-formed ones with EMPTY only at the end do
+    not."""
+    A = np.array([1, 4, 9, EMPTY, EMPTY], np.int32)
+    B = np.array([2, 3, EMPTY], np.int32)
+    assert _jump_counters(A, 5, B, 3, 4) is not None
+    for bad in ([4, 1, 9], [1, 4, 4], [-3, 1, 9], [1, EMPTY, 9]):
+        assert _jump_counters(np.array(bad, np.int32), 3, B, 3, 4) is None
+
+
+# ---------------------------------------------------------------------------
 # K3: fused bucket (sort + zip-merge tree)
 # ---------------------------------------------------------------------------
 
@@ -281,7 +456,8 @@ def test_launch_counts_reset():
     counts = kb.launch_counts()
     assert set(counts) == {"chunk_sort", "merge_partitions", "fused_bucket",
                            "fused_bucket.fused", "fused_bucket.large",
-                           "stream_sort", "stream_merge", "flash_attention",
+                           "stream_sort", "stream_merge", "stream_merge.chunk",
+                           "stream_merge.pointer", "flash_attention",
                            "flash_attention.wgmma", "flash_attention.fma",
                            "grouped_matmul", "grouped_matmul.contiguous",
                            "grouped_matmul.counts"}
