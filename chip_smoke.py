@@ -8,7 +8,9 @@ drives the port's main path on one card:
   kernel   each kernel (K1 chunk sort, K2 partition merge — also on one
            row of 2^20 slots, its long-row route over many CTAs, timed
            with and without the counters — K3 fused bucket on both
-           routes, K4 stream sort, K5 stream merge in its chunk form and
+           routes of its streams entry and on its expand entry (the
+           buckets of cage11-full's first group and S = 512, L = 1,024;
+           accumulators compared too), K4 stream sort, K5 stream merge in its chunk form and
            in the pointer form the host driver launches, issue by issue
            through a merge round) at the main paths' shapes, held bit for
            bit against its plain torch version on the same card inputs,
@@ -16,7 +18,8 @@ drives the port's main path on one card:
   spgemm   the fused path: ``spgemm(A, A, engine="spz")`` on the 13 Table
            III stand-ins, the three SuiteSparse-scale ones and
            dense-row-full, with every launch counter set to 0 before and
-           read after; then each result held bit-identical (CSR and
+           read after (K3's expand entry launched once per bucket on the
+           kernel's route, as the bucketing counts them); then each result held bit-identical (CSR and
            SpzStats) against the same call with ``backend="torch"`` on the
            card and structure-identical against the scl-array oracle
   host     the host-driver path: ``engine="spz-host"`` on the same 16
@@ -52,7 +55,8 @@ drives the port's main path on one card:
            0.15 and finite; a 2-layer float32 model at full width held
            against the CPU (plain version) within 1e-3
   profile  host wall clock vs device kernel time of one spz call on the
-           two SuiteSparse-scale fused-route matrices and on
+           two SuiteSparse-scale fused-route matrices (K3's device total,
+           device launches per bucket, idle share) and on
            dense-row-full (K2's device total), of spz-host on the first
            8 groups of cage11-full (launches per issue), the waits for
            the card per issue over one whole spz-host call on
@@ -257,6 +261,87 @@ def k2_long_row(torch, np, rng, k2, R):
               f"{[int(x) for x in got[3]]}")
 
 
+def k3_expand_row(torch, np, k3, A, rows, L, R=16):
+    """K3's expand entry on the streams ``rows`` of A * A at width L: held
+    bit for bit against its plain composition (expansion, sort, merge
+    tree, reduction) on the same card inputs, keys, values, lengths and
+    the group accumulators; timed alone, through the wrapper and as the
+    plain composition.  Bound: bytes (per stream its ids and A's row
+    pointers, per A entry its column, value and B row pointers, per
+    product the gathered B column and value; out every slot, the lengths
+    and the accumulators)."""
+    from repro_torch.core.formats import csr_to_numpy
+    from repro_torch.core import spgemm_engines as sg
+
+    dev = torch.device("cuda")
+    Ad = A.to(dev)
+    mats = [t[None] for t in (Ad.indptr, Ad.indices, Ad.data)] * 2
+    row_ids = torch.tensor(rows, dtype=torch.int64, device=dev)
+    lane_ids = torch.zeros_like(row_ids)
+    S, C = len(rows), L // R
+
+    def run(fn):
+        buf, steps, zips, tails = k3.accumulators(C, dev)
+        return fn(row_ids, lane_ids, *mats, R=R, L=L, steps_acc=steps,
+                  zip_acc=zips, tails_acc=tails), buf
+
+    before = k3.fused_bucket.routes["expand"]
+    got, got_acc = run(k3.fused_expand_bucket)
+    if k3.fused_bucket.routes["expand"] != before + 1:
+        raise AssertionError(f"bucket ({S}, {L}) did not take the expand "
+                             f"entry")
+    want, want_acc = run(k3.fused_expand_bucket_plain)
+    err = max_abs_err(torch, (*got, got_acc), (*want, want_acc))
+    indptr = csr_to_numpy(A)[0]
+    real = np.asarray(rows)[np.asarray(rows) >= 0]
+    entries = int((indptr[real + 1] - indptr[real]).sum())
+    products = int(sg.row_work(A, A)[real].sum())
+    adds = products - int(got[2].sum())
+    b, by = bound_ms(24 * S + 16 * entries + 8 * products
+                     + nbytes(*got, got_acc), products + adds)
+    buf, steps, zips, tails = k3.accumulators(C, dev)
+    outs = [torch.empty_like(t) for t in got]
+    return dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: k3.launch_expand(
+            row_ids, lane_ids, mats, R, L, *outs, steps, zips, tails),
+            reps=20, warmup=3),
+        wrapper_ms=time_ms(torch, lambda: run(k3.fused_expand_bucket),
+                           reps=20, warmup=3),
+        plain_ms=time_ms(torch, lambda: run(k3.fused_expand_bucket_plain),
+                         reps=5, warmup=1),
+        bound_ms=b, bound_by=by, library_ms=None,
+        shape=f"expand entry, S={S} L={L} R={R}: {entries} A entries, "
+              f"{products} products, accumulators equal")
+
+
+def k3_expand_rows(torch, np, k3):
+    """The expand entry at the buckets of cage11-full's first lock-step
+    group (rows 0-511: S, L = 4, 64; 64, 128; 512, 256; 128, 512, padding
+    streams included) and at S = 512, L = 1,024 (rows of a uniform
+    8,192-row matrix, density 0.003, seed SEED, with 513-1,024 products
+    each)."""
+    from repro_torch.core import spgemm_engines as sg
+    from repro_torch.core.formats import random_sparse
+    from repro_torch.data import table3
+
+    out = {}
+    A = table3.build("cage11-full")
+    work = sg.row_work(A, A)[:512]
+    chunks = np.array([sg._pow2_chunks(int(w), 16) if w else 0 for w in work])
+    for C in sorted(set(chunks[chunks > 0].tolist())):
+        rows = np.flatnonzero(chunks == C)
+        n = 1 << max(0, len(rows) - 1).bit_length()
+        rows = np.concatenate([rows, np.full(n - len(rows), -1)])
+        out[f"fused_bucket.expand.cage11-full-g0-L{16 * C}"] = k3_expand_row(
+            torch, np, k3, A, rows, 16 * C)
+    B = random_sparse(8192, 8192, 0.003, seed=SEED)
+    work = sg.row_work(B, B)
+    rows = np.flatnonzero((work > 512) & (work <= 1024))[:512]
+    out["fused_bucket.expand"] = k3_expand_row(torch, np, k3, B, rows, 1024)
+    return out
+
+
 def phase_kernel(torch, np):
     """Each kernel vs its plain version on card inputs of the main path's
     shapes (cage11-full: 512-stream groups, R = 16, keys < 39,082)."""
@@ -333,15 +418,14 @@ def phase_kernel(torch, np):
         C = L // R
         adds = int(plens.sum()) - int(got[2].sum())
         b, by = bound_ms(nbytes(keys, vals, plens, *got[:3])
-                         + 16 * S * max(C - 1, 1), adds)
+                         + 32 * max(C - 1, 1), adds)
         wrapper = time_ms(torch, lambda: k3.fused_bucket(
             keys, vals, plens, R=R, detailed=True))
         if route == "fused":  # the kernel alone; the large route is K1 + K2s
             outs = [torch.empty_like(t) for t in got[:3]]
-            planes = torch.zeros((4, S, max(C - 1, 1)), dtype=torch.int32,
-                                 device=dev)
+            acc = k3.accumulators(C, dev)[0]
             ms = time_ms(torch, lambda: k3.launch(keys, vals, plens, R, *outs,
-                                                  planes))
+                                                  acc))
         else:
             ms = wrapper
         rows[f"fused_bucket.{route}"] = dict(
@@ -350,6 +434,7 @@ def phase_kernel(torch, np):
                 keys, vals, plens, R=R, detailed=True), reps=10, warmup=1),
             bound_ms=b, bound_by=by, library_ms=None,
             shape=f"S={S} L={L} R={R}")
+    rows.update(k3_expand_rows(torch, np, k3))
     rows["merge_partitions.long"] = k2_long_row(torch, np, rng, k2, R)
 
     # K4: one host-driver front, S = 512 streams of R = 16 products
@@ -507,9 +592,30 @@ def _launched(counts, kernels, path):
         raise AssertionError(f"never launched on the {path} path: {missing}")
 
 
+def _bucket_counts(np, A, R=16, S=512):
+    """Buckets of one spz call on A * A at its defaults (groups of S rows
+    in order, a bucket per distinct pow2 chunk count), by route: (on K3's
+    expand entry, large)."""
+    from repro_torch.core import spgemm_engines as sg
+    from repro_torch.kernels.fused_bucket import fused_config
+
+    work = sg.row_work(A, A)
+    fused = large = 0
+    for g0 in range(0, len(work), S):
+        for C in {1 << max(0, -(-int(w) // R) - 1).bit_length()
+                  for w in work[g0:g0 + S] if w}:
+            if fused_config(C * R, R) is None:
+                large += 1
+            else:
+                fused += 1
+    return fused, large
+
+
 def phase_spgemm(torch, np, mats, oracles):
-    """The fused path on the card, counters zeroed before and read after;
-    then every result held against the torch backend and scl-array.
+    """The fused path on the card, counters zeroed before and read after:
+    every call launches K3 (its expand entry) once per bucket on the
+    kernel's route and nothing else of K3; then every result held
+    against the torch backend and scl-array.
     Returns the path's launch counts and each matrix's (CSR, stats)."""
     from repro_torch.core import spgemm
     from repro_torch.core.formats import csr_to_numpy
@@ -519,6 +625,7 @@ def phase_spgemm(torch, np, mats, oracles):
     results = {}
     kb.reset_launch_counts()
     for n, A in mats.items():
+        n_fused, n_large = _bucket_counts(np, A)
         before = kb.launch_counts()
         out, st = spgemm(A, A, engine="spz", return_stats=True)
         times = []
@@ -529,9 +636,17 @@ def phase_spgemm(torch, np, mats, oracles):
         after = kb.launch_counts()
         delta = {k: (after[k] - before[k]) // 4 for k in after
                  if after[k] != before[k]}
+        got = (delta.get("fused_bucket.expand", 0),
+               delta.get("fused_bucket.large", 0), delta.get("fused_bucket", 0))
+        if got != (n_fused, n_large, n_fused):
+            raise AssertionError(
+                f"{n}: K3 expand launches / large buckets / K3 launches per "
+                f"call {got}, the bucketing gives {n_fused} fused-route and "
+                f"{n_large} large-route buckets")
         results[n] = (csr_to_numpy(out), [getattr(st, f) for f in FIELDS])
         log(f"spgemm: {n} {A.shape[0]}x{A.shape[1]} nnz "
-            f"{int(A.indptr[-1])} -> {results[n][0][1].size} | ms/call "
+            f"{int(A.indptr[-1])} -> {results[n][0][1].size} | buckets "
+            f"{n_fused} on K3's expand entry, {n_large} large | ms/call "
             f"{statistics.median(times):.2f} | per call: {delta} | "
             + " ".join(f"{f}={v}" for f, v in zip(FIELDS, results[n][1])))
     counts = kb.launch_counts()
@@ -749,11 +864,27 @@ def k2_device_total(prof, label):
     return ms, launches, k2
 
 
-def phase_profile(torch, serve):
+def k3_device_total(prof, label, buckets):
+    """Log K3's device total in a :func:`_profiled` spz call, with the
+    call's device launches per bucket and its idle share; ``buckets``:
+    the call's (fused-route, large-route) bucket counts."""
+    k3 = [(c, t) for key, (c, t) in prof["kernels"].items()
+          if "fused_bucket" in key]
+    n = sum(buckets)
+    log(f"profile: {label}: K3 device total "
+        f"{sum(t for _, t in k3):.3f} ms over {sum(c for c, _ in k3)} "
+        f"launches; {prof['launches']} device launches over {n} buckets "
+        f"({buckets[0]} on K3, {buckets[1]} large): "
+        f"{prof['launches'] / n:.2f} per bucket; device idle share "
+        f"{1 - prof['busy'] / prof['wall']:.3f}")
+
+
+def phase_profile(torch, np, serve):
     """Where one call's time goes: host wall clock vs device kernel time
     (torch.profiler), for one spz call on the two SuiteSparse-scale
-    fused-route matrices and on dense-row-full (K2's device total on its
-    long rows), for spz-host on a steady window of cage11-full (its
+    fused-route matrices (K3's device total, device launches per bucket)
+    and on dense-row-full (K2's device total on its long rows), for
+    spz-host on a steady window of cage11-full (its
     first 8 groups of 512 rows, with launches per kernel issue from the
     window's own SpzStats: a whole call records ~130K device events,
     whose processing alone takes minutes), and for one TinyLlama
@@ -786,6 +917,8 @@ def phase_profile(torch, serve):
             continue
         if n == table3.LONG_ROW:
             k2_device_total(prof, f"{n} spz")
+        elif engine == "spz":
+            k3_device_total(prof, f"{n} spz", _bucket_counts(np, A))
         if engine == "spz-host":
             st = stats[-1]
             n_issues = st.n_mssort + st.n_mszip
@@ -1543,7 +1676,7 @@ def main() -> int:
                                           res["spgemm"][1])),
               ("engines", lambda: phase_engines(torch, np, *res["inputs"])),
               ("serve", lambda: phase_serve(torch, np)),
-              ("profile", lambda: phase_profile(torch, res["serve"])),
+              ("profile", lambda: phase_profile(torch, np, res["serve"])),
               ("moe", lambda: phase_moe(torch, np, res["serve"])))
     for label, fn in phases:
         t0 = time.perf_counter()

@@ -12,8 +12,10 @@ Port of ``repro.core.spgemm``:
   spz        — merge-based SpGEMM on the SparseZipper primitives: chunked
                stream sort + zip-merge tree with data-dependent advancement,
                lock-step groups of S streams.  Two drivers: the default
-               device-resident "fused" driver (expand, then one
-               ``fused_sort_merge`` per work bucket) and the paper-faithful
+               device-resident "fused" driver (one backend
+               ``fused_expand_bucket`` per work bucket — the K3 kernel on
+               ``cuda`` — or, past L = 8,192, the expansion and one
+               ``fused_sort_merge``) and the paper-faithful
                "host" lock-step driver (one K4/K5 kernel issue per chunk,
                with the Fig. 9 expand/sort/output time breakdown)
   spz-rsort  — spz with rows pre-sorted by per-row work
@@ -39,6 +41,10 @@ from repro_torch.core.formats import (CSR, EMPTY, csr_from_coo, csr_to_numpy,
                                       row_ids_from_indptr)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import backend as kb
+from repro_torch.kernels.fused_bucket import (accumulators, fused_config,
+                                              reduce_rounds)
+from repro_torch.kernels.fused_bucket import (
+    expand_geometry as _expand_geometry, fused_expand_plain as _fused_expand)
 from repro_torch.kernels.ref import put_rows, run_sums, take_chunk
 
 # The host driver's merge loop launches up to this many K5 issues between
@@ -432,73 +438,15 @@ def _spz_host_driver(A, B, R, S, order, backend, stats, device):
     return coo
 
 
-def _expand_geometry(a_indptr, a_idx, b_indptr):
-    """Per-lane cumulated work of the A entries, flattened onto one
-    monotone axis (lane l at offset l * (max total work + 1)) so one
-    searchsorted serves the whole batch.  Returns (wcum0 (Bn, nnz_cap+1),
-    wflat, offs (Bn,)), all int64."""
-    Bn = a_indptr.shape[0]
-    nnz_cap = a_idx.shape[1]
-    dev = a_idx.device
-    blen = b_indptr[:, 1:] - b_indptr[:, :-1]
-    nnz = a_indptr[:, -1].long()
-    t_ok = torch.arange(nnz_cap, device=dev)[None, :] < nnz[:, None]
-    j_all = torch.where(t_ok, a_idx, 0).long()
-    w = torch.where(t_ok, torch.gather(blen, 1, j_all), 0)
-    wcum0 = torch.cat([torch.zeros((Bn, 1), dtype=torch.int64, device=dev),
-                       torch.cumsum(w, dim=1, dtype=torch.int64)], dim=1)
-    M = wcum0[:, -1].max() + 1
-    offs = torch.arange(Bn, dtype=torch.int64, device=dev) * M
-    return wcum0, (wcum0 + offs[:, None]).reshape(-1), offs
-
-
-def _fused_expand(row_ids, lane_ids, a_indptr, a_idx, a_val,
-                  b_indptr, b_idx, b_val, L: int, geometry=None):
-    """Device-side expansion: per-stream padded partial products.
-
-    row_ids/lane_ids: (S,) — stream s expands output row ``row_ids[s]``
-    of batch lane ``lane_ids[s]`` (row_ids < 0 marks padding streams).
-    Matrix arrays are (batch, ...) stacked.  ``geometry``: the
-    :func:`_expand_geometry` of these matrices, when the caller has it.
-    Returns (keys (S, L) int32, vals (S, L) float32, plens (S,) int32)
-    with EMPTY/0 padding."""
-    Bn, n_rows1 = a_indptr.shape
-    nnz_cap = a_idx.shape[1]
-    bcap = b_idx.shape[1]
-    dev = a_idx.device
-    wcum0, wflat, offs = geometry or _expand_geometry(a_indptr, a_idx,
-                                                      b_indptr)
-    valid_s = row_ids >= 0
-    lane = lane_ids.long().clamp(0, Bn - 1)
-    row = row_ids.long().clamp(0, n_rows1 - 2)
-    t0 = a_indptr[lane, row].long()
-    t1 = a_indptr[lane, row + 1].long()
-    ws = wcum0[lane, t0]
-    we = torch.where(valid_s, wcum0[lane, t1], ws)
-    plens = we - ws
-    p = torch.arange(L, dtype=torch.int64, device=dev)
-    pvalid = p[None, :] < plens[:, None]
-    g = torch.where(pvalid, ws[:, None] + p[None, :], ws[:, None])
-    q = (g + offs[lane][:, None]).reshape(-1)
-    # product g belongs to the last A-entry whose cumulated work <= g
-    tg = torch.searchsorted(wflat, q, right=True).reshape(g.shape) - 1
-    t = (tg - (lane * (nnz_cap + 1))[:, None]).clamp(0, nnz_cap - 1)
-    base = wflat[tg] - offs[lane][:, None]
-    lane2 = lane[:, None]
-    # a padding entry's column is EMPTY: clamp it (its product is masked)
-    j = a_idx[lane2, t].long().clamp(0, b_indptr.shape[1] - 1)
-    pos = (b_indptr[lane2, j] + (g - base)).clamp(0, bcap - 1)
-    keys = torch.where(pvalid, b_idx[lane2, pos], EMPTY)
-    vals = torch.where(pvalid, a_val[lane2, t] * b_val[lane2, pos], 0.0)
-    return keys.to(torch.int32), vals, plens.to(torch.int32)
-
-
 def _fused_bucket_impl(row_ids, lane_ids, a_indptr, a_idx, a_val,
                        b_indptr, b_idx, b_val, R: int, L: int, backend,
                        geometry=None):
-    """One work bucket of a lock-step group: expansion, chunk sort, and
-    the whole zip-merge tree.  Returns (keys (N, L), vals, lens (N,),
-    rounds) where rounds carries the per-(round, pair) merge counters."""
+    """One work bucket of a lock-step group, as the reference runs it:
+    expansion, then ``fused_sort_merge`` (chunk sort and the whole
+    zip-merge tree).  Returns (keys (N, L), vals, lens (N,), rounds) where
+    rounds carries the per-(round, pair) merge counters.  The fused
+    driver runs it for buckets on the large route; every other bucket is
+    the backend's ``fused_expand_bucket``."""
     keys, vals, plens = _fused_expand(row_ids, lane_ids, a_indptr, a_idx,
                                       a_val, b_indptr, b_idx, b_val, L,
                                       geometry)
@@ -528,7 +476,9 @@ def fused_process_group(items, plens, mats, R, backend, stats: SpzStats,
     items: [(lane, row)] output rows of the group; plens: per-item product
     counts (host); mats: six (batch, ...) stacked CSR arrays on the
     device.  Each bucket's padded (row_ids, keys, vals, lens) is appended
-    to ``coo`` for one assembly per call.
+    to ``coo`` for one assembly per call.  ``geometry``: a function that
+    returns the matrices' ``_expand_geometry``, called only for a bucket
+    on the large route.
 
     Streams are bucketed by their own pow2 chunk count so a skewed group
     does not pad every stream to the group-max width.  The payload per
@@ -536,10 +486,14 @@ def fused_process_group(items, plens, mats, R, backend, stats: SpzStats,
     instruction counts are group-wide, so they are rebuilt exactly from
     the per-(round, pair) bucket counters — a pair's issue count is the
     max per-stream step count (elementwise max over buckets), zip_elems
-    a plain sum.  Sort-phase counters depend only on plens and are added
-    to ``stats`` here.  Returns the group's merge counters as a device
-    tensor [n_mszip, zip_elems, tail stores] (None for an empty group),
-    so the caller reads them once per call."""
+    a plain sum — in the group's accumulators (one zero fill): a bucket
+    on the kernel's route is one ``fused_expand_bucket`` launch that
+    folds its counters in on the card; a wider one runs the expansion,
+    ``fused_sort_merge`` (K1 + K2 per round) and ``reduce_rounds``.
+    Sort-phase counters depend only on plens and are added to ``stats``
+    here.  Returns the group's merge counters as a device tensor
+    [n_mszip, zip_elems, tail stores in two parts] (None for an empty
+    group), so the caller reads them once per call."""
     buckets: dict[int, list[int]] = {}
     for ix, pl in enumerate(plens):
         if pl:
@@ -553,10 +507,6 @@ def fused_process_group(items, plens, mats, R, backend, stats: SpzStats,
     stats.sort_elems += int(plens.sum())
     stats.chunk_loads += n_used
     stats.chunk_stores += n_used
-    # group accumulators in the counter-plane layout of the widest bucket
-    # Cg: round k's pairs at columns [Cg - Cg>>k, Cg - Cg>>(k+1)); bucket
-    # C_b's round k fills the first C_b>>(k+1) of them
-    Cg = max(buckets)
     order = sorted(buckets)
     sizes = [1 << max(0, len(buckets[c]) - 1).bit_length() for c in order]
     row_ids = np.full(sum(sizes), -1, np.int64)
@@ -566,34 +516,25 @@ def fused_process_group(items, plens, mats, R, backend, stats: SpzStats,
         for t, ix in enumerate(buckets[C_b]):
             lane_ids[at + t], row_ids[at + t] = items[ix]
         at += Nb
-    cols = [Cg - (Cg >> k) + np.arange(C_b >> (k + 1))
-            for C_b in order for k in range(C_b.bit_length() - 1)]
-    # one host-to-device copy per group: row ids, lane ids, column maps
-    ids = _to_device(np.concatenate([row_ids, lane_ids, *cols]), device)
+    # one host-to-device copy per group: row ids, lane ids
+    ids = _to_device(np.concatenate([row_ids, lane_ids]), device)
     n = len(row_ids)
-    row_dev, lane_dev, col_dev = ids[:n], ids[n:2 * n], ids[2 * n:]
-    steps_acc = torch.zeros(max(Cg - 1, 1), dtype=torch.int64, device=device)
-    tails_acc = torch.zeros((max(Cg - 1, 1), 2), dtype=torch.int64,
-                            device=device)
-    zips = []
-    at = at_col = 0
+    acc, steps_acc, zip_acc, tails_acc = accumulators(max(buckets), device)
+    at = 0
     for C_b, Nb in zip(order, sizes):
-        rows = row_dev[at:at + Nb]
-        mk, mv, ml, rounds = _fused_bucket_impl(
-            rows, lane_dev[at:at + Nb], *mats, R=R, L=C_b * R,
-            backend=backend, geometry=geometry)
+        rows, lanes = ids[at:at + Nb], ids[n + at:n + at + Nb]
         at += Nb
-        if rounds:
-            idx = col_dev[at_col:at_col + C_b - 1]
-            at_col += C_b - 1
-            steps_acc.scatter_reduce_(0, idx, torch.cat([r[0] for r in rounds]),
-                                      "amax")
-            tails_acc.scatter_reduce_(0, idx[:, None].expand(-1, 2),
-                                      torch.cat([r[2] for r in rounds]), "amax")
-            zips.extend(r[1] for r in rounds)
+        if fused_config(C_b * R, R) is not None:
+            mk, mv, ml = backend.fused_expand_bucket(
+                rows, lanes, *mats, R=R, L=C_b * R, steps_acc=steps_acc,
+                zip_acc=zip_acc, tails_acc=tails_acc)
+        else:
+            mk, mv, ml, rounds = _fused_bucket_impl(
+                rows, lanes, *mats, R=R, L=C_b * R, backend=backend,
+                geometry=geometry() if geometry else None)
+            reduce_rounds(rounds, steps_acc, zip_acc, tails_acc)
         coo.append((rows, mk, mv, ml))
-    zip_elems = torch.stack(zips).sum() if zips else steps_acc.new_zeros(())
-    return torch.stack([steps_acc.sum(), zip_elems, tails_acc.sum()])
+    return acc.view(4, -1).sum(1)
 
 
 def _group_cap(Sg: int, S: int) -> int:
@@ -610,8 +551,14 @@ def _spz_fused_driver(A, B, R, S, order, work, backend, stats):
     coo: list = []
     mats = (A.indptr[None], A.indices[None], A.data[None],
             B.indptr[None], B.indices[None], B.data[None])
-    geometry = _expand_geometry(mats[0], mats[1], mats[3])
-    totals = torch.zeros(3, dtype=torch.int64, device=A.device)
+    memo = []
+
+    def geometry():  # once per call, and only for a large-route bucket
+        if not memo:
+            memo.append(_expand_geometry(mats[0], mats[1], mats[3]))
+        return memo[0]
+
+    totals = torch.zeros(4, dtype=torch.int64, device=A.device)
     t1 = time.perf_counter()
     for g0 in range(0, A.n_rows, S):
         rows = order[g0:g0 + S]
@@ -621,7 +568,8 @@ def _spz_fused_driver(A, B, R, S, order, work, backend, stats):
         if group is not None:
             totals += group
     stats.t_sort += time.perf_counter() - t1
-    n_zip, zip_elems, tails = totals.tolist()
+    totals[2] += totals[3]
+    n_zip, zip_elems, tails = totals[:3].tolist()
     stats.n_mszip += n_zip
     stats.zip_elems += zip_elems
     stats.chunk_loads += 2 * n_zip

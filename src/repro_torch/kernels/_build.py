@@ -54,8 +54,10 @@ SIGNATURES = {
                                     + [_P] * 5 + [_L] + [_P] * 4, _I),
     },
     "fused_bucket": {
-        "zipper_fused_bucket": ([_P, _P, _P, _I, _I, _I] + [_P] * 8, _I),
-        "zipper_fused_smem_bytes": ([_I, _I, _I], _L),
+        "zipper_fused_bucket": ([_P] * 3 + [_I] * 6 + [_P] * 6 + [_I, _P],
+                                _I),
+        "zipper_fused_expand": ([_P, _P, _I] + [_P] * 6 + [_I] * 10
+                                + [_P] * 6 + [_I, _P], _I),
     },
     "flash_attention": {
         "zipper_flash_attention": ([_P] * 4 + [_I] * 7 + [_L] * 12

@@ -9,6 +9,9 @@ primitives the fused spz pipeline runs —
                         per stream, with the mszip counters
   ``fused_bucket``      sort + the whole zip-merge tree of one (S, L, R)
                         work bucket
+  ``fused_expand_bucket``  the same with the bucket's expansion from the
+                        CSR operands, its counters folded into a
+                        lock-step group's accumulators (one K3 launch)
   ``stream_sort``       the host tier's mssort: one (S, R) front
   ``stream_merge``      the host tier's mszip: two (S, R) fronts
   ``stream_merge_ptr``  the same mszip as one issue of a merge round on
@@ -52,6 +55,7 @@ class KernelBackend:
     chunk_sort: Callable
     merge_partitions: Callable
     fused_bucket: Callable
+    fused_expand_bucket: Callable
     stream_sort: Callable
     stream_merge: Callable
     stream_merge_ptr: Callable
@@ -116,7 +120,7 @@ KERNELS = {"chunk_sort": _k1.chunk_sort,
 
 def launch_counts() -> dict:
     """Launches of each kernel, and per route of the kernels that have
-    routes ("fused_bucket.large", "flash_attention.wgmma",
+    routes ("fused_bucket.expand", "flash_attention.wgmma",
     "grouped_matmul.counts", ...), since the last
     :func:`reset_launch_counts`."""
     out = {name: fn.launches for name, fn in KERNELS.items()}
@@ -138,21 +142,25 @@ register_backend(
     chunk_sort=merge_tree.sort_chunks_linear,
     merge_partitions=merge_tree.merge_partitions,
     fused_bucket=_k3.fused_bucket_plain,
+    fused_expand_bucket=_k3.fused_expand_bucket_plain,
     stream_sort=ref.stream_sort_ref,
     stream_merge=ref.stream_merge_ref,
     stream_merge_ptr=ref.stream_merge_ptr_ref,
     description="plain torch oracles (sort_chunks_linear, the union merge "
-                "and advance loop, zip_merge_tree, stream_sort_ref, "
+                "and advance loop, zip_merge_tree and the expansion, "
+                "stream_sort_ref, "
                 "stream_merge_ref and its pointer form) on any device")
 register_backend(
     name="cuda",
     chunk_sort=_k1.chunk_sort,
     merge_partitions=_k2.merge_partitions,
     fused_bucket=_k3.fused_bucket,
+    fused_expand_bucket=_k3.fused_expand_bucket,
     stream_sort=_k4.stream_sort,
     stream_merge=_k5.stream_merge,
     stream_merge_ptr=_k5.stream_merge_ptr,
     device_type="cuda",
     description="hand-written sm_90a kernels: K1 chunk sort, K2 partition "
-                "merge, K3 fused bucket (large buckets: K1 + K2 per round), "
+                "merge, K3 fused bucket (expand and streams entries; large "
+                "buckets: K1 + K2 per round), "
                 "K4 stream sort, K5 stream merge (chunk and pointer forms)")

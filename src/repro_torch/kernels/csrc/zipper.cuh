@@ -1,5 +1,6 @@
-// Device building blocks shared by the three SparseZipper kernels
-// (chunk_sort.cu, merge_partitions.cu, fused_bucket.cu).
+// Device building blocks shared by the SparseZipper kernels
+// (chunk_sort.cu, merge_partitions.cu; fused_bucket.cu takes the
+// conventions, count_span and allow_smem).
 //
 // Conventions, identical to the plain-torch oracle (kernels/merge_tree.py):
 //   * keys are int32 compared as signed; EMPTY = INT32_MAX pads every row
@@ -98,7 +99,7 @@ __device__ __forceinline__ int count_span(const unsigned* bits, int x0,
 }
 
 // ---------------------------------------------------------------------------
-// Chunk sort (kernel K1's body, also the sort stage of K3).
+// Chunk sort (kernel K1's body).
 //
 // in_k/in_v hold E = n_chunks * R elements, chunk-major, already masked
 // (EMPTY / 0 past each chunk's length).  Each element finds its rank in
@@ -183,7 +184,7 @@ __device__ void sort_tile(int E, int R, const int* in_k, const float* in_v,
 }
 
 // ---------------------------------------------------------------------------
-// Partition merge payload (kernel K2's body, also each round of K3).
+// Partition merge payload (kernel K2's body).
 //
 // A tile of P pairs; pair p merges A (width Wa, length la) with B (width
 // Wb, length lb), both ascending and duplicate-free, into Wa + Wb output

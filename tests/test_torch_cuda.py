@@ -7,7 +7,8 @@ only, so it runs on a machine without JAX:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Each kernel (K1 chunk sort, K2 partition merge on short rows and on
-long rows spread over many CTAs, K3 fused bucket on both of its routes,
+long rows spread over many CTAs, K3 fused bucket on both of its routes
+and on its expand entry, accumulators included,
 K4 stream sort, K5 stream merge in its chunk and pointer forms) must
 equal its plain version bit for bit — keys, values (-0.0 included),
 lengths and the mszip counters — and count its launch.  K6 flash
@@ -35,7 +36,10 @@ from repro_torch.kernels import backend as kb
 from repro_torch.kernels.chunk_sort import chunk_sort, chunk_sort_plain
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
-from repro_torch.kernels.fused_bucket import fused_bucket, fused_bucket_plain
+from repro_torch.kernels.fused_bucket import (accumulators, fused_bucket,
+                                              fused_bucket_plain,
+                                              fused_expand_bucket,
+                                              fused_expand_bucket_plain)
 from repro_torch.kernels.grouped_matmul import (grouped_matmul,
                                                 grouped_matmul_plain)
 from repro_torch.kernels.merge_partitions import (merge_partitions,
@@ -220,6 +224,8 @@ def test_merge_partitions_long_rows_unusual_inputs(card):
                                          (300, 32, 16, "fused"),
                                          (3, 1024, 128, "fused"),
                                          (2, 8192, 16, "fused"),
+                                         (4, 256, 4, "fused"),
+                                         (2, 4096, 512, "fused"),
                                          (2, 32768, 16, "large"),
                                          (3, 16384, 8, "large")])
 def test_fused_bucket_kernel(card, S, L, R, route):
@@ -240,6 +246,109 @@ def test_fused_bucket_kernel(card, S, L, R, route):
     _eq(fused_bucket_plain(*args, R=R)[3], counters)
 
 
+def _fma_values(rng, n):
+    """Values 1 + k / 4096 (both signs): a product of two needs more than
+    24 bits, so fmaf(a, b, acc) and acc + a * b differ."""
+    k = rng.integers(1, 4096, n)
+    return (np.where(rng.random(n) < 0.3, -1.0, 1.0) * (1 + k / 4096.0)) \
+        .astype(np.float32)
+
+
+def _expand_case(rng, L, Bn=2, n_rows=12):
+    """Bn stacked CSR lanes (A: n_rows rows, B: 128 rows, some empty) whose
+    A rows make between L / 2 and L products each, with columns in a
+    narrow range (duplicate runs in every chunk)."""
+    n_b, n_cols = 128, max(32, L // 4)
+    lanes = []
+    for _ in range(Bn):
+        blen = rng.integers(1, max(2, L // 16) + 1, n_b)
+        blen[rng.random(n_b) < 0.1] = 0
+        b_rows = [np.sort(rng.choice(n_cols, min(n, n_cols), replace=False))
+                  for n in blen]
+        blen = np.array([len(r) for r in b_rows])
+        a_rows = []
+        for _ in range(n_rows):
+            target, work, row = rng.integers(L // 2 + 1, L + 1), 0, []
+            for j in rng.permutation(n_b):
+                if work + blen[j] <= target:
+                    row.append(j)
+                    work += blen[j]
+            a_rows.append(np.sort(np.array(row, np.int64)))
+        lanes.append((a_rows, b_rows))
+    cap_a = max(sum(len(r) for r in a) for a, _ in lanes) + 3
+    cap_b = max(sum(len(r) for r in b) for _, b in lanes) + 3
+
+    def csr(rows, cap):
+        indptr = np.concatenate([[0], np.cumsum([len(r) for r in rows])])
+        idx = np.full(cap, EMPTY, np.int32)
+        val = np.zeros(cap, np.float32)
+        flat = np.concatenate(rows).astype(np.int32)
+        idx[:len(flat)] = flat
+        val[:len(flat)] = _fma_values(rng, len(flat))
+        return indptr.astype(np.int32), idx, val
+
+    a = [csr(ar, cap_a) for ar, _ in lanes]
+    b = [csr(br, cap_b) for _, br in lanes]
+    return [np.stack([m[i] for m in mats]) for mats in (a, b)
+            for i in range(3)]
+
+
+@pytest.mark.parametrize("L,R", [(2 ** e, 16) for e in range(4, 14)]
+                         + [(64, 8), (1024, 8), (32, 4), (512, 128),
+                            (256, 4), (2048, 2), (4096, 512)])
+def test_fused_expand_bucket_kernel(card, L, R):
+    """The expand entry equals its plain composition (expansion, sort,
+    merge tree, reduction) bit for bit: keys, values, lengths and the
+    group accumulators, which already hold an earlier bucket's counters
+    and belong to a group twice as wide (its columns sit elsewhere).
+    Padding streams (row_ids = -1), two lanes, and values whose products
+    an FMA would change."""
+    rng = np.random.default_rng(L * R)
+    mats = _on(card, *_expand_case(rng, L))
+    S = 9
+    rows = rng.integers(0, 12, S)
+    rows[[2, 7]] = -1
+    lanes = rng.integers(0, 2, S)
+    ids = _on(card, rows.astype(np.int64), lanes.astype(np.int64))
+    Cg = 2 * (L // R)
+    prior = torch.from_numpy(rng.integers(0, 4, 4 * max(Cg - 1, 1))).to(card)
+    accs = []
+    for fn in (fused_expand_bucket, fused_expand_bucket_plain):
+        buf, steps, zips, tails = accumulators(Cg, card)
+        buf.copy_(prior)
+        accs.append(buf)
+        kb.reset_launch_counts()
+        out = fn(*ids, *mats, R=R, L=L, steps_acc=steps, zip_acc=zips,
+                 tails_acc=tails)
+        if fn is fused_expand_bucket:
+            got = out
+            counts = kb.launch_counts()
+            assert counts["fused_bucket"] == counts["fused_bucket.expand"] == 1
+        else:
+            want = out
+    for w, g in zip(want, got):
+        _eq(w, g)
+    _eq(accs[1], accs[0])
+    assert int(got[2][2]) == int(got[2][7]) == 0
+    assert (accs[0] != prior).any() or L == R
+
+
+def test_fused_expand_bucket_rejects_what_it_cannot_take(card):
+    rng = np.random.default_rng(1)
+    mats = _on(card, *_expand_case(rng, 64))
+    ids = _on(card, np.arange(3, dtype=np.int64), np.zeros(3, np.int64))
+    _, steps, zips, tails = accumulators(4, card)
+    with pytest.raises(ValueError, match="large route"):
+        fused_expand_bucket(*ids, *mats, R=16, L=16384, steps_acc=steps,
+                            zip_acc=zips, tails_acc=tails)
+    with pytest.raises(ValueError, match="accumulators"):
+        fused_expand_bucket(*ids, *mats, R=16, L=64, steps_acc=steps[:2],
+                            zip_acc=zips, tails_acc=tails)
+    with pytest.raises(TypeError):
+        fused_expand_bucket(ids[0].int(), ids[1], *mats, R=16, L=64,
+                            steps_acc=steps, zip_acc=zips, tails_acc=tails)
+
+
 @pytest.mark.parametrize("n,density,pattern", [(700, 0.02, "powerlaw"),
                                                (1536, 1.5e-3, "uniform"),
                                                (600, 0.01, "banded")])
@@ -248,7 +357,8 @@ def test_spgemm_cuda_matches_torch_backend(card, n, density, pattern):
     kb.reset_launch_counts()
     out, st = spgemm(A, A, engine="spz", return_stats=True)
     assert out.device.type == "cuda"
-    assert kb.launch_counts()["fused_bucket"] > 0
+    counts = kb.launch_counts()
+    assert counts["fused_bucket"] == counts["fused_bucket.expand"] > 0
     ref, st_ref = spgemm(A, A, engine="spz", backend="torch",
                          return_stats=True)
     for w, g in zip(csr_to_numpy(ref), csr_to_numpy(out)):

@@ -5,8 +5,11 @@ CUDA kernel and its plain torch version.  Here the plain versions (which
 the wrappers take for CPU tensors) are held bit-exact against the
 reference's XLA oracles in ``repro.kernels.merge_tree`` — keys, values,
 lengths and the mszip counters — and K3 also against the Pallas kernel
-in interpret mode on one tiny bucket.  ``test_torch_cuda.py`` holds each
-kernel against its plain version on the card.
+in interpret mode on one tiny bucket.  The arithmetic of the CUDA
+kernels that the CPU cannot run (K2's long rows, K3's merge-path rounds,
+counter chain and group reduction) is emulated in numpy and held against
+the same oracles.  ``test_torch_cuda.py`` holds each kernel against its
+plain version on the card.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +26,8 @@ from repro_torch.kernels.chunk_sort import chunk_sort, chunk_sort_plain
 from repro_torch.kernels.fused_bucket import fused_bucket, fused_bucket_plain
 from repro_torch.kernels.merge_partitions import (merge_partitions,
                                                   merge_partitions_plain)
-from repro_torch.kernels.merge_tree import _advance_counters
+from repro_torch.kernels.merge_tree import (_advance_counters,
+                                            sort_chunks_linear)
 
 torch.set_num_threads(2)
 
@@ -431,6 +435,266 @@ def test_chunk_sort_partitions_matches_reference():
 
 
 # ---------------------------------------------------------------------------
+# K3's kernel body (csrc/fused_bucket.cu) emulated in numpy: the merge
+# rounds by merge path, the counters along the stored successor chain,
+# and the per-block reduction into a group's accumulator columns
+# ---------------------------------------------------------------------------
+
+_END = 0xFFFF
+
+
+def _walk_fronts(A, la, B, lb, R):
+    """walk_fronts: the plain front loop, (steps, zips, pa, pb)."""
+    pa = pb = steps = zips = 0
+    while pa < la and pb < lb:
+        na, nb = min(la - pa, R), min(lb - pb, R)
+        fa, fb = A[pa:pa + na], B[pb:pb + nb]
+        mxa = max([-1] + [int(k) for k in fa if k != EMPTY])
+        mxb = max([-1] + [int(k) for k in fb if k != EMPTY])
+        cut = min(mxa, mxb)
+        pa += int(((fa != EMPTY) & (fa <= cut)).sum())
+        pb += int(((fb != EMPTY) & (fb <= cut)).sum())
+        steps, zips = steps + 1, zips + na + nb
+    return steps, zips, pa, pb
+
+
+def _k3_pair(A, VA, la, B, VB, lb, W, R, items):
+    """One merge pair of one round as K3's threads run it.  Thread t takes
+    diagonals [t * items, (t + 1) * items) of the pair's 2W output slots:
+    one merge-path search, a sequential merge (a key on both sides is
+    va + vb in A's element; its B partner drops out by looking at A's
+    previous key), each element's candidate word (successor | rank << 16),
+    a scan of the drops, then its stores.  The pair's first thread walks
+    the successor chain.  Returns (keys, vals, n_out, (steps, zips, ta,
+    tb))."""
+    tot, W2 = la + lb, 2 * W
+    cand = np.zeros(W2, np.int64)
+    threads = []
+    for d0 in range(0, W2, items):
+        ds = min(d0, tot)
+        ia = _merge_path(A[:la], B[:lb], ds)
+        ib = ds - ia
+        out, drop = [], 0
+        for i in range(items):
+            if d0 + i >= tot:
+                break
+            if ib >= lb or (ia < la and A[ia] <= B[ib]):
+                k, v = A[ia], VA[ia]
+                m = ib < lb and B[ib] == k
+                if m:
+                    v = np.float32(v + VB[ib])
+                rank, slot = ib + m, ia
+                ia += 1
+                pa, pb = ia, rank
+            else:
+                k, v = B[ib], VB[ib]
+                if ia > 0 and A[ia - 1] == k:
+                    drop |= 1 << i
+                rank, slot = ia, W + ib
+                ib += 1
+                pa, pb = rank, ib
+            nxt = _END
+            if pa < la and pb < lb:
+                na, nb = min(la - pa, R), min(lb - pb, R)
+                nxt = pa + na - 1 if A[pa + na - 1] <= B[pb + nb - 1] \
+                    else W + pb + nb - 1
+            cand[slot] = nxt | rank << 16
+            out.append((d0 + i, k, v))
+        threads.append((out, drop))
+    before = np.cumsum([0] + [bin(dr).count("1") for _, dr in threads])
+    n_out = tot - int(before[-1])
+    keys, vals = np.full(W2, EMPTY, np.int32), np.zeros(W2, np.float32)
+    for t, (out, drop) in enumerate(threads):
+        for i, (d, k, v) in enumerate(out):
+            if not drop >> i & 1:
+                pos = d - before[t] - bin(drop & ((1 << i) - 1)).count("1")
+                keys[pos], vals[pos] = k, v
+    # counters
+    steps = zips = pa = pb = 0
+    if la and lb:
+        if A[0] < 0 or B[0] < 0:
+            steps, zips, pa, pb = _walk_fronts(A, la, B, lb, R)
+        else:
+            na, nb = min(la, R), min(lb, R)
+            x = na - 1 if A[na - 1] <= B[nb - 1] else W + nb - 1
+            steps, zips = 1, na + nb
+            while True:
+                c = int(cand[x])
+                pa, pb = (x + 1, c >> 16) if x < W else (c >> 16, x - W + 1)
+                if c & _END == _END:
+                    break
+                zips += min(la - pa, R) + min(lb - pb, R)
+                steps, x = steps + 1, c & _END
+    tails = (-(-max(la - pa, 0) // R), -(-max(lb - pb, 0) // R))
+    return keys, vals, n_out, (steps, zips) + tails
+
+
+def _k3_tree(sk, sv, sl, R, items):
+    """merge_rounds over (S, C, R) sorted chunks: merged (keys, vals,
+    lens) and the per-stream (S, C - 1, 4) counter columns (round r, pair
+    q at column C - (C >> r) + q)."""
+    S, C, _ = sk.shape
+    k, v = sk.reshape(S, -1).copy(), sv.reshape(S, -1).copy()
+    n = sl.astype(np.int64).copy()
+    cols = np.zeros((S, max(C - 1, 1), 4), np.int64)
+    W, cc, r = R, C, 0
+    while cc > 1:
+        nn = np.zeros((S, cc // 2), np.int64)
+        for s in range(S):
+            for q in range(cc // 2):
+                b = q * 2 * W
+                ko, vo, no, cnt = _k3_pair(
+                    k[s, b:b + W], v[s, b:b + W], int(n[s, 2 * q]),
+                    k[s, b + W:b + 2 * W], v[s, b + W:b + 2 * W],
+                    int(n[s, 2 * q + 1]), W, R, items)
+                k[s, b:b + 2 * W], v[s, b:b + 2 * W], nn[s, q] = ko, vo, no
+                cols[s, C - (C >> r) + q] = cnt
+        n, W, cc, r = nn, 2 * W, cc // 2, r + 1
+    return k, v, n[:, 0], cols
+
+
+def _k3_bucket(L, R, seed):
+    """Four streams of width L: random keys over a narrow range, chunks
+    with disjoint key ranges, every chunk holding the same keys (full
+    overlap), and a short stream (empty sides); -0.0 among the values."""
+    rng = np.random.default_rng(seed)
+    S, C = 4, L // R
+    keys = rng.integers(0, max(2 * R, L // 3), (S, L))
+    chunk = np.arange(L) // R
+    keys[1] = chunk * 1000 + rng.integers(0, R, L)
+    keys[2] = np.tile(rng.permutation(R), C)
+    plens = np.array([L, L - R // 2, L, min(L, 3 * R // 2)], np.int32)
+    vals = rng.standard_normal((S, L)).astype(np.float32)
+    vals[rng.random((S, L)) < 0.1] = -0.0
+    mask = np.arange(L)[None, :] < plens[:, None]
+    return (np.where(mask, keys, EMPTY).astype(np.int32),
+            np.where(mask, vals, 0.0).astype(np.float32), plens)
+
+
+@pytest.mark.parametrize("R", [8, 16])
+@pytest.mark.parametrize("L", [2 ** e for e in range(4, 14)])
+def test_k3_merge_path_rounds_emulation(L, R):
+    """The kernel's merge rounds (merge path, straddling duplicates, the
+    successor chain) give the plain zip_merge_tree bit for bit — keys,
+    values (-0.0 too), lengths and every round's counters — the oracle
+    test_fused_bucket_plain_matches_zip_merge_tree holds against the
+    reference (which takes ~30 s a case at L = 8,192 on the CPU)."""
+    from repro_torch.kernels.fused_bucket import fused_config
+    from repro_torch.kernels.merge_tree import zip_merge_tree
+    items = fused_config(L, R)[0]
+    keys, vals, plens = _k3_bucket(L, R, seed=L + R)
+    S, C = keys.shape[0], L // R
+    sk, sv, sl = sort_chunks_linear(*_t(keys.reshape(S * C, R),
+                                        vals.reshape(S * C, R)),
+                                    kvstream.chunk_lens(_t(plens)[0], C, R))
+    sk, sv, sl = sk.view(S, C, R), sv.view(S, C, R), sl.view(S, C)
+    want = zip_merge_tree(sk, sv, sl, R=R, detailed=True)
+    k, v, n, cols = _k3_tree(*(t.numpy() for t in (sk, sv, sl)), R, items)
+    _eq(k, want[0])
+    _eq(v, want[1])
+    _eq(n.astype(np.int32), want[2])
+    for r, (steps, ze, tails) in enumerate(want[3]):
+        c = cols[:, C - (C >> r):C - (C >> (r + 1))]
+        _eq(c[..., 0].max(0), steps)
+        assert int(ze) == int(c[..., 1].sum())
+        _eq(c[..., 2:].max(0), tails)
+
+
+def test_k3_pair_negative_keys_take_the_front_loop():
+    """A pair holding a negative key walks the plain front loop (its -1
+    floor is not the chain's state); the payload is the union merge."""
+    A = np.array([-9, -5, -2, 4, 7, EMPTY, EMPTY, EMPTY], np.int32)
+    B = np.array([-7, -5, 3, 4, EMPTY, EMPTY, EMPTY, EMPTY], np.int32)
+    VA, VB = np.arange(8, dtype=np.float32), -np.arange(8, dtype=np.float32)
+    for R in (2, 4):
+        keys, vals, n, cnt = _k3_pair(A, VA, 5, B, VB, 4, 8, R, 2)
+        want = ref_mt.merge_partitions(*_j(A[None], VA[None], [5], B[None],
+                                           VB[None], [4]), R=R)
+        _eq(np.asarray(want[0])[0], keys)
+        _eq(np.asarray(want[1])[0], vals)
+        steps, zips, tails = _advance_counters(*_t(A[None], np.int32([5]),
+                                                   B[None], np.int32([4])),
+                                               R=R, pair_streams=1)
+        assert n == int(want[2][0])
+        assert cnt == (int(steps[0]), int(zips), int(tails[0, 0]),
+                       int(tails[0, 1]))
+
+
+def _flush(block_cols, C, Cg, steps, zips, tails):
+    """The kernel's epilogue: block column b (round r, pair q) lands at
+    group column Cg - (Cg >> r) + q, steps and tails by atomicMax, zip
+    elements by atomicAdd per round."""
+    for b in range(C - 1):
+        r = 0
+        while b >= C - (C >> (r + 1)):
+            r += 1
+        gc = Cg - (Cg >> r) + b - (C - (C >> r))
+        steps[gc] = max(steps[gc], block_cols[b, 0])
+        zips[r] += block_cols[b, 1]
+        tails[gc] = np.maximum(tails[gc], block_cols[b, 2:])
+
+
+@pytest.mark.parametrize("spb", [1, 2, 8])
+def test_k3_group_reduction_emulation(spb):
+    """Per-block max / sum of the streams' counter columns, then one
+    atomic per block and column into the group's accumulators, equals the
+    old driver's path: per-bucket amax / sum over streams, then
+    scatter_reduce_ at the group columns (buckets of mixed C)."""
+    from repro_torch.kernels.fused_bucket import accumulators, reduce_rounds
+    rng = np.random.default_rng(spb)
+    Cs = [1, 2, 8, 4, 32]
+    Cg = max(Cs)
+    buckets = [rng.integers(0, 50, (rng.integers(1, 20), max(C - 1, 1), 4))
+               for C in Cs]
+    for b, C in zip(buckets, Cs):
+        if C == 1:
+            b[:] = 0  # no rounds, no counters
+    # the kernel: blocks of spb streams, reduced in shared memory, flushed
+    W = max(Cg - 1, 1)
+    steps, zips = np.zeros(W, np.int64), np.zeros(W, np.int64)
+    tails = np.zeros((W, 2), np.int64)
+    for b, C in zip(buckets, Cs):
+        for s0 in range(0, len(b), spb):
+            blk = b[s0:s0 + spb]
+            red = np.concatenate([blk[..., :1].max(0), blk[..., 1:2].sum(0),
+                                  blk[..., 2:].max(0)], axis=1)
+            _flush(red, C, Cg, steps, zips, tails)
+    # the old driver: per-bucket rounds, scatter_reduce_ at group columns
+    old_steps = torch.zeros(W, dtype=torch.int64)
+    old_tails = torch.zeros((W, 2), dtype=torch.int64)
+    old_zips = 0
+    cols = np.concatenate([Cg - (Cg >> k) + np.arange(C >> (k + 1))
+                           for C in Cs for k in range(C.bit_length() - 1)])
+    at = 0
+    acc, s_acc, z_acc, t_acc = accumulators(Cg, "cpu")
+    for b, C in zip(buckets, Cs):
+        rounds = []
+        for k in range(C.bit_length() - 1):
+            c = torch.from_numpy(b[:, C - (C >> k):C - (C >> (k + 1))])
+            rounds.append((c[..., 0].amax(0), c[..., 1].sum(), c[..., 2:]
+                           .amax(0)))
+        if rounds:
+            idx = torch.from_numpy(cols[at:at + C - 1])
+            at += C - 1
+            old_steps.scatter_reduce_(0, idx, torch.cat([r[0] for r in rounds]),
+                                      "amax")
+            old_tails.scatter_reduce_(0, idx[:, None].expand(-1, 2),
+                                      torch.cat([r[2] for r in rounds]), "amax")
+            old_zips += sum(int(r[1]) for r in rounds)
+        reduce_rounds(rounds, s_acc, z_acc, t_acc)
+    _eq(old_steps.numpy(), steps)
+    _eq(old_tails.numpy(), tails)
+    assert old_zips == int(zips.sum())
+    # the torch slot's reduction: the same accumulators
+    _eq(steps, s_acc)
+    _eq(zips, z_acc)
+    _eq(tails, t_acc)
+    n_zip, ze, ta, tb = acc.view(4, -1).sum(1).tolist()
+    assert (n_zip, ze, ta + tb) == (int(steps.sum()), int(zips.sum()),
+                                    int(tails.sum()))
+
+
+# ---------------------------------------------------------------------------
 # backend registry, ops, build
 # ---------------------------------------------------------------------------
 
@@ -447,7 +711,7 @@ def test_backend_registry():
         kb.resolve_backend("xla", "cpu")
     for b in kb.available_backends().values():
         for slot in ("chunk_sort", "merge_partitions", "fused_bucket",
-                     "stream_sort", "stream_merge"):
+                     "fused_expand_bucket", "stream_sort", "stream_merge"):
             assert callable(getattr(b, slot))
 
 
@@ -455,7 +719,8 @@ def test_launch_counts_reset():
     kb.reset_launch_counts()
     counts = kb.launch_counts()
     assert set(counts) == {"chunk_sort", "merge_partitions", "fused_bucket",
-                           "fused_bucket.fused", "fused_bucket.large",
+                           "fused_bucket.expand", "fused_bucket.fused",
+                           "fused_bucket.large",
                            "stream_sort", "stream_merge", "stream_merge.chunk",
                            "stream_merge.pointer", "flash_attention",
                            "flash_attention.wgmma", "flash_attention.fma",

@@ -25,7 +25,7 @@ from repro.core import formats as ref_formats
 from repro.core import spgemm_engines as ref_sg
 from repro_torch.core import dispatch as dp
 from repro_torch.core import spgemm, spgemm_engines as sg
-from repro_torch.core.formats import (InvalidOperand, csr_from_coo,
+from repro_torch.core.formats import (EMPTY, InvalidOperand, csr_from_coo,
                                       csr_from_numpy, csr_to_numpy,
                                       random_sparse)
 from repro_torch.data import table3
@@ -127,6 +127,162 @@ def test_fused_expand_matches_reference():
                            *mats, L)
     for w, p in zip(want, got):
         np.testing.assert_array_equal(np.asarray(w), p.numpy())
+
+
+def _k3_load_expand(rows, lanes, mats, L, items):
+    """K3's expand load stage (csrc/fused_bucket.cu, load_expand) in
+    numpy: each of a stream's L / items threads takes a run of its A
+    row's entries; scans of their counts of entries with work and of
+    their work give every entry with work its table slot (first product,
+    B row start, A value); a product slot finds its entry by a search in
+    the table, then forward."""
+    a_indptr, a_idx, a_val, b_indptr, b_idx, b_val = mats
+    S, tps = len(rows), L // items
+    keys = np.full((S, L), EMPTY, np.int32)
+    vals = np.zeros((S, L), np.float32)
+    plens = np.zeros(S, np.int32)
+    for s in range(S):
+        if rows[s] < 0:
+            continue
+        ln = min(max(lanes[s], 0), a_indptr.shape[0] - 1)
+        t0, t1 = a_indptr[ln, rows[s]], a_indptr[ln, rows[s] + 1]
+        per = -(-(t1 - t0) // tps)
+        runs = [range(t0 + min(r * per, t1 - t0), t0 + min(r * per + per,
+                                                          t1 - t0))
+                for r in range(tps)]
+        w = [[b_indptr[ln, a_idx[ln, e] + 1] - b_indptr[ln, a_idx[ln, e]]
+              for e in run] for run in runs]
+        ci = np.cumsum([0] + [sum(x > 0 for x in ws) for ws in w])
+        wi = np.cumsum([0] + [sum(ws) for ws in w])
+        n, lim = min(ci[-1], L), min(wi[-1], L)
+        cum, bst, av = (np.zeros(L, np.int64), np.zeros(L, np.int64),
+                        np.zeros(L, np.float32))
+        for r, run in enumerate(runs):
+            c, acc = ci[r], wi[r]
+            for e, we in zip(run, w[r]):
+                if we > 0 and c < L:
+                    j = a_idx[ln, e]
+                    cum[c], bst[c], av[c] = acc, b_indptr[ln, j], a_val[ln, e]
+                    c, acc = c + 1, acc + we
+        for r in range(tps):
+            q0 = r * items
+            e = int(np.searchsorted(cum[:n], q0, "right")) - 1 \
+                if q0 < lim else -1
+            for q in range(q0, q0 + items):
+                if q < lim:
+                    while e + 1 < n and cum[e + 1] <= q:
+                        e += 1
+                    pos = bst[e] + q - cum[e]
+                    keys[s, q] = b_idx[ln, pos]
+                    vals[s, q] = av[e] * b_val[ln, pos]
+        plens[s] = wi[-1]
+    return keys, vals, plens
+
+
+@pytest.mark.parametrize("name,L", [("email", 256), ("cage11", 64),
+                                    ("soc", 1024)])
+def test_k3_expand_load_stage_emulation(name, L):
+    """The expand entry's load stage gives _fused_expand's keys and
+    values bit for bit, padding streams, entries with no work and rows
+    of more entries than threads included."""
+    from repro_torch.kernels.fused_bucket import fused_config
+    A = table3.build(name)
+    mats = [t[None] for t in (A.indptr, A.indices, A.data)] * 2
+    work = sg.row_work(A, A)
+    rows = np.flatnonzero((work > L // 2) & (work <= L))[:12]
+    rows = np.concatenate([rows, [-1], np.flatnonzero(work == 0)[:2]])
+    lanes = np.zeros(len(rows), np.int64)
+    items = fused_config(L, 16)[0]
+    got = _k3_load_expand(rows, lanes, [m.numpy() for m in mats], L, items)
+    want = sg._fused_expand(torch.from_numpy(rows), torch.from_numpy(lanes),
+                            *mats, L)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(w.numpy(), g)
+        if g.dtype.kind == "f":
+            np.testing.assert_array_equal(w.numpy().view(np.int32),
+                                          g.view(np.int32))
+
+
+# One bucket through the reference's jitted _fused_bucket_impl (backend
+# "xla"), in a child process like the table3 cases below.
+_BUCKET_CHILD = """
+import sys
+import numpy as np
+import jax
+import jax.numpy as jnp
+jax.config.update("jax_disable_most_optimizations", True)
+from repro.core import spgemm_engines as sg
+z = np.load(sys.argv[1])
+R, L = int(z["R"]), int(z["L"])
+mk, mv, ml, rounds = sg._fused_bucket(
+    jnp.asarray(z["rows"]), jnp.asarray(z["lanes"]),
+    *[jnp.asarray(z[f"m{i}"]) for i in range(6)], R=R, L=L, backend="xla")
+steps = [np.asarray(r[0], np.int64) for r in rounds]
+np.savez(sys.argv[2], mk=np.asarray(mk), mv=np.asarray(mv),
+         ml=np.asarray(ml), n=np.array([len(s) for s in steps], np.int64),
+         steps=np.concatenate(steps + [np.zeros(0, np.int64)]),
+         zips=np.array([int(r[1]) for r in rounds], np.int64),
+         tails=np.concatenate([np.asarray(r[2], np.int64) for r in rounds]
+                              + [np.zeros((0, 2), np.int64)]))
+"""
+
+
+@pytest.mark.parametrize("name,L,R,Bn", [("email", 256, 16, 1),
+                                         ("cage11", 64, 16, 2),
+                                         ("soc", 1024, 8, 1)])
+def test_fused_expand_bucket_slot_matches_reference(name, L, R, Bn,
+                                                    tmp_path):
+    """The torch backend's fused_expand_bucket (expansion, sort, merge
+    tree, reduction into a group's accumulators) against the reference's
+    _fused_bucket_impl on a stand-in bucket, padding streams and two
+    lanes included: keys, values, lengths bit for bit, and accumulators
+    that hold the reference's per-(round, pair) counters at the group's
+    columns (a group twice as wide), added to what they held."""
+    from repro_torch.kernels.fused_bucket import accumulators
+    A = table3.build(name)
+    work = sg.row_work(A, A)
+    rows = np.flatnonzero((work > L // 2) & (work <= L))[:24]
+    n = 1 << (len(rows) + 1).bit_length()
+    rows = np.concatenate([rows, np.full(n - len(rows), -1)]).astype(np.int64)
+    lanes = np.arange(n, dtype=np.int64) % Bn
+    mats = [t[None].repeat(Bn, *([1] * t.dim())) for t in
+            (A.indptr, A.indices, A.data)] * 2
+    mats[2] = mats[2] * torch.tensor([1.0, -0.5][:Bn])[:, None]
+    np.savez(tmp_path / "in.npz", rows=rows, lanes=lanes, R=R, L=L,
+             **{f"m{i}": m.numpy() for i, m in enumerate(mats)})
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    subprocess.run([sys.executable, "-c", _BUCKET_CHILD,
+                    str(tmp_path / "in.npz"), str(tmp_path / "ref.npz")],
+                   env=env, check=True, timeout=600)
+    want = np.load(tmp_path / "ref.npz")
+    C = L // R
+    Cg = 2 * C
+    buf, steps, zips, tails = accumulators(Cg, "cpu")
+    buf += 1
+    got = kb.get_backend("torch").fused_expand_bucket(
+        torch.from_numpy(rows), torch.from_numpy(lanes), *mats, R=R, L=L,
+        steps_acc=steps, zip_acc=zips, tails_acc=tails)
+    for key, g in zip(("mk", "mv", "ml"), got):
+        np.testing.assert_array_equal(want[key], g.numpy())
+        if g.dtype.is_floating_point:
+            np.testing.assert_array_equal(want[key].view(np.int32),
+                                          g.numpy().view(np.int32))
+    exp_steps = np.ones(Cg - 1, np.int64)
+    exp_tails = np.ones((Cg - 1, 2), np.int64)
+    exp_zips = np.ones(Cg - 1, np.int64)
+    at = 0
+    for k, P in enumerate(want["n"]):
+        cols = Cg - (Cg >> k) + np.arange(P)
+        exp_steps[cols] = np.maximum(1, want["steps"][at:at + P])
+        exp_tails[cols] = np.maximum(1, want["tails"][at:at + P])
+        exp_zips[k] += want["zips"][k]
+        at += P
+    assert len(want["n"]) == C.bit_length() - 1 and at > 0
+    np.testing.assert_array_equal(exp_steps, steps.numpy())
+    np.testing.assert_array_equal(exp_tails, tails.numpy())
+    np.testing.assert_array_equal(exp_zips, zips.numpy())
 
 
 def test_work_stats_and_bucket_helpers():
