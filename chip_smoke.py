@@ -14,17 +14,21 @@ drives the port's main path on one card:
            in the pointer form the host driver launches, issue by issue
            through a merge round) at the main paths' shapes, held bit for
            bit against its plain torch version on the same card inputs,
-           with its time, the plain version's time and its bound
+           with its time, the plain version's time and its bound; K1 and
+           K4 also with their device time (``device_ms``: 100 launches
+           replayed from one CUDA graph), beside the same time of an
+           empty kernel (``launch_floor_ms``)
   spgemm   the fused path: ``spgemm(A, A, engine="spz")`` on the 13 Table
            III stand-ins, the three SuiteSparse-scale ones and
            dense-row-full, with every launch counter set to 0 before and
            read after (K3's expand entry launched once per bucket on the
-           kernel's route, as the bucketing counts them); then each result held bit-identical (CSR and
+           kernel's route, as the bucketing counts them; K1 once per
+           large-route bucket, on its warp route); then each result held bit-identical (CSR and
            SpzStats) against the same call with ``backend="torch"`` on the
            card and structure-identical against the scl-array oracle
   host     the host-driver path: ``engine="spz-host"`` on the same 16
            matrices, counters set to 0 before and read after; every call
-           launches K4 exactly n_mssort times and K5's pointer form
+           launches K4 exactly n_mssort times, all on its warp route, and K5's pointer form
            between n_mszip times and 7 more per merge round (idle issues
            past the last live one; a flag is read at most once per 8
            issues, and not once a round's bound on issues is reached); held
@@ -82,8 +86,8 @@ drives the port's main path on one card:
            one profiled generate
   kernels  every ported kernel and its launches on its path's run
 
-It imports nothing of JAX.  The JSON kernel table and the card's name
-and power limit are on the lines before the last; the last line is
+It imports nothing of JAX.  The launch floor, the JSON kernel table and
+the card's name and power limit are on the lines before the last; the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase
 passed.  Without a CUDA device, or without the rest of
 the repository beside it, it exits non-zero and prints no result.
@@ -145,6 +149,47 @@ def time_ms(torch, fn, reps=10, warmup=2, setup=None):
         times.append(a.elapsed_time(b))
     torch.cuda.synchronize()
     return statistics.median(times)
+
+
+def graph_ms(torch, fn, n=100, reps=5):
+    """Device time of one ``fn()`` launch: ``n`` launches captured in one
+    CUDA graph, the graph replayed between two events, over ``n`` (median
+    of ``reps`` replays).  The host's issue of each launch is not in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
+
+
+def launch_floor_ms(torch, build):
+    """:func:`graph_ms` of a kernel that does nothing: the least any
+    one-launch kernel takes on this card."""
+    empty = build.entry("chunk_sort", "zipper_empty_launch")
+
+    def launch():
+        err = empty(torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"empty kernel: CUDA error {err}")
+    return graph_ms(torch, launch)
 
 
 def bound_ms(nbytes: int, ops: int, ops_per_s: float = FP32_OPS_PER_S):
@@ -344,7 +389,10 @@ def k3_expand_rows(torch, np, k3):
 
 def phase_kernel(torch, np):
     """Each kernel vs its plain version on card inputs of the main path's
-    shapes (cage11-full: 512-stream groups, R = 16, keys < 39,082)."""
+    shapes (cage11-full: 512-stream groups, R = 16, keys < 39,082); K1's
+    and K4's rows also with their device time (:func:`graph_ms`), and the
+    launch floor beside them."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import chunk_sort as k1
     from repro_torch.kernels import fused_bucket as k3
     from repro_torch.kernels import merge_partitions as k2
@@ -372,6 +420,7 @@ def phase_kernel(torch, np):
     rows["chunk_sort"] = dict(
         max_abs_err=err,
         ms=time_ms(torch, lambda: k1.launch(ck, cv, cl, *outs)),
+        device_ms=graph_ms(torch, lambda: k1.launch(ck, cv, cl, *outs)),
         wrapper_ms=time_ms(torch, lambda: k1.chunk_sort(ck, cv, cl)),
         plain_ms=time_ms(torch, lambda: k1.chunk_sort_plain(ck, cv, cl),
                          reps=10, warmup=1),
@@ -448,6 +497,8 @@ def phase_kernel(torch, np):
         max_abs_err=err,
         ms=time_ms(torch, lambda: k4.launch(keys, vals, plens, *outs),
                    reps=50, warmup=5),
+        device_ms=graph_ms(torch, lambda: k4.launch(keys, vals, plens,
+                                                    *outs)),
         wrapper_ms=time_ms(torch, lambda: k4.stream_sort(keys, vals, plens),
                            reps=50, warmup=5),
         plain_ms=time_ms(torch, lambda: k4.stream_sort_plain(
@@ -475,15 +526,18 @@ def phase_kernel(torch, np):
                          reps=10, warmup=1),
         bound_ms=b, bound_by=by, library_ms=None, shape=f"S=512 R={R}")
     rows["stream_merge"] = _k5_pointer_row(torch, np, rng, k5, R)
+    floor = launch_floor_ms(torch, _build)
+    log(f"kernel: launch_floor_ms {floor:.5f} (an empty kernel, 100 "
+        f"launches in one CUDA graph)")
     for name, r in rows.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        extra = f" payload_ms {r['payload_ms']:.4f}" if "payload_ms" in r \
-            else ""
+        extra = "".join(f" {x} {r[x]:.4f}" for x in ("payload_ms", "device_ms")
+                        if x in r)
         log(f"kernel: {name} {r['shape']} bit-exact (max_abs_err "
             f"{r['max_abs_err']}) kernel_ms {r['ms']:.4f}{extra} wrapper_ms "
             f"{r['wrapper_ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
             f"{r['bound_ms']:.5f} ({r['bound_by']}) library_ms {lib}")
-    return rows
+    return rows, floor
 
 
 def _k5_pointer_row(torch, np, rng, k5, R, S=512, L=64):
@@ -643,6 +697,10 @@ def phase_spgemm(torch, np, mats, oracles):
                 f"{n}: K3 expand launches / large buckets / K3 launches per "
                 f"call {got}, the bucketing gives {n_fused} fused-route and "
                 f"{n_large} large-route buckets")
+        k1 = (delta.get("chunk_sort", 0), delta.get("chunk_sort.warp", 0))
+        if k1 != (n_large, n_large):
+            raise AssertionError(f"{n}: K1 launches / on the warp route per "
+                                 f"call {k1}, {n_large} large buckets")
         results[n] = (csr_to_numpy(out), [getattr(st, f) for f in FIELDS])
         log(f"spgemm: {n} {A.shape[0]}x{A.shape[1]} nnz "
             f"{int(A.indptr[-1])} -> {results[n][0][1].size} | buckets "
@@ -698,6 +756,10 @@ def phase_host(torch, np, mats, fused):
         delta = {key: after[key] - before[key] for key in after}
         k4, k5 = delta.pop("stream_sort"), delta.pop("stream_merge")
         ptr = delta.pop("stream_merge.pointer")
+        warp = delta.pop("stream_sort.warp")
+        if warp != k4 or delta.pop("stream_sort.block"):
+            raise AssertionError(f"{n}: {warp} of {k4} K4 launches on the "
+                                 f"warp route")
         rounds = st.merge_rounds
         if k4 != st.n_mssort or k5 != ptr or not \
                 st.n_mszip <= ptr <= st.n_mszip + (k - 1) * rounds:
@@ -1694,7 +1756,8 @@ def main() -> int:
         log(f"chip_smoke: FAILED phases {failed}")
         return 1
     name = res["device"]
-    rows = {**res["kernel"], **res["attention"], **res["moe"]["rows"]}
+    kernel_rows, floor = res["kernel"]
+    rows = {**kernel_rows, **res["attention"], **res["moe"]["rows"]}
     # each kernel's launches on its own path's run
     counts = {k: v for k, v in res["spgemm"][0].items()
               if not k.startswith(("stream_", "flash_attention",
@@ -1733,8 +1796,9 @@ def main() -> int:
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"],
                       "library_ms": r["library_ms"],
-                      **{x: r[x] for x in ("tflops", "fp32_ms", "payload_ms")
-                         if x in r}})
+                      **{x: r[x] for x in ("tflops", "fp32_ms", "payload_ms",
+                                           "device_ms") if x in r}})
+    print(f"launch_floor_ms {floor}")
     print(json.dumps({"kernels": table}))
     print(name)
     print(json.dumps({"ok": True, "device": {

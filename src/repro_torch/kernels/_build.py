@@ -38,7 +38,8 @@ _L = ctypes.c_longlong
 # argtypes of every C entry point, by library name
 SIGNATURES = {
     "chunk_sort": {
-        "zipper_chunk_sort": ([_P, _P, _P, _I, _I, _P, _P, _P, _P], _I),
+        "zipper_chunk_sort": ([_P, _P, _P] + [_I] * 4 + [_P] * 4, _I),
+        "zipper_empty_launch": ([_P], _I),
     },
     "merge_partitions": {
         "zipper_merge_partitions": ([_P] * 6 + [_I] * 5 + [_P] * 10, _I),
@@ -46,7 +47,7 @@ SIGNATURES = {
         "zipper_merge_table_words": ([_I] * 4, _L),
     },
     "stream_sort": {
-        "zipper_stream_sort": ([_P, _P, _P, _I, _I, _I, _P, _P, _P, _P], _I),
+        "zipper_stream_sort": ([_P, _P, _P] + [_I] * 5 + [_P] * 4, _I),
     },
     "stream_merge": {
         "zipper_stream_merge": ([_P] * 6 + [_I] * 2 + [_P] * 8, _I),
@@ -102,6 +103,16 @@ class _Libraries:
 
 
 LIBS = _Libraries()
+_ENTRIES: dict = {}
+
+
+def entry(name: str, fn: str):
+    """The C entry ``fn`` of library ``name``, resolved once per process
+    (the first call builds and loads every library, under the lock)."""
+    f = _ENTRIES.get((name, fn))
+    if f is None:
+        f = _ENTRIES[name, fn] = getattr(LIBS.get(name), fn)
+    return f
 
 
 def _nvcc() -> str:

@@ -3,12 +3,18 @@
 Port of the Pallas kernel ``repro.kernels.chunk_sort.chunk_sort_pallas``:
 sort every (N, R) key-value chunk on (key, source lane), sum duplicate
 runs left to right and compress the run totals to the front.  The kernel
-is ``csrc/chunk_sort.cu``; its plain version is the oracle
+is ``csrc/chunk_sort.cu`` (the chunk sort of ``csrc/zipper.cuh``, shared
+with K4); its plain version is the oracle
 ``merge_tree.sort_chunks_linear``, bit-identical to it.
+
+The kernel has two routes, chosen by :func:`sort_config`: a chunk of up
+to 256 slots is sorted in registers by the lanes of one warp (``warp``),
+a wider one in a block's shared memory (``block``).
 
 :func:`chunk_sort` takes the plain version only for tensors on the CPU;
 on a CUDA tensor it launches the kernel (counting the launch in
-``chunk_sort.launches``) or raises.
+``chunk_sort.launches`` and its route in ``chunk_sort.routes``) or
+raises.
 """
 from __future__ import annotations
 
@@ -19,6 +25,29 @@ from repro_torch.kernels._build import cuda_inputs, stream_of
 from repro_torch.kernels.merge_tree import sort_chunks_linear
 
 chunk_sort_plain = sort_chunks_linear
+
+# slots a lane may hold on the warp route; a chunk of up to 32 times that
+# fits one warp
+MAX_ITEMS = 8
+
+
+def sort_config(E: int, R: int):
+    """The warp route's launch shape for E slots in chunks of R (a power
+    of two): (slots a lane, warps a block), or None for the block route
+    (R > 256).  A lane holds min(R, max(ceil(R / 32), min(4, P))) slots,
+    P the largest power of two <= E / 65,536: a chunk spans at most 32
+    lanes, a small call keeps each lane's rank and carry short, and no
+    call gives a lane 8 slots unless its chunks need them (the slowest
+    choice at every size timed).  A block holds min(4, max(1, warps /
+    256)) warps."""
+    if R > 32 * MAX_ITEMS:
+        return None
+    items = 1
+    while items < R and (32 * items < R
+                         or (items < 4 and 2 * items * 65536 <= E)):
+        items *= 2
+    warps = -(-E // (32 * items))
+    return items, min(4, max(1, warps // 256))
 
 
 def chunk_lens(plens, C: int, R: int) -> torch.Tensor:
@@ -50,18 +79,23 @@ def chunk_sort(keys, vals, lens):
         return ok, ov, ol
     launch(keys, vals, lens, ok, ov, ol)
     chunk_sort.launches += 1
+    chunk_sort.routes["block" if R > 32 * MAX_ITEMS else "warp"] += 1
     return ok, ov, ol
 
 
 chunk_sort.launches = 0
+chunk_sort.routes = {"warp": 0, "block": 0}
 
 
-def launch(keys, vals, lens, ok, ov, ol) -> None:
+def launch(keys, vals, lens, ok, ov, ol, config=None) -> None:
     """Launch K1 on checked, contiguous CUDA tensors (outputs allocated
-    by the caller) on the current stream; raise on a launch error."""
-    lib = _build.LIBS.get("chunk_sort")
+    by the caller) on the current stream, in the shape ``config`` ((slots
+    a lane, warps a block), ``sort_config``'s by default); raise on a
+    launch error."""
     N, R = keys.shape
-    err = lib.zipper_chunk_sort(keys.data_ptr(), vals.data_ptr(),
-                                lens.data_ptr(), N, R, ok.data_ptr(),
-                                ov.data_ptr(), ol.data_ptr(), stream_of(keys))
-    _build.check(lib, err, "chunk_sort")
+    items, warps = config or sort_config(N * R, R) or (0, 0)
+    err = _build.entry("chunk_sort", "zipper_chunk_sort")(
+        keys.data_ptr(), vals.data_ptr(), lens.data_ptr(), N, R, items,
+        warps, ok.data_ptr(), ov.data_ptr(), ol.data_ptr(), stream_of(keys))
+    if err:
+        _build.check(_build.LIBS.get("chunk_sort"), err, "chunk_sort")

@@ -80,10 +80,11 @@
 //      merged streams, their lengths and a few atomics.
 // The chunk sort ranks each key by (key, lane) within its chunk and sums
 // each duplicate run left to right from its first value, as K1 does.
-// Where a chunk lies in one warp (ITEMS <= R <= 32 ITEMS) it stays in
-// registers: keys by shuffles, run sums carried lane to lane in order,
-// run ends counted by a shuffle prefix; any other R reads the chunk from
-// shared memory.
+// Where a chunk lies in one warp (ITEMS <= R <= 32 ITEMS) it is K1's and
+// K4's own warp chunk sort (zipper.cuh: sort_chunks_warp), in registers:
+// keys by shuffles, run sums carried lane to lane in order, run ends
+// counted by a shuffle prefix, the warp's slots of shared memory ordered
+// by __syncwarp only; any other R reads the chunk from shared memory.
 #include "zipper.cuh"
 
 namespace {
@@ -270,96 +271,9 @@ __device__ void load_expand(const Params& p, int* sk, float* sv,
 // ---------------------------------------------------------------------------
 // chunk sort: stable (key, lane) rank in each R-chunk, duplicate runs
 // summed left to right from their first value, run totals compressed to
-// the chunk's front; lens[c] gets block chunk c's unique count
+// the chunk's front; lens[c] gets block chunk c's unique count.  A chunk
+// in one warp takes zipper::sort_chunks_warp (in fused_bucket_kernel).
 // ---------------------------------------------------------------------------
-
-// A chunk held by lpc = R / ITEMS neighbouring lanes of one warp
-// (ITEMS <= R <= 32 ITEMS): ranks from the chunk's keys taken by
-// shuffles, the sorted chunk read back into registers, run sums carried
-// lane to lane in order, run ends counted by a shuffle prefix.
-template <int ITEMS>
-__device__ void sort_chunks_warp(int R, int* sk, float* sv, int* lens,
-                                 int (&k)[ITEMS], float (&v)[ITEMS]) {
-  const int tid = threadIdx.x, x0 = tid * ITEMS, lane = tid & 31;
-  const int lpc = R / ITEMS, first = lane & ~(lpc - 1), j0 = lane - first;
-  const int off = j0 * ITEMS, c0 = x0 - off;
-  int rk[ITEMS];
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) rk[i] = 0;
-  for (int src = 0; src < lpc; ++src) {
-#pragma unroll
-    for (int e = 0; e < ITEMS; ++e) {
-      const int kj = __shfl_sync(kFull, k[e], first + src);
-      const int j = src * ITEMS + e;
-#pragma unroll
-      for (int i = 0; i < ITEMS; ++i)
-        rk[i] += (kj < k[i]) || (kj == k[i] && j < off + i);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    sk[c0 + rk[i]] = k[i];
-    sv[c0 + rk[i]] = v[i];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    k[i] = sk[x0 + i];
-    v[i] = sv[x0 + i];
-  }
-  int nk = __shfl_down_sync(kFull, k[0], 1);
-  if (j0 == lpc - 1) nk = kEmpty;
-  unsigned last = 0;
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    const int nx = i + 1 < ITEMS ? k[i + 1] : nk;
-    if (k[i] != nx && k[i] != kEmpty) last |= 1u << i;
-  }
-  // running sums, lane by lane: lane j starts from lane j - 1's trailing
-  // run where its first key continues it
-  float carry = 0.0f;
-  int ckey = kEmpty;
-  for (int j = 0; j < lpc; ++j) {
-    if (j0 == j) {
-      float acc = (j > 0 && k[0] == ckey) ? carry + v[0] : v[0];
-      v[0] = acc;
-#pragma unroll
-      for (int i = 1; i < ITEMS; ++i) {
-        acc = k[i] == k[i - 1] ? acc + v[i] : v[i];
-        v[i] = acc;
-      }
-    }
-    const float c = __shfl_up_sync(kFull, v[ITEMS - 1], 1);
-    const int ck = __shfl_up_sync(kFull, k[ITEMS - 1], 1);
-    if (j0 == j + 1) {
-      carry = c;
-      ckey = ck;
-    }
-  }
-  const int cnt = __popc(last);
-  int incl = cnt;
-  for (int o = 1; o < lpc; o <<= 1) {
-    const int y = __shfl_up_sync(kFull, incl, o);
-    if (j0 >= o) incl += y;
-  }
-  const int before = incl - cnt;
-  const int n = __shfl_sync(kFull, incl, first + lpc - 1);
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    if ((last >> i) & 1u) {
-      const int pos = before + __popc(last & ((1u << i) - 1u));
-      sk[c0 + pos] = k[i];
-      sv[c0 + pos] = v[i];
-    }
-    if (off + i >= n) {
-      sk[x0 + i] = kEmpty;
-      sv[x0 + i] = 0.0f;
-    }
-  }
-  if (j0 == 0) lens[c0 / R] = n;
-  __syncthreads();
-}
 
 // Any other R: ranks and runs read from shared memory, run ends as
 // ballot words.
@@ -623,10 +537,16 @@ fused_bucket_kernel(const Params p) {
   float v[ITEMS];
   if (EXPAND) load_expand<ITEMS>(p, sk, sv, aux, sc, wt, k, v);
   else load_streams<ITEMS>(p, k, v);
-  if (ITEMS <= R && R <= 32 * ITEMS)
-    sort_chunks_warp<ITEMS>(R, sk, sv, lens, k, v);
-  else
+  if (ITEMS <= R && R <= 32 * ITEMS) {
+    // zipper.cuh's warp chunk sort (K1's and K4's), in place in the
+    // warp's own slots of sk/sv
+    const int w0 = (tid & ~31) * ITEMS;
+    zipper::sort_chunks_warp<ITEMS>(R, false, k, v, sk + w0, sv + w0,
+                                    sk + w0, sv + w0, lens + w0 / R, true);
+    __syncthreads();
+  } else {
     sort_chunks_smem<ITEMS>(R, sk, sv, bits, lens, k, v);
+  }
   merge_rounds<ITEMS>(L, R, C, sk, sv, aux, lens, lens_n, sc, wt, pc, ncol,
                       k, v);
 

@@ -9,8 +9,9 @@ only, so it runs on a machine without JAX:
 Each kernel (K1 chunk sort, K2 partition merge on short rows and on
 long rows spread over many CTAs, K3 fused bucket on both of its routes
 and on its expand entry, accumulators included,
-K4 stream sort, K5 stream merge in its chunk and pointer forms) must
-equal its plain version bit for bit — keys, values (-0.0 included),
+K4 stream sort, K5 stream merge in its chunk and pointer forms; K1 and
+K4 on both routes, counted in their ``routes``, and in every launch
+shape of the warp route) must equal its plain version bit for bit — keys, values (-0.0 included),
 lengths and the mszip counters — and count its launch.  K6 flash
 attention must agree with its plain version within the reference
 sweep's tolerances (2e-4 in float32, one bf16 rounding plus 1e-6 in
@@ -33,7 +34,9 @@ from repro_torch.configs import base as cb
 from repro_torch.core import spgemm
 from repro_torch.core.formats import EMPTY, csr_to_numpy, random_sparse
 from repro_torch.kernels import backend as kb
-from repro_torch.kernels.chunk_sort import chunk_sort, chunk_sort_plain
+from repro_torch.kernels.chunk_sort import (chunk_sort, chunk_sort_plain,
+                                            sort_config)
+from repro_torch.kernels.chunk_sort import launch as chunk_sort_launch
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.fused_bucket import (accumulators, fused_bucket,
@@ -49,6 +52,7 @@ from repro_torch.kernels.stream_merge import (stream_merge, stream_merge_plain,
                                               stream_merge_ptr,
                                               stream_merge_ptr_plain)
 from repro_torch.kernels.stream_sort import stream_sort, stream_sort_plain
+from repro_torch.kernels.stream_sort import launch as stream_sort_launch
 from repro_torch.models import model as M
 from repro_torch.serving.engine import Engine, Request
 
@@ -75,12 +79,43 @@ def _eq(want, got):
 
 
 def _chunks(rng, N, R, key_hi):
+    """Random chunks with an empty chunk first and, where N > 3, a full
+    all-duplicate chunk and a lone -0.0; -0.0 among the values."""
     lens = rng.integers(0, R + 1, N).astype(np.int32)
     lens[0] = 0
     keys = rng.integers(0, key_hi, (N, R)).astype(np.int32)
     vals = rng.standard_normal((N, R)).astype(np.float32)
     vals[rng.random((N, R)) < 0.1] = -0.0
+    if N > 3:
+        keys[1], lens[1] = 7, R
+        keys[2, 0], vals[2, 0], lens[2] = 5, -0.0, 1
     return keys, vals, lens
+
+
+# (N, R, key_hi) of the chunk sorts: the earlier sweep over R = 8-128, the
+# warp route's widest chunk (R = 256), the block route (R = 512), many
+# chunks (N = 65,536), and the main paths' shapes
+_SORT_CASES = [(N, R, hi) for R in (8, 16, 32, 128, 256, 512)
+               for N, hi in ((301, 3), (301, 1000), (3, 5))] + [
+    (65536, 8, 3), (8192, 16, 39082), (512, 16, 7)]
+
+
+def _route(R):
+    return "block" if sort_config(R, R) is None else "warp"
+
+
+def _every_warp_shape(launch, args, want):
+    """The warp route in every launch shape its kernel takes for these
+    chunks (each ITEMS with ITEMS <= R <= 32 ITEMS, 1 and 4 warps a
+    block; R = 8 with ITEMS = 8 among them), against the plain version."""
+    R = args[0].shape[1]
+    outs = [torch.empty_like(w) for w in want]
+    for items in (1, 2, 4, 8):
+        if items <= R <= 32 * items:
+            for warps in (1, 4):
+                launch(*args, *outs, config=(items, warps))
+                for w, g in zip(want, outs):
+                    _eq(w, g)
 
 
 def _partition(rng, N, L, key_hi, max_len=None):
@@ -102,16 +137,18 @@ def _bucket(rng, S, L, key_hi):
     return keys.astype(np.int32), vals.astype(np.float32), plens
 
 
-@pytest.mark.parametrize("R", [8, 16, 32, 128])
-@pytest.mark.parametrize("N,key_hi", [(301, 3), (301, 1000), (3, 5)])
+@pytest.mark.parametrize("N,R,key_hi", _SORT_CASES)
 def test_chunk_sort_kernel(card, N, R, key_hi):
     args = _on(card, *_chunks(np.random.default_rng(R + key_hi), N, R,
                               key_hi))
-    before = chunk_sort.launches
+    before, routes = chunk_sort.launches, dict(chunk_sort.routes)
     got = chunk_sort(*args)
     assert chunk_sort.launches == before + 1
-    for w, g in zip(chunk_sort_plain(*args), got):
+    assert chunk_sort.routes[_route(R)] == routes[_route(R)] + 1
+    want = chunk_sort_plain(*args)
+    for w, g in zip(want, got):
         _eq(w, g)
+    _every_warp_shape(chunk_sort_launch, args, want)
 
 
 @pytest.mark.parametrize("N,La,Lb,R,S", [(64, 256, 256, 16, 8),
@@ -381,20 +418,24 @@ def _sorted_front(rng, S, R, key_hi):
     return keys, vals, lens
 
 
-@pytest.mark.parametrize("R", [8, 16, 32, 128])
-@pytest.mark.parametrize("S,key_hi", [(1, 3), (2, 5), (512, 7), (300, 1000)])
+@pytest.mark.parametrize("S,R,key_hi", [
+    (S, R, hi) for R in (8, 16, 32, 128, 256, 512)
+    for S, hi in ((1, 3), (2, 5), (512, 7), (300, 1000))] + [(65536, 8, 3)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_stream_sort_kernel(card, S, R, key_hi, dtype):
     keys, vals, lens = _on(card, *_chunks(np.random.default_rng(S + R), S, R,
                                           key_hi))
     vals = vals.to(dtype)
-    before = stream_sort.launches
+    before, routes = stream_sort.launches, dict(stream_sort.routes)
     got = stream_sort(keys, vals, lens)
     assert stream_sort.launches == before + 1
+    assert stream_sort.routes[_route(R)] == routes[_route(R)] + 1
     assert got[1].dtype == dtype
-    for w, g in zip(stream_sort_plain(keys, vals, lens), got):
+    want = stream_sort_plain(keys, vals, lens)
+    for w, g in zip(want, got):
         _eq(w.float() if w.dtype == torch.bfloat16 else w,
             g.float() if g.dtype == torch.bfloat16 else g)
+    _every_warp_shape(stream_sort_launch, (keys, vals, lens), want)
 
 
 @pytest.mark.parametrize("R", [8, 16, 64])
@@ -717,11 +758,13 @@ def test_sort_tokens_by_key_cuda_branch(card, n):
     take the argsort.  Both give the torch route's permutation."""
     (keys,) = _on(card, np.random.default_rng(n).integers(0, 128, n)
                   .astype(np.int32))
-    before = stream_sort.launches
+    before, block = stream_sort.launches, stream_sort.routes["block"]
     got_k, got_p = sort_tokens_by_key(keys, backend="cuda")
     want_k, want_p = sort_tokens_by_key(keys, backend="torch")
     assert stream_sort.launches - before == int(n & (n - 1) == 0
                                                 and n <= 8192)
+    # a front wider than one warp's 256 slots takes K4's block route
+    assert stream_sort.routes["block"] - block == int(n in (1024, 8192))
     _eq(want_p, got_p)
     _eq(want_k, got_k)
 

@@ -6,9 +6,10 @@ the wrappers take for CPU tensors) are held bit-exact against the
 reference's XLA oracles in ``repro.kernels.merge_tree`` — keys, values,
 lengths and the mszip counters — and K3 also against the Pallas kernel
 in interpret mode on one tiny bucket.  The arithmetic of the CUDA
-kernels that the CPU cannot run (K2's long rows, K3's merge-path rounds,
-counter chain and group reduction) is emulated in numpy and held against
-the same oracles.  ``test_torch_cuda.py`` holds each kernel against its
+kernels that the CPU cannot run (the warp chunk sort of K1, K4 and K3,
+K2's long rows, K3's merge-path rounds, counter chain and group
+reduction) is emulated in numpy and held against the same oracles (and
+``repro.kernels.ref.stream_sort_ref`` for K4).  ``test_torch_cuda.py`` holds each kernel against its
 plain version on the card.
 """
 import jax.numpy as jnp
@@ -16,18 +17,21 @@ import numpy as np
 import pytest
 import torch
 
-from repro.core import stream as ref_stream
+from repro.core import stream as ref_stream  # before repro.kernels.ref
 from repro.kernels import merge_tree as ref_mt
+from repro.kernels import ref as ref_k
 from repro.kernels.fused_bucket import fused_bucket_pallas
 from repro_torch.core import stream as kvstream
 from repro_torch.core.formats import EMPTY
 from repro_torch.kernels import _build, backend as kb, ops
-from repro_torch.kernels.chunk_sort import chunk_sort, chunk_sort_plain
+from repro_torch.kernels.chunk_sort import (MAX_ITEMS, chunk_sort,
+                                            chunk_sort_plain, sort_config)
 from repro_torch.kernels.fused_bucket import fused_bucket, fused_bucket_plain
 from repro_torch.kernels.merge_partitions import (merge_partitions,
                                                   merge_partitions_plain)
 from repro_torch.kernels.merge_tree import (_advance_counters,
                                             sort_chunks_linear)
+from repro_torch.kernels.stream_sort import stream_sort_plain
 
 torch.set_num_threads(2)
 
@@ -435,6 +439,193 @@ def test_chunk_sort_partitions_matches_reference():
 
 
 # ---------------------------------------------------------------------------
+# The warp chunk sort of K1 and K4 (csrc/zipper.cuh: sort_warp_kernel and
+# sort_chunks_warp, also K3's chunk sort) emulated in numpy, lane by lane
+# ---------------------------------------------------------------------------
+
+def _warp_sort(keys, vals, lens, items, zero_start):
+    """The warp route as its lanes run it.  A warp holds 32 * items
+    slots, lane l the items slots from l * items, masked by its chunk's
+    length; a chunk spans lpc = R / items lanes.  Each element ranks
+    itself against the keys the chunk's lanes shuffle to it, is placed by
+    rank in the warp's scratch and read back; each run is summed in
+    float32 lane to lane (lane j carries lane j - 1's trailing run on,
+    from zero when zero_start); run ends form a bit mask per lane whose
+    popcounts, prefixed over the chunk's lanes by shuffle-ups, give the
+    output slots.  Returns (keys (N, R), float32 vals (N, R), lens (N,))."""
+    N, R = keys.shape
+    E, W, lpc = N * R, 32 * items, R // items
+    assert items <= R <= W
+    kf, vf = keys.reshape(-1), vals.reshape(-1).astype(np.float32)
+    ok = np.full(E, -7, np.int32)  # every slot must be stored once
+    ov = np.full(E, np.nan, np.float32)
+    ol = np.full(N, -7, np.int32)
+    lane = np.arange(32)
+    first = lane & ~(lpc - 1)
+    j0 = lane - first
+    off = j0 * items
+    c0 = lane * items - off
+    zero = np.float32(0.0)
+    for w0 in range(0, E, W):
+        x = w0 + lane * items
+        live = x < E
+        ln = np.where(live, lens[np.minimum(x, E - 1) // R], 0)
+        k = np.full((32, items), EMPTY, np.int32)
+        v = np.zeros((32, items), np.float32)
+        for i in range(items):
+            valid = off + i < ln
+            k[valid, i] = kf[x[valid] + i]
+            v[valid, i] = vf[x[valid] + i]
+        # rank: lane first + src shuffles its element e to the chunk
+        rk = np.zeros((32, items), np.int64)
+        for src in range(lpc):
+            for e in range(items):
+                kj = k[first + src, e][:, None]
+                j = src * items + e
+                rk += (kj < k) | ((kj == k)
+                                  & (j < off[:, None] + np.arange(items)))
+        wk = np.full(W, -9, np.int32)
+        wv = np.zeros(W, np.float32)
+        slot = c0[:, None] + rk
+        assert len(np.unique(slot)) == W  # a permutation of the warp's slots
+        wk[slot], wv[slot] = k, v
+        k, v = wk.reshape(32, items).copy(), wv.reshape(32, items).copy()
+        # run ends
+        nk = np.where(j0 == lpc - 1, EMPTY, np.roll(k[:, 0], -1))
+        nxt = np.concatenate([k[:, 1:], nk[:, None]], axis=1)
+        last = (k != nxt) & (k != EMPTY)
+        # running sums, lane by lane, carried through a shuffle-up
+        carry = np.zeros(32, np.float32)
+        ckey = np.full(32, EMPTY, np.int32)
+        for j in range(lpc):
+            for ln_ in np.flatnonzero(j0 == j):
+                if j > 0 and k[ln_, 0] == ckey[ln_]:
+                    acc = np.float32(carry[ln_] + v[ln_, 0])
+                else:
+                    acc = np.float32(zero + v[ln_, 0]) if zero_start \
+                        else v[ln_, 0]
+                v[ln_, 0] = acc
+                for i in range(1, items):
+                    if k[ln_, i] == k[ln_, i - 1]:
+                        acc = np.float32(acc + v[ln_, i])
+                    else:
+                        acc = np.float32(zero + v[ln_, i]) if zero_start \
+                            else v[ln_, i]
+                    v[ln_, i] = acc
+            up_v = np.concatenate([v[:1, -1], v[:-1, -1]])
+            up_k = np.concatenate([k[:1, -1], k[:-1, -1]])
+            take = j0 == j + 1
+            carry[take], ckey[take] = up_v[take], up_k[take]
+        # output slots: popcount prefix over the chunk's lanes
+        cnt = last.sum(1)
+        incl = cnt.copy()
+        o = 1
+        while o < lpc:
+            y = np.concatenate([incl[:o], incl[:-o]])
+            incl = np.where(j0 >= o, incl + y, incl)
+            o <<= 1
+        before = incl - cnt
+        n = incl[first + lpc - 1]
+        for l in np.flatnonzero(live):
+            for i in range(items):
+                if last[l, i]:
+                    pos = w0 + c0[l] + before[l] + last[l, :i].sum()
+                    ok[pos], ov[pos] = k[l, i], v[l, i]
+                if off[l] + i >= n[l]:
+                    ok[x[l] + i], ov[x[l] + i] = EMPTY, 0.0
+            if j0[l] == 0:
+                ol[(w0 + c0[l]) // R] = n[l]
+    assert (ok != -7).all() and (ol != -7).all()
+    return ok.reshape(N, R), ov.reshape(N, R), ol
+
+
+def _sort_inputs(R, seed):
+    """Chunks of R from a numpy seed: random keys over narrow and wide
+    ranges (many duplicate runs, some across lanes), an empty chunk, an
+    all-duplicate full chunk, a lone -0.0, a run of -0.0 and a lens past
+    R; -0.0 among the values.  Enough chunks for a partial last warp."""
+    rng = np.random.default_rng(seed)
+    N = max(9, 1152 // R)
+    keys = rng.integers(0, 3, (N, R))
+    keys[N // 2:] = rng.integers(0, 4 * R, (N - N // 2, R))
+    lens = rng.integers(0, R + 1, N)
+    vals = rng.standard_normal((N, R)).astype(np.float32)
+    vals[rng.random((N, R)) < 0.1] = -0.0
+    lens[0] = 0
+    keys[1], lens[1] = 7, R
+    keys[2, 0], vals[2, 0], lens[2] = 5, -0.0, 1
+    keys[3], vals[3], lens[3] = 9, -0.0, R
+    lens[4] = R + 3
+    return keys.astype(np.int32), vals, lens.astype(np.int32)
+
+
+def _warp_items(R):
+    """Every ITEMS the warp route takes for chunks of R."""
+    return [i for i in (1, 2, 4, 8) if i <= R <= 32 * i]
+
+
+_WARP_CASES = [(R, i) for R in (8, 16, 32, 128) for i in _warp_items(R)]
+
+
+@pytest.mark.parametrize("R,items", _WARP_CASES)
+def test_warp_chunk_sort_emulation_k1(R, items):
+    """K1's warp route: the reference's sort_chunks_linear bit for bit
+    (runs summed from their first value, -0.0 kept)."""
+    keys, vals, lens = _sort_inputs(R, seed=R * 10 + items)
+    got = _warp_sort(keys, vals, lens, items, zero_start=False)
+    want = ref_mt.sort_chunks_linear(*_j(keys, vals, lens))
+    for w, g in zip(want, got):
+        _eq(w, g)
+    assert np.signbit(got[1][2, 0]) and np.signbit(got[1][3, 0])
+
+
+@pytest.mark.parametrize("vdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("R,items", _WARP_CASES)
+def test_warp_chunk_sort_emulation_k4(R, items, vdtype):
+    """K4's warp route: the reference's stream_sort_ref bit for bit (runs
+    summed from zero: a lone -0.0 becomes +0.0).  bfloat16 values are
+    loaded as float32 and each total rounded once on store: the
+    reference on the float32 values, rounded once, and the port's plain
+    version on the bfloat16 values."""
+    keys, vals, lens = _sort_inputs(R, seed=R * 10 + items + 1)
+    if vdtype == "bfloat16":
+        vals = torch.from_numpy(vals).bfloat16().float().numpy()
+    k, v, n = _warp_sort(keys, vals, lens, items, zero_start=True)
+    want = ref_k.stream_sort_ref(*_j(keys, vals, lens))
+    _eq(want[0], k)
+    _eq(want[2], n)
+    _eq(want[1], v)
+    assert not np.signbit(v[2, 0]) and not np.signbit(v[3, 0])
+    if vdtype == "bfloat16":
+        tv = torch.from_numpy(vals).bfloat16()
+        pk, pv, pn = stream_sort_plain(*_t(keys), tv, *_t(lens))
+        _eq(pk, k)
+        _eq(pn, n)
+        assert torch.equal(pv.view(torch.int16),
+                           torch.from_numpy(v).bfloat16().view(torch.int16))
+
+
+def test_sort_config_shapes():
+    """The launch shapes of the warp route: a legal ITEMS for every R
+    (a chunk inside one warp), the block route past R = 256, and grids
+    that spread K4's host-driver front and K1's large-route bucket."""
+    for R in (1, 2, 4, 8, 16, 32, 64, 128, 256):
+        for E in (R, 8192, 131072, 1 << 22):
+            items, warps = sort_config(E, R)
+            assert items in _warp_items(R) and 1 <= warps <= 4
+    assert sort_config(1 << 20, 512) is None and 32 * MAX_ITEMS == 256
+
+    def blocks(E, R):
+        items, warps = sort_config(E, R)
+        return -(-E // (32 * items * warps))
+    assert sort_config(512 * 16, 16) == (1, 1) and blocks(512 * 16, 16) >= 64
+    assert sort_config(8192 * 16, 16) == (2, 4)
+    assert blocks(8192 * 16, 16) >= 256
+    assert sort_config(65536 * 16, 16) == (4, 4)
+    assert sort_config(1 << 24, 16) == (4, 4) and sort_config(256, 256)[0] == 8
+
+
+# ---------------------------------------------------------------------------
 # K3's kernel body (csrc/fused_bucket.cu) emulated in numpy: the merge
 # rounds by merge path, the counters along the stored successor chain,
 # and the per-block reduction into a group's accumulator columns
@@ -718,10 +909,13 @@ def test_backend_registry():
 def test_launch_counts_reset():
     kb.reset_launch_counts()
     counts = kb.launch_counts()
-    assert set(counts) == {"chunk_sort", "merge_partitions", "fused_bucket",
+    assert set(counts) == {"chunk_sort", "chunk_sort.warp", "chunk_sort.block",
+                           "merge_partitions", "fused_bucket",
                            "fused_bucket.expand", "fused_bucket.fused",
                            "fused_bucket.large",
-                           "stream_sort", "stream_merge", "stream_merge.chunk",
+                           "stream_sort", "stream_sort.warp",
+                           "stream_sort.block", "stream_merge",
+                           "stream_merge.chunk",
                            "stream_merge.pointer", "flash_attention",
                            "flash_attention.wgmma", "flash_attention.fma",
                            "grouped_matmul", "grouped_matmul.contiguous",
