@@ -37,6 +37,22 @@ drives the port's main path on one card:
   engines  ``esc`` on the 16 matrices (bit for bit against the port's CPU
            esc on the stand-ins, against scl-array everywhere) and
            ``scl-hash`` on the stand-ins against scl-array
+  dispatch the dispatch layer, on an autotune cache in a temporary
+           directory: ``spgemm(A, A)`` with no engine on the 17 matrices
+           (the heuristic table's engine and rule, the CSR bit for bit
+           the named engine's, the second plan a memo hit, K3's expand
+           entry on email-Enron-full), ``autotune=True`` on
+           email-Enron-full and cage11 (only cuda-backend candidates;
+           the second plan from the cache), ``spgemm_batched`` on
+           [cage11-full, hub-full, dense-row-full] plus a padding lane
+           (spz, spz-rsort, esc; spz also on the torch backend) and on
+           six 1,024-row stand-ins (spz-host), every lane bit for bit
+           its single call, and ``execute_resilient`` on
+           email-Enron-full (planned; under an injected fault at
+           dispatch.execute, degraded to spz-fused/cuda, the card's
+           ladder, with K3 launched, the CSR unchanged, the combo
+           quarantined; an injected kernel launch error raised, not
+           degraded)
   attention  K6 flash attention on the sweep of tests/test_kernels_attn.py
            (float32 on the fma route, bf16 on the wgmma route, each
            route's counter checked) and at TinyLlama's prefill shapes
@@ -832,6 +848,268 @@ def phase_engines(torch, np, mats, oracles):
             _check_oracle(np, f"scl-hash {n}", hashed, oracles[n])
             line += "; bit-identical to the CPU esc; scl-hash matches"
         log(line)
+
+
+# engine="auto" on the 17 matrices: what the reference's heuristic table
+# picks from the same features (tests/test_torch_dispatch.py holds the
+# port to it on the CPU); every other matrix takes the default rule, spz
+AUTO_CHOICE = {"wiki": ("spz-rsort", "skewed"),
+               "ndwww": ("spz-rsort", "skewed"),
+               "bcsstk17": ("esc", "dense"), "p3d": ("esc", "dense"),
+               "cage11-full": ("esc", "dense"), "hub-full": ("esc", "dense"),
+               "dense-row-full": ("esc", "dense")}
+FULL_BATCH = ("cage11-full", "hub-full", "dense-row-full")
+HOST_BATCH = ("p2p", "soc", "ca-cm", "email", "scircuit", "cage11")
+
+
+def _warm_ms(torch, fn, reps=3):
+    """Median host ms of ``reps`` calls, each ending in a synchronize
+    (the call's time as PERF.md section 2 defines it)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_dispatch(torch, np, mats, fused):
+    """The dispatch layer on the card, on an AutotuneCache in a temporary
+    directory (never ~/.cache):
+
+    1. ``spgemm(A, A)`` with no engine and no device on the 17 matrices,
+       counters zeroed before and read after: engine, rule and source of
+       each (the heuristic table's choice, AUTO_CHOICE), the CSR bit for
+       bit the named engine's, the second plan a memo hit (µs per plan
+       cold and on a hit), K3's expand entry launched on
+       email-Enron-full's call; ms per warm call on the full-size ones;
+    2. ``autotune=True`` on email-Enron-full and cage11: the timing
+       vector (every backend-aware candidate on cuda), the second plan
+       from the cache;
+    3. batched: [cage11-full, hub-full, dense-row-full] plus a padding
+       lane through spz, spz-rsort and esc, and the six 1,024-row
+       stand-ins through spz-host; every valid lane bit for bit the
+       single-matrix call, the padding lane invalid and empty; spz also
+       with backend="torch" (K3's expand entry on lanes > 0, K1 and K2
+       on hub-full's and dense-row-full's large buckets, against their
+       plain versions); launches by route and ms per call;
+    4. execute_resilient on email-Enron-full: tier "planned" without a
+       fault; with dispatch.execute raising for the planned engine,
+       "degraded:spz-fused/cuda" (the card's ladder: K3 launched, no
+       plain tier), the same CSR, the combo quarantined; with it raising
+       a kernel launch error, that error raised and nothing degraded."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import dispatch as dp
+    from repro_torch.core import spgemm
+    from repro_torch.core.formats import batch_csr, csr_to_numpy
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import backend as kb
+    from repro_torch.runtime import faultinject as fi
+
+    out = {"auto": {}, "batched": {}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    saved = dp._default_cache
+    try:
+        # 1. engine="auto", one matrix at a time, each on a default cache
+        # of its own (wiki, bcsstk17 and p3d share a shape/nnz bucket: one
+        # cache would replay the first one's selection for the others)
+        dp.clear_feature_cache()
+        kb.reset_launch_counts()
+        for n, A in mats.items():
+            dp._default_cache = dp.AutotuneCache(
+                os.path.join(tmp, f"auto-{n}.json"))
+            t0 = time.perf_counter()
+            p = dp.plan(A, A)
+            cold_us = (time.perf_counter() - t0) * 1e6
+            hits = dp._plan_memo.hits
+            t0 = time.perf_counter()
+            p2 = dp.plan(A, A)
+            hit_us = (time.perf_counter() - t0) * 1e6
+            if p2 is not p or dp._plan_memo.hits != hits + 1:
+                raise AssertionError(f"auto {n}: second plan not a memo hit")
+            want = AUTO_CHOICE.get(n, ("spz", "default"))
+            if (p.engine, p.rule, p.source, p.backend) != (
+                    *want, "heuristic",
+                    "cuda" if want[0].startswith("spz") else None):
+                raise AssertionError(
+                    f"auto {n}: planned {p.engine} {p.rule} {p.source} "
+                    f"{p.backend}, the table gives {want}")
+            before = kb.launch_counts()
+            got = csr_to_numpy(spgemm(A, A))
+            after = kb.launch_counts()
+            delta = {k: after[k] - before[k] for k in after
+                     if after[k] != before[k]}
+            explicit = fused[n][0] if p.engine == "spz" else csr_to_numpy(
+                spgemm(A, A, engine=p.engine))
+            if not _csr_equal(np, got, explicit):
+                raise AssertionError(f"auto {n}: CSR differs from "
+                                     f"engine={p.engine!r}")
+            row = dict(engine=p.engine, rule=p.rule, source=p.source,
+                       plan_cold_us=cold_us, plan_hit_us=hit_us,
+                       launches=delta)
+            if A.shape[0] > 10_000:
+                row["ms"] = _warm_ms(torch, lambda: spgemm(A, A))
+            out["auto"][n] = row
+            log(f"dispatch: auto {n} -> {p.engine} (rule {p.rule}, source "
+                f"{p.source}, backend {p.backend}) | plan {cold_us:.0f} us "
+                f"cold, {hit_us:.1f} us memo hit | bit-identical to "
+                f"engine={p.engine!r}"
+                + (f" | {row['ms']:.2f} ms per warm call" if "ms" in row
+                   else "") + f" | launches {delta}")
+        counts = kb.launch_counts()
+        if out["auto"]["email-Enron-full"]["launches"].get(
+                "fused_bucket.expand", 0) == 0:
+            raise AssertionError("auto email-Enron-full: no K3 expand launch")
+        out["auto_counts"] = {k: v for k, v in counts.items() if v}
+        log(f"dispatch: auto path launches {out['auto_counts']}")
+
+        # 2. autotune=True
+        tune = dp.AutotuneCache(os.path.join(tmp, "tune.json"))
+        out["autotune"] = {}
+        for n in ("email-Enron-full", "cage11"):
+            A = mats[n]
+            t0 = time.perf_counter()
+            p = dp.plan(A, A, autotune=True, cache=tune)
+            sweep_s = time.perf_counter() - t0
+            timings = tune.get(p.cache_key)["timings"]
+            bad = [c for c in timings if dp.split_combo(c)[0] in
+                   ("spz", "spz-rsort") and not c.endswith("|cuda")]
+            if p.source != "autotune" or bad:
+                raise AssertionError(f"autotune {n}: source {p.source}, "
+                                     f"candidates off the card {bad}")
+            again = dp.plan(A, A, autotune=True, cache=tune)
+            if (again.source, again.engine, again.backend) != (
+                    "cache", p.engine, p.backend):
+                raise AssertionError(f"autotune {n}: second plan "
+                                     f"{again.source} {again.engine}")
+            out["autotune"][n] = dict(winner=f"{p.engine}|{p.backend or ''}",
+                                      sweep_s=sweep_s,
+                                      timings_ms={c: t * 1e3 for c, t in
+                                                  timings.items()})
+            log(f"dispatch: autotune {n} -> {p.engine}/{p.backend} in "
+                f"{sweep_s:.1f} s | ms per candidate " + ", ".join(
+                    f"{c}={t * 1e3:.2f}" for c, t in timings.items())
+                + " | second plan from the cache")
+
+        # 3. batched
+        cache = dp.AutotuneCache(os.path.join(tmp, "batched.json"))
+        full = batch_csr([mats[n] for n in FULL_BATCH], batch_cap=4).to("cuda")
+        singles = {}
+        for engine in ("spz", "spz-rsort", "esc"):
+            kb.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = dp.spgemm_batched(full, full, engine, cache=cache)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            counts = {k: v for k, v in kb.launch_counts().items() if v}
+            ms = _warm_ms(torch, lambda: dp.spgemm_batched(
+                full, full, engine, cache=cache), reps=2)
+            if res.valid.tolist() != [True] * 3 + [False] or \
+                    int(res[3].indptr[-1]) != 0:
+                raise AssertionError(f"batched {engine}: padding lane "
+                                     f"{res.valid.tolist()}")
+            for i, n in enumerate(FULL_BATCH):
+                single = fused[n][0] if engine == "spz" else csr_to_numpy(
+                    spgemm(mats[n], mats[n], engine=engine))
+                if not _csr_equal(np, csr_to_numpy(res[i]), single):
+                    raise AssertionError(f"batched {engine}: lane {i} ({n}) "
+                                         f"differs from the single call")
+                singles[engine, n] = single
+            if engine.startswith("spz") and not (
+                    counts.get("fused_bucket.expand", 0)
+                    and counts.get("fused_bucket.large", 0)):
+                raise AssertionError(f"batched {engine}: routes {counts}")
+            out["batched"][f"full {engine}"] = dict(ms=ms, first_ms=first_ms,
+                                                    launches=counts)
+            log(f"dispatch: batched full-size {engine}: {ms:.1f} ms per warm "
+                f"call (first {first_ms:.1f}) | every lane bit-identical to "
+                f"its single call, padding lane invalid | launches {counts}")
+        t0 = time.perf_counter()
+        plain = dp.spgemm_batched(full, full, "spz", backend="torch",
+                                  cache=cache)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        for i, n in enumerate(FULL_BATCH):
+            if not _csr_equal(np, csr_to_numpy(plain[i]), singles["spz", n]):
+                raise AssertionError(f"batched spz: backend='torch' lane {i}"
+                                     f" ({n}) differs from cuda")
+        out["batched"]["full spz torch"] = dict(ms=plain_ms)
+        log(f"dispatch: batched full-size spz backend='torch' "
+            f"{plain_ms:.0f} ms: bit-identical to cuda on every lane")
+        host = batch_csr([mats[n] for n in HOST_BATCH]).to("cuda")
+        kb.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = dp.spgemm_batched(host, host, "spz-host", cache=cache)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: v for k, v in kb.launch_counts().items() if v}
+        for i, n in enumerate(HOST_BATCH):
+            if not _csr_equal(np, csr_to_numpy(res[i]), fused[n][0]):
+                raise AssertionError(f"batched spz-host: lane {i} ({n}) "
+                                     f"differs from spz")
+        if not counts.get("stream_sort") or not counts.get(
+                "stream_merge.pointer"):
+            raise AssertionError(f"batched spz-host: launches {counts}")
+        out["batched"]["stand-ins spz-host"] = dict(ms=ms, launches=counts)
+        log(f"dispatch: batched stand-ins spz-host ({len(HOST_BATCH)} lanes) "
+            f"{ms:.1f} ms | every lane bit-identical to spz | launches "
+            f"{counts}")
+
+        # 4. execute_resilient
+        res_cache = dp.AutotuneCache(os.path.join(tmp, "resilient.json"))
+        A = mats["email-Enron-full"]
+        p = dp.plan(A, A, cache=res_cache)
+        got, report = dp.execute_resilient(p, A, A, cache=res_cache)
+        if report.tier_label != "planned":
+            raise AssertionError(f"resilient: {report.tier_label}")
+        want = csr_to_numpy(got)
+        kb.reset_launch_counts()
+        t0 = time.perf_counter()
+        with fi.injected(fi.FaultSpec(site="dispatch.execute",
+                                      match={"engine": p.engine})):
+            got, report = dp.execute_resilient(
+                p, A, A, cache=res_cache,
+                policy=dp.RetryPolicy(sleep=lambda s: None))
+        torch.cuda.synchronize()
+        degraded_ms = (time.perf_counter() - t0) * 1e3
+        expand = kb.launch_counts()["fused_bucket.expand"]
+        if report.tier_label != "degraded:spz-fused/cuda" or not \
+                res_cache.is_quarantined(p.cache_key, p.engine, p.backend) \
+                or not _csr_equal(np, csr_to_numpy(got), want) \
+                or not expand:
+            raise AssertionError(
+                f"resilient: {report.tier_label}, {expand} K3 expand "
+                f"launches, quarantined {res_cache.quarantined(p.cache_key)}")
+        out["resilient_ms"] = degraded_ms
+        log(f"dispatch: resilient email-Enron-full planned {p.engine}/"
+            f"{p.backend}; under a fault at dispatch.execute: "
+            f"{report.tier_label} after {report.attempts} attempts in "
+            f"{degraded_ms:.0f} ms ({expand} K3 expand launches), same "
+            f"CSR, {p.engine}/{p.backend} quarantined")
+        p = dp.fallback_plan(p, "spz-fused", "cuda")
+        launch_fault = fi.FaultSpec(
+            site="dispatch.execute", match={"engine": "spz-fused"},
+            exc_factory=lambda site, ctx: _build.KernelLaunchError(
+                f"{site}: injected launch error"))
+        try:
+            with fi.injected(launch_fault):
+                dp.execute_resilient(p, A, A, cache=res_cache)
+        except _build.KernelLaunchError:
+            pass
+        else:
+            raise AssertionError("resilient: a kernel launch error was "
+                                 "served by a lower tier")
+        if launch_fault.fires != 1:
+            raise AssertionError(f"resilient: the launch error fired "
+                                 f"{launch_fault.fires} times")
+        log("dispatch: resilient, a kernel launch error in the planned "
+            "tier raised at once (1 attempt, no tier below)")
+    finally:
+        dp._default_cache = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
 
 
 def _count_waits(torch, fn):
@@ -1737,6 +2015,8 @@ def main() -> int:
               ("host", lambda: phase_host(torch, np, res["inputs"][0],
                                           res["spgemm"][1])),
               ("engines", lambda: phase_engines(torch, np, *res["inputs"])),
+              ("dispatch", lambda: phase_dispatch(torch, np, res["inputs"][0],
+                                                  res["spgemm"][1])),
               ("serve", lambda: phase_serve(torch, np)),
               ("profile", lambda: phase_profile(torch, np, res["serve"])),
               ("moe", lambda: phase_moe(torch, np, res["serve"])))

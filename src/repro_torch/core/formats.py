@@ -150,6 +150,113 @@ class CSR:
         return out.index_put_((r, c), v, accumulate=True)
 
 
+@dataclasses.dataclass
+class BatchedCSR:
+    """A batch of same-shape CSR matrices with one shared static capacity.
+
+    All lanes share ``shape`` and ``nnz_cap``, so the whole batch is three
+    dense tensors (on one device) — the layout the batched SpGEMM drivers
+    run on:
+
+      ``indptr``  (batch, n_rows+1) int32
+      ``indices`` (batch, nnz_cap)  int32, padding = EMPTY
+      ``data``    (batch, nnz_cap)  float32, padding = 0
+      ``valid``   (batch,)          bool — lane validity mask; padding lanes
+                  (added to round a ragged batch up to a fixed batch size)
+                  hold empty matrices and must be ignored by consumers.
+    """
+
+    indptr: torch.Tensor
+    indices: torch.Tensor
+    data: torch.Tensor
+    valid: torch.Tensor
+    shape: Tuple[int, int]
+
+    @property
+    def batch(self) -> int:
+        return int(self.indptr.shape[0])
+
+    @property
+    def n_rows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def n_cols(self) -> int:
+        return self.shape[1]
+
+    @property
+    def nnz_cap(self) -> int:
+        return int(self.indices.shape[1])
+
+    @property
+    def n_valid(self) -> int:
+        return int(self.valid.sum())
+
+    @property
+    def device(self) -> torch.device:
+        return self.indices.device
+
+    def __len__(self) -> int:
+        return self.batch
+
+    def __getitem__(self, i: int) -> CSR:
+        """Extract lane ``i`` as a standalone CSR (shared capacity kept)."""
+        return CSR(self.indptr[i], self.indices[i], self.data[i], self.shape)
+
+    def lanes(self):
+        """Iterate (index, CSR) over valid lanes only."""
+        valid = _host(self.valid)
+        for i in range(self.batch):
+            if valid[i]:
+                yield i, self[i]
+
+    def to(self, device) -> "BatchedCSR":
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        return BatchedCSR(self.indptr.to(device), self.indices.to(device),
+                          self.data.to(device), self.valid.to(device),
+                          self.shape)
+
+
+def batch_csr(mats, nnz_cap: int | None = None,
+              batch_cap: int | None = None) -> BatchedCSR:
+    """Stack same-shape CSR matrices into a BatchedCSR on their device.
+
+    ``nnz_cap``/``batch_cap`` pad capacity/lane-count up to fixed sizes so
+    ragged request batches reuse one launch geometry; defaults are the
+    batch maxima (no padding lanes)."""
+    if not mats:
+        raise ValueError("batch_csr needs at least one matrix")
+    shape = mats[0].shape
+    for m in mats:
+        if m.shape != shape:
+            raise ValueError(f"shape mismatch in batch: {m.shape} != {shape}")
+    nnzs = [int(m.indptr[-1]) for m in mats]
+    cap = nnz_cap if nnz_cap is not None else max(max(nnzs), 1)
+    if cap < max(nnzs):
+        raise ValueError(f"nnz_cap {cap} < batch max nnz {max(nnzs)}")
+    bcap = batch_cap if batch_cap is not None else len(mats)
+    if bcap < len(mats):
+        raise ValueError(f"batch_cap {bcap} < batch size {len(mats)}")
+    dev = mats[0].device
+    indptr = torch.zeros((bcap, shape[0] + 1), dtype=torch.int32, device=dev)
+    indices = torch.full((bcap, cap), EMPTY, dtype=torch.int32, device=dev)
+    data = torch.zeros((bcap, cap), dtype=torch.float32, device=dev)
+    valid = torch.zeros(bcap, dtype=torch.bool, device=dev)
+    for i, m in enumerate(mats):
+        indptr[i] = m.indptr.to(dev)
+        indices[i, :nnzs[i]] = m.indices[:nnzs[i]].to(dev)
+        data[i, :nnzs[i]] = m.data[:nnzs[i]].to(dev)
+    valid[:len(mats)] = True
+    return BatchedCSR(indptr, indices, data, valid, shape)
+
+
+def unbatch_csr(b: BatchedCSR):
+    """Valid lanes of a BatchedCSR as a list of CSR matrices."""
+    return [m for _, m in b.lanes()]
+
+
 def row_ids_from_indptr(indptr: torch.Tensor, cap: int) -> torch.Tensor:
     """Expand CSR indptr into per-entry row ids (length ``cap``)."""
     n_rows = indptr.shape[0] - 1

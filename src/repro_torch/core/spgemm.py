@@ -226,8 +226,8 @@ def spgemm_esc(A: CSR, B: CSR, cap_products: int | None = None, *,
                                       B.indptr, B.indices, B.data,
                                       cap_products, A.n_rows, B.n_cols)
     # the valid slots are sorted by (row, col) and unique
-    return _sorted_coo_to_csr(r[valid], c[valid], v[valid],
-                              (A.n_rows, B.n_cols))
+    return sorted_coo_to_csr(r[valid], c[valid], v[valid],
+                             (A.n_rows, B.n_cols))
 
 
 # ---------------------------------------------------------------------------
@@ -309,9 +309,9 @@ def sort_phase(products, R, S, backend, stats: SpzStats, cap_s=None,
         return a.reshape(S, n_chunks, R).transpose(1, 0, 2).reshape(-1)
 
     n = n_chunks * S * R
-    buf = _to_device(np.concatenate([chunk_major(K),
-                                     chunk_major(V.view(np.int32)),
-                                     lens.reshape(-1)]), device)
+    buf = to_device(np.concatenate([chunk_major(K),
+                                    chunk_major(V.view(np.int32)),
+                                    lens.reshape(-1)]), device)
     keys = buf[:n].view(n_chunks, S, R)
     vals = buf[n:2 * n].view(torch.float32).view(n_chunks, S, R)
     lens_d = buf[2 * n:].view(n_chunks, S)
@@ -407,8 +407,9 @@ def _spz_host_driver(A, B, R, S, order, backend, stats, device):
     """The paper-faithful lock-step driver: one kernel issue per chunk.
     Expansion runs on the host (``t_expand``); each group's products go
     to the card once and its partitions stay there.  Returns the groups'
-    (row ids, keys, vals, lens) for :func:`_coo_parts_to_csr`; the device
-    counters are read once, at the end."""
+    (row ids, lane ids (all 0), keys, vals, lens) for
+    :func:`coo_parts_to_lanes`; the device counters are read once, at the
+    end."""
     a_indptr, a_idx, a_val = csr_to_numpy(A)
     b_indptr, b_idx, b_val = csr_to_numpy(B)
     coo: list = []
@@ -426,8 +427,8 @@ def _spz_host_driver(A, B, R, S, order, backend, stats, device):
         acc = torch.zeros((3, len(rows)), dtype=torch.int64, device=device)
         final = merge_tree_host(parts, R, backend, stats, acc)
         if final is not None:
-            row_ids = _to_device(np.asarray(rows, np.int64), device)
-            coo.append((row_ids, *final[:3]))
+            row_ids = to_device(np.asarray(rows, np.int64), device)
+            coo.append((row_ids, torch.zeros_like(row_ids), *final[:3]))
             totals += acc.sum(1)
         stats.t_sort += time.perf_counter() - t2
     zip_elems, tails, worked = totals.tolist()
@@ -460,7 +461,7 @@ def _pow2_chunks(max_plen: int, R: int) -> int:
     return 1 << max(0, q - 1).bit_length()
 
 
-def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host array to ``device`` without waiting for the card: pinned
     staging makes the copy asynchronous."""
     t = torch.from_numpy(a)
@@ -475,10 +476,10 @@ def fused_process_group(items, plens, mats, R, backend, stats: SpzStats,
 
     items: [(lane, row)] output rows of the group; plens: per-item product
     counts (host); mats: six (batch, ...) stacked CSR arrays on the
-    device.  Each bucket's padded (row_ids, keys, vals, lens) is appended
-    to ``coo`` for one assembly per call.  ``geometry``: a function that
-    returns the matrices' ``_expand_geometry``, called only for a bucket
-    on the large route.
+    device.  Each bucket's padded (row_ids, lane_ids, keys, vals, lens)
+    is appended to ``coo`` for one assembly per call.  ``geometry``: a
+    function that returns the matrices' ``_expand_geometry``, called only
+    for a bucket on the large route.
 
     Streams are bucketed by their own pow2 chunk count so a skewed group
     does not pad every stream to the group-max width.  The payload per
@@ -517,7 +518,7 @@ def fused_process_group(items, plens, mats, R, backend, stats: SpzStats,
             lane_ids[at + t], row_ids[at + t] = items[ix]
         at += Nb
     # one host-to-device copy per group: row ids, lane ids
-    ids = _to_device(np.concatenate([row_ids, lane_ids]), device)
+    ids = to_device(np.concatenate([row_ids, lane_ids]), device)
     n = len(row_ids)
     acc, steps_acc, zip_acc, tails_acc = accumulators(max(buckets), device)
     at = 0
@@ -533,7 +534,7 @@ def fused_process_group(items, plens, mats, R, backend, stats: SpzStats,
                 rows, lanes, *mats, R=R, L=C_b * R, backend=backend,
                 geometry=geometry() if geometry else None)
             reduce_rounds(rounds, steps_acc, zip_acc, tails_acc)
-        coo.append((rows, mk, mv, ml))
+        coo.append((rows, lanes, mk, mv, ml))
     return acc.view(4, -1).sum(1)
 
 
@@ -544,6 +545,19 @@ def _group_cap(Sg: int, S: int) -> int:
     return min(S, 1 << max(0, Sg - 1).bit_length())
 
 
+def geometry_once(mats):
+    """A function that returns the ``_expand_geometry`` of the stacked
+    CSR arrays ``mats``, computed at its first call (once per driver
+    call, and only when a bucket takes the large route)."""
+    memo = []
+
+    def geometry():
+        if not memo:
+            memo.append(_expand_geometry(mats[0], mats[1], mats[3]))
+        return memo[0]
+    return geometry
+
+
 def _spz_fused_driver(A, B, R, S, order, work, backend, stats):
     """Device-resident driver: per lock-step group, the work-bucketed
     expand/sort/merge-tree pipelines run on the device with no host wait;
@@ -551,13 +565,7 @@ def _spz_fused_driver(A, B, R, S, order, work, backend, stats):
     coo: list = []
     mats = (A.indptr[None], A.indices[None], A.data[None],
             B.indptr[None], B.indices[None], B.data[None])
-    memo = []
-
-    def geometry():  # once per call, and only for a large-route bucket
-        if not memo:
-            memo.append(_expand_geometry(mats[0], mats[1], mats[3]))
-        return memo[0]
-
+    geometry = geometry_once(mats)
     totals = torch.zeros(4, dtype=torch.int64, device=A.device)
     t1 = time.perf_counter()
     for g0 in range(0, A.n_rows, S):
@@ -577,34 +585,59 @@ def _spz_fused_driver(A, B, R, S, order, work, backend, stats):
     return coo
 
 
-def _coo_parts_to_csr(coo, shape, device) -> CSR:
-    """Assemble the spz drivers' padded (row ids, keys, vals, lens) parts
-    into the output CSR on ``device``, dropping exact zeros like the
-    scalar engines.
-
-    Every output row is one stream of one bucket and its columns are
-    ascending and unique, so a stable sort by row gives the (row, col)
-    order, and the values are the products' sums unchanged — the CSR
-    ``csr_from_coo`` builds from the same triples, without the host trip."""
-    if not coo:
-        return csr_from_coo([], [], [], shape).to(device)
-    rows, cols, vals, keep = [], [], [], []
-    for row_ids, mk, mv, ml in coo:
+def _kept_triples(coo, device, n_rows):
+    """Flatten the spz drivers' padded (row ids, lane ids, keys, vals,
+    lens) parts into the kept (key, col, val) triples: a stream's first
+    ``lens`` slots, exact zeros dropped like the scalar engines do.  The
+    key is ``lane * n_rows + row``."""
+    keys, cols, vals, keep = [], [], [], []
+    for row_ids, lane_ids, mk, mv, ml in coo:
         N, L = mk.shape
-        rows.append(row_ids[:, None].expand(N, L).reshape(-1))
+        key = lane_ids * n_rows + row_ids
+        keys.append(key[:, None].expand(N, L).reshape(-1))
         cols.append(mk.reshape(-1))
         vals.append(mv.reshape(-1))
         valid = torch.arange(L, device=device)[None, :] < ml[:, None]
         keep.append((valid & (mv != 0.0)).reshape(-1))
     keep = torch.cat(keep)
-    rows = torch.cat(rows)[keep]
-    cols = torch.cat(cols)[keep]
-    vals = torch.cat(vals)[keep]
-    rows, order = torch.sort(rows, stable=True)
-    return _sorted_coo_to_csr(rows, cols[order], vals[order], shape)
+    return torch.cat(keys)[keep], torch.cat(cols)[keep], torch.cat(vals)[keep]
 
 
-def _sorted_coo_to_csr(rows, cols, vals, shape) -> CSR:
+def coo_parts_to_lanes(coo, lanes, shape, device) -> dict:
+    """Assemble the spz drivers' parts into one CSR per lane of ``lanes``
+    on ``device`` (a single matrix is lane 0).
+
+    Every output row of a lane is one stream of one bucket and its
+    columns are ascending and unique, so one stable sort of the whole
+    call's output by ``lane * n_rows + row`` gives each lane's (row, col)
+    order, and the values are the products' sums unchanged — the CSR
+    ``csr_from_coo`` builds from the same triples, without the host trip.
+    Each lane is a slice of the sorted triples, its bounds read from the
+    device in one transfer (none for one lane: every part is that lane's).
+    Returns {lane: CSR}."""
+    n_rows = shape[0]
+    if not coo:
+        empty = csr_from_coo([], [], [], shape).to(device)
+        return {ln: empty for ln in lanes}
+    keys, cols, vals = _kept_triples(coo, device, n_rows)
+    keys, order = torch.sort(keys, stable=True)
+    cols, vals = cols[order], vals[order]
+    if len(lanes) == 1:
+        bounds = [0, keys.numel()]
+    else:
+        starts = torch.tensor([ln * n_rows for ln in lanes],
+                              dtype=keys.dtype, device=device)
+        bounds = torch.searchsorted(
+            keys, torch.cat([starts, starts + n_rows])).tolist()
+    out = {}
+    for i, ln in enumerate(lanes):
+        a, b = bounds[i], bounds[len(lanes) + i]
+        out[ln] = sorted_coo_to_csr(keys[a:b] - ln * n_rows, cols[a:b],
+                                    vals[a:b], shape)
+    return out
+
+
+def sorted_coo_to_csr(rows, cols, vals, shape) -> CSR:
     """The CSR ``csr_from_coo`` builds from unique triples sorted by
     (row, col), assembled on their device."""
     device = rows.device
@@ -659,7 +692,7 @@ def spgemm_spz(A: CSR, B: CSR, *, R: int = 16, S: int | None = None,
         coo = _spz_fused_driver(A.to(device), B.to(device), R, S, order,
                                 work, bk, stats)
     t3 = time.perf_counter()
-    out = _coo_parts_to_csr(coo, shape, device)
+    out = coo_parts_to_lanes(coo, [0], shape, device)[0]
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     stats.t_output = time.perf_counter() - t3

@@ -9,10 +9,11 @@ keyed on a hash of every source and the compiler flags, so an edited
 source triggers a rebuild and an unchanged one is reused.
 
 Every C entry point returns ``cudaGetLastError()`` (or the error of the
-shared-memory attribute call before it); :func:`check` raises on any
-non-zero code, so a launch the card refuses never passes silently.  A
-missing ``nvcc`` or a failed build raises too: nothing here falls back
-to the plain versions.
+shared-memory attribute call before it); :func:`check` raises
+:class:`KernelLaunchError` on any non-zero code, so a launch the card
+refuses never passes silently.  A missing ``nvcc`` or a failed build
+raises :class:`KernelBuildError`: nothing here falls back to the plain
+versions.
 """
 from __future__ import annotations
 
@@ -72,6 +73,10 @@ SIGNATURES = {
 
 class KernelBuildError(RuntimeError):
     """nvcc is missing, or a kernel source failed to compile."""
+
+
+class KernelLaunchError(RuntimeError):
+    """The card refused a kernel launch, or a kernel faulted."""
 
 
 class _Libraries:
@@ -194,4 +199,4 @@ def stream_of(t) -> int:
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.zipper_error_string(err).decode()
-        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+        raise KernelLaunchError(f"{what}: CUDA error {err} ({msg})")

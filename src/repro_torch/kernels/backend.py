@@ -23,7 +23,8 @@ primitives the fused spz pipeline runs —
   ``cuda``   the hand-written kernels (``csrc/*.cu``); CUDA tensors only
 
 ``"auto"`` resolves to ``cuda`` for a CUDA device and ``torch`` for the
-CPU.  Asking for ``cuda`` on the CPU raises.  Both backends are
+CPU, and :func:`measurable_backends` names the one an autotune sweep
+times on each.  Asking for ``cuda`` on the CPU raises.  Both backends are
 bit-compatible: same keys, values, lengths and counters on the same
 inputs.
 """
@@ -34,6 +35,7 @@ from typing import Callable, Optional, Union
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import chunk_sort as _k1
 from repro_torch.kernels import flash_attention as _k6
 from repro_torch.kernels import fused_bucket as _k3
@@ -106,6 +108,31 @@ def resolve_backend(backend: Union[str, KernelBackend] = "auto",
 def available_backends() -> dict[str, KernelBackend]:
     """Snapshot of the registry (name -> backend)."""
     return dict(_BACKENDS)
+
+
+def measurable_backends(device: Union[str, torch.device] = "cpu",
+                        ) -> list[KernelBackend]:
+    """Backends worth timing on ``device`` — the autotune sweep space.
+    On a CUDA device only the backends bound to it (``cuda``): the plain
+    ``torch`` tier repeats the kernels' arithmetic and is no yardstick
+    of speed, so it never takes part in a sweep where a card is.  On the
+    CPU the backends that run anywhere (``torch``)."""
+    want = "cuda" if torch.device(device).type == "cuda" else None
+    return [bk for bk in _BACKENDS.values() if bk.device_type == want]
+
+
+def load() -> None:
+    """Build (if this source hash is not built yet) and load every kernel
+    library, so that a timed call after it does not time ``nvcc``."""
+    _build.LIBS.get("fused_bucket")  # the first get loads all of them
+
+
+# a kernel that did not build, a launch the card refused, or a fault the
+# card reported: none of them is cured by running the same work again on
+# another engine of the same card
+KERNEL_ERRORS: tuple = tuple(
+    e for e in (_build.KernelBuildError, _build.KernelLaunchError,
+                getattr(torch, "AcceleratorError", None)) if e is not None)
 
 
 # the kernel wrappers, by kernel name, whose ``launches`` count launches

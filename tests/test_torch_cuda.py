@@ -386,6 +386,107 @@ def test_fused_expand_bucket_rejects_what_it_cannot_take(card):
                             steps_acc=steps, zip_acc=zips, tails_acc=tails)
 
 
+@pytest.mark.parametrize("L,R", [(64, 16), (1024, 16), (8192, 16),
+                                 (256, 4)])
+def test_fused_expand_bucket_many_lanes(card, L, R):
+    """The expand entry on four stacked lanes, their streams interleaved
+    in one bucket (lane ids 0..3 in turn), lane 3 a padding lane (empty
+    CSR) and two padding streams, equals its plain composition bit for
+    bit: keys, values, lengths and the group accumulators."""
+    rng = np.random.default_rng(L + R)
+    arrays = _expand_case(rng, L, Bn=4)
+    # lane 3 of A: no entries, EMPTY/0 padding
+    arrays[0][3], arrays[1][3], arrays[2][3] = 0, EMPTY, 0.0
+    mats = _on(card, *arrays)
+    S = 16
+    rows = rng.integers(0, 12, S)
+    rows[[5, 11]] = -1
+    lanes = np.arange(S) % 4
+    ids = _on(card, rows.astype(np.int64), lanes.astype(np.int64))
+    Cg = L // R
+    accs, outs = [], []
+    for fn in (fused_expand_bucket, fused_expand_bucket_plain):
+        buf, steps, zips, tails = accumulators(Cg, card)
+        accs.append(buf)
+        outs.append(fn(*ids, *mats, R=R, L=L, steps_acc=steps, zip_acc=zips,
+                       tails_acc=tails))
+    for w, g in zip(outs[1], outs[0]):
+        _eq(w, g)
+    _eq(accs[1], accs[0])
+    lens = outs[0][2].cpu().numpy()
+    assert (lens[lanes == 3] == 0).all() and lens[5] == lens[11] == 0
+    assert (lens[(lanes < 3) & (rows >= 0)] > 0).all()
+
+
+def _hub_lanes():
+    """A 512 x 512 lane with a 512-nnz hub row (A·A row 0: ~10K
+    products, a bucket of L = 16,384 on the large route) and a uniform
+    lane."""
+    from repro_torch.core.formats import csr_from_coo
+    base = random_sparse(512, 512, 0.04, seed=31)
+    indptr, cols, vals = csr_to_numpy(base)
+    rows = np.repeat(np.arange(512), np.diff(indptr))
+    keep = rows != 0
+    rng = np.random.default_rng(32)
+    hub = csr_from_coo(
+        np.concatenate([np.zeros(512, np.int64), rows[keep]]),
+        np.concatenate([np.arange(512), cols[keep]]),
+        np.concatenate([rng.standard_normal(512).astype(np.float32),
+                        vals[keep]]), (512, 512))
+    return [hub, random_sparse(512, 512, 0.03, seed=33)]
+
+
+@pytest.mark.parametrize("engine", ["spz", "spz-rsort", "spz-host"])
+def test_spgemm_batched_cuda_matches_torch(card, engine, tmp_path):
+    """A batch with a lane on the large route and a padding lane: the
+    cuda backend equals the torch backend on the card and each lane's
+    single-matrix call, bit for bit; the fused drivers launch K3's
+    expand entry for the lanes' buckets and K1 + K2 for the hub row's."""
+    from repro_torch.core import dispatch as dp
+    from repro_torch.core.formats import batch_csr
+    mats = _hub_lanes()
+    b = batch_csr(mats, batch_cap=3).to(card)
+    cache = dp.AutotuneCache(str(tmp_path / "a.json"))
+    kb.reset_launch_counts()
+    out = dp.spgemm_batched(b, b, engine, cache=cache)
+    counts = kb.launch_counts()
+    ref = dp.spgemm_batched(b, b, engine, backend="torch", cache=cache)
+    assert out.valid.tolist() == ref.valid.tolist() == [True, True, False]
+    for f in ("indptr", "indices", "data"):
+        _eq(getattr(ref, f), getattr(out, f))
+    for i, m in enumerate(mats):
+        single = spgemm(m, m, engine=engine)
+        for w, g in zip(csr_to_numpy(single), csr_to_numpy(out[i])):
+            np.testing.assert_array_equal(w, g)
+    if engine == "spz-host":
+        assert counts["stream_sort"] > 0 and counts["stream_merge"] > 0
+    else:
+        assert counts["fused_bucket.expand"] > 0
+        assert counts["fused_bucket.large"] == 1
+        assert counts["chunk_sort"] == 1 and counts["merge_partitions"] > 0
+
+
+def test_auto_on_the_card(card, tmp_path):
+    """``spgemm(A, A)`` with no engine equals the engine it selects; an
+    autotune sweep on the card measures only the cuda backend and a
+    second plan replays it from the cache."""
+    from repro_torch.core import dispatch as dp
+    A = random_sparse(700, 700, 0.01, seed=5, pattern="powerlaw")
+    cache = dp.AutotuneCache(str(tmp_path / "a.json"))
+    p = dp.plan(A, A, cache=cache)
+    assert p.kwargs_dict["device"].type == "cuda"
+    for w, g in zip(csr_to_numpy(spgemm(A, A, engine=p.engine)),
+                    csr_to_numpy(spgemm(A, A, cache=cache))):
+        np.testing.assert_array_equal(w, g)
+    tuned = dp.plan(A, A, autotune=True, cache=cache)
+    timings = cache.get(tuned.cache_key)["timings"]
+    assert tuned.source == "autotune" and tuned.backend in (None, "cuda")
+    assert not [c for c in timings if c.endswith("|torch")]
+    assert "spz|cuda" in timings and "spz-rsort|cuda" in timings
+    again = dp.plan(A, A, cache=cache)
+    assert again.source == "cache" and again.engine == tuned.engine
+
+
 @pytest.mark.parametrize("n,density,pattern", [(700, 0.02, "powerlaw"),
                                                (1536, 1.5e-3, "uniform"),
                                                (600, 0.01, "banded")])
