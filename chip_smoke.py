@@ -53,6 +53,20 @@ drives the port's main path on one card:
            ladder, with K3 launched, the CSR unchanged, the combo
            quarantined; an injected kernel launch error raised, not
            degraded)
+  service  the in-process SpGEMM service (``serving/spgemm_service.py``
+           through ``distributed/spgemm_shard.py``), counters zeroed
+           before and read after each path: the CLI's own 200 requests
+           (``launch/serve_spgemm.py --warm --async-flushes 2 --verify``:
+           availability 1.0, every result bit for bit its flush engine's
+           single call, steady plan hit rate >= 0.9, warm hits, every
+           flush on the caller's stream); a full-size bucket of 8
+           requests alternating cage11-full and hub-full at max_batch 4
+           under ``spz`` (K3's expand launches exactly the batch's
+           bucketing, hub-full's large buckets on K1 + K2, the flush's
+           SpzStats ``execute_batched``'s; one flush profiled) and
+           ``auto``, every lane its single call; spz-host on six
+           stand-ins (K4, K5); chaos (availability, card tiers only) and
+           an injected ``KernelLaunchError`` raised out of ``drain``
   attention  K6 flash attention on the sweep of tests/test_kernels_attn.py
            (float32 on the fma route, bf16 on the wgmma route, each
            route's counter checked) and at TinyLlama's prefill shapes
@@ -100,7 +114,8 @@ drives the port's main path on one card:
            after: K6 once per layer on the wgmma route, K7 three times
            per layer per forward pass in the counts layout, nothing else;
            one profiled generate
-  kernels  every ported kernel and its launches on its path's run
+  kernels  every ported kernel and its launches on its path's run, and
+           on the service path's (``service_launches``)
 
 It imports nothing of JAX.  The launch floor, the JSON kernel table and
 the card's name and power limit are on the lines before the last; the last line is
@@ -667,9 +682,16 @@ def _bucket_counts(np, A, R=16, S=512):
     in order, a bucket per distinct pow2 chunk count), by route: (on K3's
     expand entry, large)."""
     from repro_torch.core import spgemm_engines as sg
+
+    return _work_buckets(sg.row_work(A, A), R, S)
+
+
+def _work_buckets(work, R=16, S=512):
+    """(on K3's expand entry, large) buckets of the spz fused driver over
+    the rows whose product counts are ``work``, in order: a single call's
+    rows, or a batch's valid lanes' rows one lane after another."""
     from repro_torch.kernels.fused_bucket import fused_config
 
-    work = sg.row_work(A, A)
     fused = large = 0
     for g0 in range(0, len(work), S):
         for C in {1 << max(0, -(-int(w) // R) - 1).bit_length()
@@ -1109,6 +1131,318 @@ def phase_dispatch(torch, np, mats, fused):
     finally:
         dp._default_cache = saved
         shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+SERVICE_FULL = ("cage11-full", "hub-full")   # one pad bucket of 2^20 nnz
+CARD_TIERS = ("planned", "degraded:spz-fused/cuda", "degraded:esc",
+              "isolated")
+
+
+def _service_counts(kb):
+    return {k: v for k, v in kb.launch_counts().items() if v}
+
+
+def _add_counts(total, part):
+    for k, v in part.items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase_service(torch, np, mats, fused):
+    """The in-process SpGEMM service on the card (one card: every flush
+    on cuda:0, the caller's stream), each path's launch counters zeroed
+    before and read after it, the checks run after the read:
+
+    1. the CLI's own traffic, ``serve_spgemm.run(["--requests", "200",
+       "--warm", "--async-flushes", "2", "--verify", ...])``: every
+       request resolves (availability 1.0), every result bit for bit
+       ``spgemm(A, B, engine=<its flush's engine>)`` alone on the card,
+       the steady plan hit rate >= 0.9, warm hits, no flush isolated or
+       degraded; every flush and warm ran on the caller's stream
+       (``torch.cuda.current_stream()`` read on the flush threads);
+    2. a full-size bucket: 8 requests alternating cage11-full and
+       hub-full (one pad bucket of 2^20 nnz) through
+       ``SpGemmService(max_batch=4)``, with ``engine="spz"`` and then
+       ``"auto"``: every lane its single call's CSR; under spz K3's
+       expand entry launched exactly as the batch's bucketing gives
+       (beside the singles' sum: groups straddle lane boundaries),
+       hub-full's large buckets on K1 + K2, the flush's SpzStats those
+       of ``execute_batched`` on the same plan, sort_elems and
+       zip_elems the singles' sums; one flush profiled (idle share);
+    3. spz-host on the six 1,024-row stand-ins: K4 and K5 launched;
+    4. chaos: ``--inject-rate 0.1 --kill-worker 0 --chaos-seed 0`` on 100
+       requests: every id resolves, every tier a card tier; every esc
+       launch failing degrades to ``spz-fused/cuda``, every batched launch
+       failing isolates each request on ``esc`` on the card; and an
+       injected ``KernelLaunchError`` at the batched kernel launch raises
+       out of ``drain`` (inline and async), nothing degraded or
+       dead-lettered.
+    Returns the service path's launch counts and its numbers."""
+    import shutil
+    import tempfile
+    import threading
+
+    from repro_torch.core import dispatch as dp
+    from repro_torch.core import spgemm
+    from repro_torch.core import spgemm_engines as sg
+    from repro_torch.core.formats import batch_csr, csr_to_numpy
+    from repro_torch.distributed import spgemm_shard as shard
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import backend as kb
+    from repro_torch.launch import serve_spgemm as cli
+    from repro_torch.runtime import faultinject as fi
+    from repro_torch.serving import spgemm_service as svc
+
+    out = {"counts": {}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_service_")
+    caller = torch.cuda.current_stream()
+    streams = []
+    execute_sharded = shard.execute_sharded
+
+    def on_stream(*a, **kw):
+        streams.append((threading.current_thread().name,
+                        torch.cuda.current_stream()))
+        return execute_sharded(*a, **kw)
+
+    try:
+        # 1. the CLI's traffic, warm and async
+        dp.reset_warm_stats()
+        shard.execute_sharded = on_stream
+        kb.reset_launch_counts()
+        try:
+            res = cli.run(["--requests", "200", "--warm", "--async-flushes",
+                           "2", "--verify", "--cache",
+                           os.path.join(tmp, "cli.json")])
+        finally:
+            shard.execute_sharded = execute_sharded
+        part = _service_counts(kb)
+        _add_counts(out["counts"], part)
+        service, steady = res["service"], res["steady"]
+        if res["all"]["n_requests"] != 200 or \
+                res["all"].get("availability") != 1.0 or \
+                service.dead_letters:
+            raise AssertionError(f"service cli: {res['all']}")
+        tiers = {f.tier for f in service.flush_log}
+        if tiers != {"planned"}:
+            raise AssertionError(f"service cli: tiers {tiers}")
+        if steady["plan_hit_rate"] < 0.9 or not steady["warm_hit_rate"] \
+                or not dp.warm_stats()["hits"]:
+            raise AssertionError(f"service cli: plan hit rate "
+                                 f"{steady['plan_hit_rate']}, warm hit rate "
+                                 f"{steady['warm_hit_rate']}, warm stats "
+                                 f"{dp.warm_stats()}")
+        flush_threads = {n for n, _ in streams if n.startswith("spgemm-flush")}
+        off = [n for n, st in streams if st != caller]
+        if off or not flush_threads:
+            raise AssertionError(f"service cli: flushes on another stream "
+                                 f"{off}, flush threads {flush_threads}")
+        engines = {}
+        for r in service.completed:
+            if r.result.device != service.device:
+                raise AssertionError(f"service cli: request {r.id} result "
+                                     f"on {r.result.device}")
+            single = spgemm(r.A, r.B, engine=r.engine)
+            if not _csr_equal(np, csr_to_numpy(r.result),
+                              csr_to_numpy(single)):
+                raise AssertionError(f"service cli: request {r.id} differs "
+                                     f"from spgemm(engine={r.engine!r})")
+            engines[r.engine] = engines.get(r.engine, 0) + 1
+        out["cli"] = dict(
+            req_per_s=steady["req_per_s"], wall_s=res["wall_s"],
+            warm_s=res["warm_s"], p50_ms=steady["p50_latency_s"] * 1e3,
+            p99_ms=steady["p99_latency_s"] * 1e3,
+            plan_hit_rate=steady["plan_hit_rate"],
+            warm_hit_rate=steady["warm_hit_rate"],
+            flushes=len(service.flush_log),
+            mean_flush_ms=res["all"]["mean_flush_wall_s"] * 1e3,
+            launches=part)
+        log(f"service: cli 200 requests (--warm, 2 flush threads) in "
+            f"{res['wall_s']:.2f} s after a {res['warm_s']:.2f} s prewarm | "
+            f"steady {steady['req_per_s']:.1f} req/s, p50 "
+            f"{out['cli']['p50_ms']:.2f} ms, p99 {out['cli']['p99_ms']:.2f} "
+            f"ms, plan hit rate {steady['plan_hit_rate']:.3f}, warm hit rate "
+            f"{steady['warm_hit_rate']:.3f} | {len(service.flush_log)} "
+            f"flushes, mean {out['cli']['mean_flush_ms']:.2f} ms, all "
+            f"planned, engines {engines} | every result bit-identical to its "
+            f"single call | {len(streams)} flushes and warms, "
+            f"{len(flush_threads)} flush threads, all on the caller's stream "
+            f"| launches {part}")
+
+        # 2. a full-size bucket
+        reqs = [mats[SERVICE_FULL[i % 2]] for i in range(8)]
+        lanes = [reqs[i] for i in range(4)]
+        want_expand, want_large = _work_buckets(np.concatenate(
+            [sg.row_work(A, A) for A in lanes]))
+        singles_expand = 2 * sum(_bucket_counts(np, mats[n])[0]
+                                 for n in SERVICE_FULL)
+        out["full"] = {}
+        for engine in ("spz", "auto"):
+            service = svc.SpGemmService(
+                max_batch=4, flush_timeout=1e9, engine=engine,
+                cache=dp.AutotuneCache(os.path.join(tmp, f"full-{engine}")))
+            kb.reset_launch_counts()
+            got = [service.submit(A, A) for A in reqs]
+            torch.cuda.synchronize()
+            part = _service_counts(kb)
+            _add_counts(out["counts"], part)
+            flushes = service.flush_log
+            if len(flushes) != 2 or any(
+                    (f.n_requests, f.reason, f.tier) != (4, "full", "planned")
+                    for f in flushes) or not all(r.done for r in got):
+                raise AssertionError(f"service full {engine}: {flushes}")
+            for r, n in zip(got, [SERVICE_FULL[i % 2] for i in range(8)]):
+                single = fused[n][0] if r.engine == "spz" else csr_to_numpy(
+                    spgemm(r.A, r.B, engine=r.engine))
+                if not _csr_equal(np, csr_to_numpy(r.result), single):
+                    raise AssertionError(f"service full {engine}: request "
+                                         f"{r.id} ({n}) differs from its "
+                                         f"single call")
+            row = dict(engine=flushes[0].engine,
+                       flush_ms=[f.wall_s * 1e3 for f in flushes],
+                       launches=part)
+            if engine == "spz":
+                per = {k: v // 2 for k, v in part.items()}
+                if (per.get("fused_bucket.expand"), per.get(
+                        "fused_bucket.large")) != (want_expand, want_large) \
+                        or not per.get("chunk_sort") \
+                        or not per.get("merge_partitions"):
+                    raise AssertionError(
+                        f"service full spz: per flush {per}, the batch's "
+                        f"bucketing gives {want_expand} expand and "
+                        f"{want_large} large (singles' sum {singles_expand})")
+                Ab = batch_csr(lanes, nnz_cap=flushes[0].bucket[2],
+                               batch_cap=4).to(service.device)
+                sp = shard.plan_sharded(Ab, Ab, "spz", cache=service.cache)
+                _, st = shard.execute_sharded(sp, Ab, Ab, return_stats=True)
+                _, bst = dp.execute_batched(sp.base, Ab, Ab,
+                                            return_stats=True)
+                stats = [getattr(st, f) for f in FIELDS]
+                if stats != [getattr(bst, f) for f in FIELDS]:
+                    raise AssertionError(f"service full spz: SpzStats "
+                                         f"{stats} vs execute_batched "
+                                         f"{[getattr(bst, f) for f in FIELDS]}")
+                sums = [2 * sum(fused[n][1][j] for n in SERVICE_FULL)
+                        for j in (1, 3)]
+                if [st.sort_elems, st.zip_elems] != sums:
+                    raise AssertionError(f"service full spz: sort/zip elems "
+                                         f"{st.sort_elems}/{st.zip_elems}, "
+                                         f"the singles' sums {sums}")
+                prof = _profiled(torch, "service full-size spz flush",
+                                 lambda: shard.execute_sharded(sp, Ab, Ab))
+                row.update(per_flush=per, singles_expand=singles_expand,
+                           stats=dict(zip(FIELDS, stats)),
+                           idle=(1 - prof["busy"] / prof["wall"]
+                                 if prof else None))
+            out["full"][engine] = row
+            log(f"service: full-size bucket {engine} -> {row['engine']}: 2 "
+                f"flushes of 4 lanes ({' / '.join(SERVICE_FULL)}) in "
+                + ", ".join(f"{t:.1f}" for t in row["flush_ms"])
+                + " ms | every lane bit-identical to its single call | "
+                f"launches {part}"
+                + (f" | per flush {want_expand} K3 expand (the batch's "
+                   f"bucketing; singles' sum {singles_expand}), "
+                   f"{want_large} large on K1 + K2 | SpzStats = "
+                   f"execute_batched's: {row['stats']}" if engine == "spz"
+                   else ""))
+
+        # 3. spz-host on the stand-ins
+        service = svc.SpGemmService(
+            max_batch=len(HOST_BATCH), flush_timeout=1e9, engine="spz-host",
+            cache=dp.AutotuneCache(os.path.join(tmp, "host.json")))
+        kb.reset_launch_counts()
+        got = [service.submit(mats[n], mats[n]) for n in HOST_BATCH]
+        service.drain()
+        torch.cuda.synchronize()
+        part = _service_counts(kb)
+        _add_counts(out["counts"], part)
+        for r, n in zip(got, HOST_BATCH):
+            if r.tier != "planned" or not _csr_equal(
+                    np, csr_to_numpy(r.result), fused[n][0]):
+                raise AssertionError(f"service spz-host: {n} {r.tier}")
+        if not part.get("stream_sort") or not part.get("stream_merge.pointer"):
+            raise AssertionError(f"service spz-host: launches {part}")
+        out["host"] = dict(flushes=len(service.flush_log), launches=part,
+                           flush_ms=[f.wall_s * 1e3
+                                     for f in service.flush_log])
+        log(f"service: spz-host on {len(HOST_BATCH)} stand-ins, "
+            f"{len(service.flush_log)} flushes, every result bit-identical "
+            f"to spz | launches {part}")
+
+        # 4. chaos
+        res = cli.run(["--requests", "100", "--inject-rate", "0.1",
+                       "--kill-worker", "0", "--chaos-seed", "0", "--cache",
+                       os.path.join(tmp, "chaos.json")])
+        service = res["service"]
+        unresolved = [i for i in range(100) if not service.lookup(i).done]
+        tiers = {f.tier for f in service.flush_log}
+        engines = {f.engine for f in service.flush_log}
+        if unresolved or not tiers <= set(CARD_TIERS) or \
+                engines & {"scl-array", "scl-hash", "?"}:
+            raise AssertionError(f"service chaos: unresolved {unresolved}, "
+                                 f"tiers {tiers}, engines {engines}")
+        out["chaos"] = dict(availability=res["all"]["availability"],
+                            tiers=sorted(tiers), engines=sorted(engines),
+                            dead=len(service.dead_letters))
+        log(f"service: chaos 100 requests, availability "
+            f"{res['all']['availability']:.4f}, every id resolved, tiers "
+            f"{sorted(tiers)}, engines {sorted(engines)}")
+        A = mats["p2p"]
+        want_esc = csr_to_numpy(spgemm(A, A, engine="esc"))
+        for match, tier in (({"engine": "esc"}, "degraded:spz-fused/cuda"),
+                            ({}, "isolated")):
+            service = svc.SpGemmService(
+                max_batch=2, flush_timeout=1e9, engine="esc",
+                policy=dp.RetryPolicy(sleep=lambda s: None),
+                cache=dp.AutotuneCache(os.path.join(tmp, f"{tier}.json")))
+            with fi.injected(fi.FaultSpec(site="kernel.batched",
+                                          match=match)):
+                reqs = [service.submit(A, A) for _ in range(2)]
+            f = service.flush_log[-1]
+            want = fused["p2p"][0] if tier.startswith("degraded") \
+                else want_esc
+            if f.tier != tier or f.engine != ("spz-fused" if match
+                                              else "esc") or not all(
+                    _csr_equal(np, csr_to_numpy(r.result), want)
+                    and r.result.device == service.device for r in reqs):
+                raise AssertionError(f"service ladder: {f}")
+            log(f"service: every batched launch of {match or 'any engine'} "
+                f"failing -> {f.tier} on {f.engine} after {f.attempts} "
+                f"attempts, results bit-identical and on the card")
+        for async_flushes in (0, 2):
+            fault = fi.FaultSpec(
+                site="kernel.batched", exc_factory=lambda site, ctx:
+                _build.KernelLaunchError(f"{site}: injected launch error"))
+            service = svc.SpGemmService(
+                max_batch=8, flush_timeout=1e9, async_flushes=async_flushes,
+                cache=dp.AutotuneCache(os.path.join(
+                    tmp, f"launch-{async_flushes}.json")))
+            try:
+                with fi.injected(fault):
+                    reqs = [service.submit(A, A) for _ in range(3)]
+                    service.drain()
+            except _build.KernelLaunchError:
+                pass
+            else:
+                raise AssertionError("service: a kernel launch error was "
+                                     "served")
+            finally:
+                service.close()
+            if fault.fires != 1 or service.dead_letters or \
+                    service.flush_log or any(r.done for r in reqs):
+                raise AssertionError(
+                    f"service: launch error fired {fault.fires} times, "
+                    f"{len(service.dead_letters)} dead letters, "
+                    f"{len(service.flush_log)} flushes")
+        log("service: an injected KernelLaunchError raised out of drain, "
+            "inline and from a flush thread, after 1 attempt: nothing "
+            "retried, degraded or dead-lettered")
+    finally:
+        shard.execute_sharded = execute_sharded
+        shutil.rmtree(tmp, ignore_errors=True)
+    _launched(out["counts"], ("chunk_sort", "merge_partitions",
+                              "fused_bucket", "stream_sort", "stream_merge"),
+              "service")
+    log(f"service: the service path's launches {out['counts']}")
     return out
 
 
@@ -2017,6 +2351,8 @@ def main() -> int:
               ("engines", lambda: phase_engines(torch, np, *res["inputs"])),
               ("dispatch", lambda: phase_dispatch(torch, np, res["inputs"][0],
                                                   res["spgemm"][1])),
+              ("service", lambda: phase_service(torch, np, res["inputs"][0],
+                                                res["spgemm"][1])),
               ("serve", lambda: phase_serve(torch, np)),
               ("profile", lambda: phase_profile(torch, np, res["serve"])),
               ("moe", lambda: phase_moe(torch, np, res["serve"])))
@@ -2064,6 +2400,9 @@ def main() -> int:
         "grouped_matmul": ("src/repro_torch/kernels/csrc/grouped_matmul.cu",
                            "src/repro/kernels/grouped_matmul.py:35"),
     }
+    service = res["service"]["counts"]
+    log("kernels: service path " + ", ".join(
+        f"{k}={v}" for k, v in service.items()))
     table = []
     for key, r in rows.items():
         kernel = key.split(".")[0]
@@ -2071,6 +2410,8 @@ def main() -> int:
         launches = counts[key] if key in counts else counts[kernel]
         table.append({"name": key, "route": "cuda", "source": src,
                       "replaces": replaces, "launches": launches,
+                      "service_launches": service.get(
+                          key, service.get(kernel, 0)),
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "wrapper_ms": r["wrapper_ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

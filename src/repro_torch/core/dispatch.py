@@ -37,9 +37,15 @@ layer, split into a **selection** phase and an **execution** phase:
 The reference's learned dispatch model (the ``"model"`` rung of the
 ladder) is not ported yet: ``model="auto"`` (the default), ``None`` and
 ``False`` act as if no trained model exists, and any other value raises
-``NotImplementedError`` (ROADMAP.md queue 1, item 8).  Nor is the warm
-layer (``warm_bucket`` and its counters), which needs the sharding layer
-(queue 1, item 6).
+``NotImplementedError`` (ROADMAP.md queue 1, item 8).
+
+The serving layer's warm pool closes the module: :func:`warm_bucket` runs
+one flush-shaped sharded pass over a pad bucket before its first request
+and records its plan's ``jit_key`` (:func:`note_warmed`); each flush asks
+:func:`jit_warmed`, and :func:`warm_stats` counts both.  On a card,
+"warm" means the kernel libraries are built and loaded (``kb.load()``)
+and the buffers of that flush shape have passed once through the caching
+allocator.
 """
 from __future__ import annotations
 
@@ -1377,7 +1383,7 @@ def _esc_batched(A: BatchedCSR, B: BatchedCSR,
 def _spz_batched(A: BatchedCSR, B: BatchedCSR, *, R: int = 16,
                  S: Optional[int] = None, rsort: bool = False,
                  backend="auto", driver: str = "fused",
-                 device=None) -> list:
+                 device=None, stats: Optional[sg.SpzStats] = None) -> list:
     """Batched SparseZipper driver: rows from *every* valid lane are packed
     into shared lock-step groups of S streams.  The default "fused" driver
     feeds each group through the device-resident pipeline straight from
@@ -1386,14 +1392,18 @@ def _spz_batched(A: BatchedCSR, B: BatchedCSR, *, R: int = 16,
     expansion and K1 + K2 per merge round); ``driver="host"`` keeps the
     chunk-at-a-time lock-step loop (K4/K5).  Every bucket's output stays
     on the device and the whole call is assembled once, split per lane.
-    Returns one CSR per lane (None for an invalid lane)."""
+    Returns one CSR per lane (None for an invalid lane).  With ``stats``,
+    the call's counters are added into it (the merge counters read from
+    the card once, at the end), as one single-matrix call of the same
+    rows in the same lock-step groups counts them."""
     S = S or 32 * R
     if driver not in ("fused", "host"):
         raise ValueError(f"unknown spz driver {driver!r}; use 'fused'|'host'")
     fi.fire("kernel.batched", engine="spz", driver=driver, lanes=A.batch)
     device = resolve_device(device)
     bk = kb.resolve_backend(backend, device)  # unknown names raise
-    stats = sg.SpzStats()
+    count = stats is not None
+    stats = stats if count else sg.SpzStats()
     lane_ok = _lane_ok(A, B)
     valid_lanes = [i for i in range(A.batch) if lane_ok[i]]
     items = [(i, r) for i in valid_lanes for r in range(A.n_rows)]
@@ -1404,14 +1414,22 @@ def _spz_batched(A: BatchedCSR, B: BatchedCSR, *, R: int = 16,
         items.sort(key=lambda it: int(work[it[0]][it[1]]))
     A, B = A.to(device), B.to(device)
     coo: list = []
+    totals = torch.zeros(4, dtype=torch.int64, device=device) \
+        if count else None
     if driver == "fused":
         mats = (A.indptr, A.indices, A.data, B.indptr, B.indices, B.data)
         geometry = sg.geometry_once(mats)
         for g0 in range(0, len(items), S):
             group = items[g0:g0 + S]
             plens = np.array([work[ln][r] for ln, r in group], np.int64)
-            sg.fused_process_group(group, plens, mats, R, bk, stats, coo,
-                                   geometry)
+            merged = sg.fused_process_group(group, plens, mats, R, bk,
+                                            stats, coo, geometry)
+            if count and merged is not None:
+                totals += merged
+        if count:
+            totals[2] += totals[3]
+            n_zip, zip_elems, tails = totals[:3].tolist()
+            sg.fold_merge_counters(stats, n_zip, zip_elems, tails)
     else:
         # only the host driver walks per-lane numpy copies
         lanes = {i: (*csr_to_numpy(A[i]), *csr_to_numpy(B[i]))
@@ -1430,6 +1448,11 @@ def _spz_batched(A: BatchedCSR, B: BatchedCSR, *, R: int = 16,
                 ids = sg.to_device(np.array(group, np.int64).T.copy(),
                                    device)
                 coo.append((ids[1], ids[0], *final[:3]))
+                if count:
+                    totals[:3] += acc.sum(1)
+        if count:
+            zip_elems, tails, worked = totals[:3].tolist()
+            sg.fold_merge_counters(stats, worked, zip_elems, tails)
     by_lane = sg.coo_parts_to_lanes(coo, valid_lanes, (A.n_rows, B.n_cols),
                                     device)
     return [by_lane.get(i) for i in range(A.batch)]
@@ -1564,10 +1587,12 @@ def assemble_batched(outs: list, A: BatchedCSR, B: BatchedCSR) -> BatchedCSR:
                       A.valid.to(dev) & B.valid.to(dev), batched.shape)
 
 
-def execute_batched(p: ExecutionPlan, A: BatchedCSR,
-                    B: BatchedCSR) -> BatchedCSR:
+def execute_batched(p: ExecutionPlan, A: BatchedCSR, B: BatchedCSR, *,
+                    return_stats: bool = False):
     """Run a batched plan.  Invalid lanes pass through as empty matrices
-    with ``valid=False``.  Never falls back to another engine."""
+    with ``valid=False``.  Never falls back to another engine.  With
+    ``return_stats``, returns ``(BatchedCSR, stats)``: the spz family's
+    ``SpzStats`` of the whole call, None for esc."""
     if not p.batched:
         raise ValueError("single-pair plan passed to execute_batched(); "
                          "use execute()")
@@ -1577,10 +1602,14 @@ def execute_batched(p: ExecutionPlan, A: BatchedCSR,
             f"plan/operand mismatch: planned {p.batch}x{p.a_shape} @ "
             f"{p.b_shape}, got {A.batch}x{A.shape} @ {B.shape}")
     fi.fire("dispatch.execute_batched", engine=p.engine, backend=p.backend)
-    outs = _BATCH_DRIVERS[p.engine](A, B, **p.kwargs_dict)
+    stats = sg.SpzStats() \
+        if return_stats and get_engine(p.engine).returns_stats else None
+    extra = {"stats": stats} if stats is not None else {}
+    outs = _BATCH_DRIVERS[p.engine](A, B, **p.kwargs_dict, **extra)
     outs = fi.corrupt("dispatch.execute_batched", outs,
                       engine=p.engine, backend=p.backend)
-    return assemble_batched(outs, A, B)
+    out = assemble_batched(outs, A, B)
+    return (out, stats) if return_stats else out
 
 
 def spgemm_batched(A: BatchedCSR, B: BatchedCSR, engine: str = "auto", *,
@@ -1597,3 +1626,127 @@ def spgemm_batched(A: BatchedCSR, B: BatchedCSR, engine: str = "auto", *,
     p = plan_batched(A, B, engine, device=device, cache=cache, rules=rules,
                      model=model, **kw)
     return execute_batched(p, A, B)
+
+
+# ---------------------------------------------------------------------------
+# plan warming ahead of traffic (the serving layer's warm pool)
+# ---------------------------------------------------------------------------
+
+_warm_mu = threading.Lock()
+_warmed_jit_keys: set = set()
+_warm_counters = {"warmed": 0, "hits": 0, "misses": 0}
+
+
+def note_warmed(jit_key: tuple) -> None:
+    """Record a plan identity as warmed in *this* process."""
+    with _warm_mu:
+        _warmed_jit_keys.add(jit_key)
+        _warm_counters["warmed"] += 1
+
+
+def jit_warmed(jit_key: tuple, count: bool = True) -> bool:
+    """Whether ``jit_key`` was warmed ahead of traffic here.
+
+    With ``count=True`` (the serving layer's per-flush check) the
+    outcome lands on the warm hit/miss counters."""
+    with _warm_mu:
+        hit = jit_key in _warmed_jit_keys
+        if count:
+            _warm_counters["hits" if hit else "misses"] += 1
+        return hit
+
+
+def warm_stats() -> dict:
+    """{"warmed": plans warmed ahead, "hits"/"misses": flush checks}."""
+    with _warm_mu:
+        return dict(_warm_counters)
+
+
+def reset_warm_stats() -> None:
+    with _warm_mu:
+        _warmed_jit_keys.clear()
+        _warm_counters.update(warmed=0, hits=0, misses=0)
+
+
+def _synthetic_csr(shape: tuple, nnz_cap: int) -> CSR:
+    """Deterministic stand-in operand landing in pad bucket ``nnz_cap``.
+
+    nnz is pinned to ``nnz_cap - 1`` (clamped to the shape's capacity):
+    a pad bucket holds nnz in (cap/2, cap], and ``cache_key``'s
+    ``bit_length`` bucket puts cap-1 — but not cap itself — in the same
+    plan bucket as that dominant range.  Entries spread uniformly with
+    strictly increasing columns per row, so the operand is valid CSR
+    without any RNG (warming must be deterministic and cheap)."""
+    n_rows, n_cols = int(shape[0]), int(shape[1])
+    nnz = int(max(1, min(nnz_cap - 1, n_rows * n_cols)))
+    base, extra = divmod(nnz, n_rows)
+    counts = np.full(n_rows, base, np.int64)
+    counts[:extra] += 1
+    counts = np.minimum(counts, n_cols)
+    rows = np.repeat(np.arange(n_rows), counts)
+    cols = (np.concatenate([(np.arange(c) * n_cols) // c
+                            for c in counts if c > 0])
+            if counts.sum() else np.zeros(0, np.int64))
+    vals = np.ones(int(counts.sum()), np.float32)
+    return csr_from_coo(rows, cols, vals, (n_rows, n_cols))
+
+
+def synthetic_bucket_operands(bucket: tuple) -> tuple[CSR, CSR]:
+    """A deterministic (A, B) pair on the CPU whose serving pad bucket is
+    ``bucket`` (``(A.shape, B.shape, nnz_cap_a, nnz_cap_b)``)."""
+    a_shape, b_shape, cap_a, cap_b = bucket
+    return _synthetic_csr(a_shape, cap_a), _synthetic_csr(b_shape, cap_b)
+
+
+def warm_bucket(bucket: tuple, *, engine: str = "auto", max_batch: int = 8,
+                cache: Optional[AutotuneCache] = None, devices=None,
+                rules: Sequence[HeuristicRule] = DEFAULT_HEURISTICS,
+                sample: Optional[tuple] = None,
+                sticky_cap: Optional[int] = None,
+                cap_headroom: int = 2) -> dict:
+    """Warm one serving pad bucket ahead of its first request.
+
+    Runs a flush-shaped pass — ``batch_csr`` at the bucket's pad
+    capacities, ``plan_sharded``, ``execute_sharded`` on ``devices``
+    (every card by default) — over a sampled real pair (``sample``) or a
+    synthetic stand-in, so the plan lands in the autotune cache and, on
+    a card, the kernel libraries are loaded and the flush's buffers have
+    been through the caching allocator before traffic hits the bucket.
+
+    esc capacity handling: the resulting ``cap_products`` is raised by
+    ``cap_headroom`` (a pow2 factor; the sample may not be the bucket's
+    heaviest traffic) and by ``sticky_cap`` (the caller's running
+    per-bucket max).  The caller seeds its sticky cap from the returned
+    ``"cap"`` so real flushes pin to the warmed plan identity.
+
+    Returns ``{"bucket", "engine", "backend", "source", "cap",
+    "wall_s"}``."""
+    from repro_torch.distributed import spgemm_shard as shard
+    if cache is None:
+        cache = default_cache()
+    devs = shard.lane_devices(devices)
+    _, _, cap_a, cap_b = bucket
+    A, B = sample if sample is not None else synthetic_bucket_operands(bucket)
+    t0 = time.perf_counter()
+    fi.fire("dispatch.warm", bucket=tuple(bucket))
+    if devs[0].type == "cuda":
+        kb.load()
+    Ab = batch_csr([A.to(devs[0])], nnz_cap=cap_a, batch_cap=max_batch)
+    Bb = batch_csr([B.to(devs[0])], nnz_cap=cap_b, batch_cap=max_batch)
+    sp = shard.plan_sharded(Ab, Bb, engine, devices=devs, cache=cache,
+                            rules=rules)
+    cap = None
+    if sp.base.engine == "esc":
+        cap = int(sp.base.kwargs_dict.get("cap_products", 0))
+        cap = max(cap * max(int(cap_headroom), 1), int(sticky_cap or 0))
+        kwargs = _sorted_kwargs({**sp.base.kwargs_dict,
+                                 "cap_products": cap})
+        sp = dataclasses.replace(
+            sp, base=dataclasses.replace(sp.base, kwargs=kwargs))
+    shard.execute_sharded(sp, Ab, Bb)
+    if devs[0].type == "cuda":
+        torch.cuda.synchronize(devs[0])
+    note_warmed(sp.base.jit_key)
+    return {"bucket": tuple(bucket), "engine": sp.base.engine,
+            "backend": sp.base.backend, "source": sp.base.source,
+            "cap": cap, "wall_s": time.perf_counter() - t0}

@@ -432,10 +432,7 @@ def _spz_host_driver(A, B, R, S, order, backend, stats, device):
             totals += acc.sum(1)
         stats.t_sort += time.perf_counter() - t2
     zip_elems, tails, worked = totals.tolist()
-    stats.zip_elems += zip_elems
-    stats.n_mszip += worked
-    stats.chunk_loads += 2 * worked
-    stats.chunk_stores += worked + tails
+    fold_merge_counters(stats, worked, zip_elems, tails)
     return coo
 
 
@@ -558,6 +555,17 @@ def geometry_once(mats):
     return geometry
 
 
+def fold_merge_counters(stats: SpzStats, n_zip: int, zip_elems: int,
+                        tails: int) -> None:
+    """Add a call's merge counters, read from the card, into ``stats``:
+    every mszip issue loads two chunks and stores one, and every tail
+    store of a copy-through is one more store."""
+    stats.n_mszip += n_zip
+    stats.zip_elems += zip_elems
+    stats.chunk_loads += 2 * n_zip
+    stats.chunk_stores += n_zip + tails
+
+
 def _spz_fused_driver(A, B, R, S, order, work, backend, stats):
     """Device-resident driver: per lock-step group, the work-bucketed
     expand/sort/merge-tree pipelines run on the device with no host wait;
@@ -578,10 +586,7 @@ def _spz_fused_driver(A, B, R, S, order, work, backend, stats):
     stats.t_sort += time.perf_counter() - t1
     totals[2] += totals[3]
     n_zip, zip_elems, tails = totals[:3].tolist()
-    stats.n_mszip += n_zip
-    stats.zip_elems += zip_elems
-    stats.chunk_loads += 2 * n_zip
-    stats.chunk_stores += n_zip + tails
+    fold_merge_counters(stats, n_zip, zip_elems, tails)
     return coo
 
 

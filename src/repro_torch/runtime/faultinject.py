@@ -29,17 +29,20 @@ Fault sites currently threaded through the stack:
                               output corruption) — ``core/dispatch.py``
   ``dispatch.execute_batched`` whole-batch engine call + output
                               corruption — ``core/dispatch.py``
-  ``kernel.batched``          per batched driver call (the injected
+  ``kernel.batched``          per batched driver call, once per device
+                              group of a sharded flush (the injected
                               "kernel died mid-launch") —
                               ``core/dispatch.py`` batch drivers
+  ``shard.worker``            per shard-worker launch; killing it raises
+                              ``WorkerLost`` — ``distributed/spgemm_shard.py``
   ``dispatch.measure``        per autotune measurement —
                               ``core/dispatch.py``
+  ``dispatch.warm``           per warmed pad bucket —
+                              ``core/dispatch.py`` ``warm_bucket``
   ``autotune.flush``          cache write-out (cache-corruption site) —
                               ``core/dispatch.py`` AutotuneCache
-
-The reference's ``shard.worker`` and ``service.flush`` sites belong to
-layers the port does not have yet (sharding, SpGEMM serving); a spec
-naming them simply never fires.
+  ``service.flush``           top of every service flush —
+                              ``serving/spgemm_service.py``
 """
 from __future__ import annotations
 

@@ -22,7 +22,10 @@ matmul must agree with its plain version within 1e-4 of the output's
 largest magnitude in float32 and one bf16 rounding (plus that 1e-4) in
 bf16, in both of its layouts, write exact zeros in every row no group
 keeps, and launch three times per MoE layer per forward pass, in the
-counts layout.
+counts layout.  The sharded batched path on one card equals
+``execute_batched`` (CSR and the six counters); the SpGEMM service's
+flush threads launch on the caller's stream, a kernel launch error raises
+out of ``drain``, and its ladder degrades and isolates on the card only.
 """
 import numpy as np
 import pytest
@@ -464,6 +467,131 @@ def test_spgemm_batched_cuda_matches_torch(card, engine, tmp_path):
         assert counts["fused_bucket.expand"] > 0
         assert counts["fused_bucket.large"] == 1
         assert counts["chunk_sort"] == 1 and counts["merge_partitions"] > 0
+
+
+_FIELDS = ("n_mssort", "sort_elems", "n_mszip", "zip_elems", "chunk_loads",
+           "chunk_stores")
+
+
+@pytest.mark.parametrize("engine", ["spz", "spz-host", "esc"])
+def test_sharded_on_the_card_matches_batched(card, engine, tmp_path):
+    """One card, the default devices: execute_sharded equals
+    execute_batched on the same base plan, CSR and the six counters, and
+    a warmed bucket's plan is the flush's."""
+    from repro_torch.core import dispatch as dp
+    from repro_torch.core.formats import batch_csr
+    from repro_torch.distributed import spgemm_shard as shard
+    b = batch_csr(_hub_lanes(), batch_cap=3).to(card)
+    cache = dp.AutotuneCache(str(tmp_path / "a.json"))
+    sp = shard.plan_sharded(b, b, engine, cache=cache)
+    assert sp.devices == tuple(torch.device("cuda", i)
+                               for i in range(torch.cuda.device_count()))
+    assert shard.lane_devices("cuda") == (
+        torch.device("cuda", torch.cuda.current_device()),)
+    kb.reset_launch_counts()
+    out, st = shard.execute_sharded(sp, b, b, return_stats=True)
+    counts = kb.launch_counts()
+    ref, rst = dp.execute_batched(sp.base, b, b, return_stats=True)
+    assert out.valid.tolist() == ref.valid.tolist() == [True, True, False]
+    for f in ("indptr", "indices", "data"):
+        _eq(getattr(ref, f), getattr(out, f))
+    if engine == "esc":
+        assert st is None and rst is None
+    else:
+        assert [getattr(st, f) for f in _FIELDS] == \
+            [getattr(rst, f) for f in _FIELDS]
+        assert counts["stream_sort" if engine == "spz-host"
+                      else "fused_bucket.expand"] > 0
+    dp.reset_warm_stats()
+    bucket = ((512, 512), (512, 512), 1 << 14, 1 << 14)
+    w = dp.warm_bucket(bucket, engine=engine, max_batch=3, cache=cache)
+    assert w["engine"] == engine and dp.warm_stats()["warmed"] == 1
+
+
+def test_service_on_the_card_keeps_one_stream(card, tmp_path, monkeypatch):
+    """Flushes on two executor threads launch on the caller's stream;
+    every result lives on the card and equals its single call."""
+    import threading
+    from repro_torch.core import dispatch as dp
+    from repro_torch.distributed import spgemm_shard as shard
+    from repro_torch.launch.serve_spgemm import make_traffic
+    from repro_torch.serving import spgemm_service as svc
+    caller = torch.cuda.current_stream()
+    seen = []
+    execute_sharded = shard.execute_sharded
+
+    def capture(*a, **kw):
+        seen.append((threading.current_thread().name,
+                     torch.cuda.current_stream()))
+        return execute_sharded(*a, **kw)
+    monkeypatch.setattr(shard, "execute_sharded", capture)
+    service = svc.SpGemmService(max_batch=4, flush_timeout=1e9,
+                                async_flushes=2,
+                                cache=dp.AutotuneCache(str(tmp_path / "a")))
+    try:
+        reqs = [service.submit(A, B) for A, B in make_traffic(16, seed=1)]
+        service.drain()
+    finally:
+        service.close()
+    assert seen and all(s == caller for _, s in seen)
+    assert any(n.startswith("spgemm-flush") for n, _ in seen)
+    for r in reqs:
+        assert r.tier == "planned" and r.result.device.type == "cuda"
+        for w, g in zip(csr_to_numpy(spgemm(r.A, r.B, engine=r.engine)),
+                        csr_to_numpy(r.result)):
+            np.testing.assert_array_equal(w, g)
+
+
+@pytest.mark.parametrize("async_flushes", [0, 2])
+def test_service_kernel_errors_raise_on_the_card(card, async_flushes,
+                                                 tmp_path):
+    """A kernel launch error raises out of drain: not retried, degraded
+    or dead-lettered."""
+    from repro_torch.core import dispatch as dp
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import faultinject as fi
+    from repro_torch.serving import spgemm_service as svc
+    fault = fi.FaultSpec(site="kernel.batched",
+                         exc_factory=lambda site, ctx:
+                         _build.KernelLaunchError("injected"))
+    service = svc.SpGemmService(max_batch=8, flush_timeout=1e9,
+                                async_flushes=async_flushes,
+                                cache=dp.AutotuneCache(str(tmp_path / "a")))
+    A = random_sparse(300, 300, 0.02, seed=3)
+    try:
+        with fi.injected(fault), pytest.raises(_build.KernelLaunchError):
+            service.submit(A, A)
+            service.drain()
+    finally:
+        service.close()
+    assert fault.fires == 1
+    assert not service.dead_letters and not service.flush_log
+
+
+def test_service_ladder_stays_on_the_card(card, tmp_path):
+    """Every esc launch failing degrades to spz-fused on the kernels;
+    every batched launch failing isolates each request on esc, on the
+    card: no plain tier, no host."""
+    from repro_torch.core import dispatch as dp
+    from repro_torch.runtime import faultinject as fi
+    from repro_torch.serving import spgemm_service as svc
+    A = random_sparse(300, 300, 0.02, seed=4)
+    for match, tier, engine in (({"engine": "esc"},
+                                 "degraded:spz-fused/cuda", "spz-fused"),
+                                ({}, "isolated", "esc")):
+        service = svc.SpGemmService(
+            max_batch=2, flush_timeout=1e9, engine="esc",
+            policy=dp.RetryPolicy(sleep=lambda s: None),
+            cache=dp.AutotuneCache(str(tmp_path / tier)))
+        with fi.injected(fi.FaultSpec(site="kernel.batched", match=match)):
+            reqs = [service.submit(A, A) for _ in range(2)]
+        f = service.flush_log[-1]
+        assert (f.tier, f.engine) == (tier, engine)
+        want = spgemm(A, A, engine="esc" if engine == "esc" else "spz")
+        for r in reqs:
+            assert r.result.device.type == "cuda"
+            for w, g in zip(csr_to_numpy(want), csr_to_numpy(r.result)):
+                np.testing.assert_array_equal(w, g)
 
 
 def test_auto_on_the_card(card, tmp_path):
