@@ -67,6 +67,30 @@ drives the port's main path on one card:
            ``auto``, every lane its single call; spz-host on six
            stand-ins (K4, K5); chaos (availability, card tiers only) and
            an injected ``KernelLaunchError`` raised out of ``drain``
+  pool     multi-process serving (``runtime/coordinator.py``): a pool of
+           two spawned workers sharing the card (startup timed); the
+           full-size bucket through it (every lane the in-process flush's
+           CSR, each flush record holding the worker's launches: 1,136 K3
+           expand, 2 large on K1 + K2), spz-host on six stand-ins (K4,
+           K5); worker 0 SIGKILLed mid-flush (every request resolved,
+           ``worker_lost``/``restart``/``remesh``); an injected
+           ``KernelLaunchError`` in a worker raised out of the parent's
+           ``drain``, never re-run; the CLI's 200 requests ``--warm``
+           inline, on 2 flush threads and on ``--workers 2`` (req/s,
+           p50, p99; every pool result bit for bit the in-process
+           service's on the same flush); 32 MiB through a worker-like
+           pipe with default and widened socket buffers
+  learned  the dispatch model (``models/dispatch_model.py``): autotune
+           sweeps on the card over the CLI traffic's keys and the
+           stand-ins, the model trained on the card and on the CPU
+           (within the CPU test's tolerances, the same picks; the
+           weights held where the samples determine them), then
+           beside a fresh cache ``plan`` takes ``source="model"`` where
+           it is confident, never on a host engine, and ``execute``
+           equals that engine's direct call bit for bit, the card's and
+           the CPU's model agreeing on those operands too; a plan's µs
+           through the model rung, cold and memo hit, beside the
+           heuristic table's
   attention  K6 flash attention on the sweep of tests/test_kernels_attn.py
            (float32 on the fma route, bf16 on the wgmma route, each
            route's counter checked) and at TinyLlama's prefill shapes
@@ -114,8 +138,9 @@ drives the port's main path on one card:
            after: K6 once per layer on the wgmma route, K7 three times
            per layer per forward pass in the counts layout, nothing else;
            one profiled generate
-  kernels  every ported kernel and its launches on its path's run, and
-           on the service path's (``service_launches``)
+  kernels  every ported kernel and its launches on its path's run, on
+           the service path's (``service_launches``) and in the pool's
+           workers (``pool_launches``)
 
 It imports nothing of JAX.  The launch floor, the JSON kernel table and
 the card's name and power limit are on the lines before the last; the last line is
@@ -126,6 +151,7 @@ the repository beside it, it exits non-zero and prints no result.
 Run: ``python3 chip_smoke.py`` (one card).
 """
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1446,6 +1472,602 @@ def phase_service(torch, np, mats, fused):
     return out
 
 
+POOL_WORKERS = 2
+POOL_PIPE_BYTES = 32 << 20   # the pipe probe's message (int32s)
+# SuiteSparse-scale matrices no sweep saw (hub-full shares cage11-full's
+# cache key)
+LEARNED_NEW = ("cage11-full", "email-Enron-full")
+# the CPU test's tolerances (tests/test_torch_learned_dispatch.py): a
+# model trained on the same samples, card against CPU
+W_ATOL, BIAS_ATOL, SIGMA_ATOL, CONF_ATOL = 2e-2, 1e-3, 1e-3, 1e-2
+PRED_ATOL = 1e-2            # predicted log-runtime, every sample and combo
+# a direction of weight space is flat to the samples where the
+# standardised features' singular value along it is below this share of
+# the largest: float32 rounding moves Adam's normalised step along it
+# freely, since the loss barely changes there.  W_ATOL holds the weight
+# difference's projection onto the other directions
+FLAT_SHARE = 0.05
+
+
+def _flush_groups(service):
+    """The pool's flushes as request lists: the requests of one flush
+    landed together (one bucket, one landing time, one engine)."""
+    groups = {}
+    for r in service.completed:
+        groups.setdefault((r.bucket, r.t_done, r.engine), []).append(r)
+    return list(groups.values())
+
+
+def _affine_bucket(coord, svc, random_sparse, worker, n_workers):
+    """A small request whose pad bucket's rendezvous owner among
+    ``n_workers`` live workers is ``worker``."""
+    for n in range(40, 200):
+        A = random_sparse(n, n, 0.05, seed=n)
+        key = svc.bucket_key(A, A)
+        if max(range(n_workers),
+               key=lambda w: coord._hrw(repr(key), w)) == worker:
+            return A, key
+    raise AssertionError(f"no bucket owned by worker {worker}")
+
+
+def _pipe_send(conn, n_bytes):
+    """Child of ``_pipe_rate``: send ``n_bytes`` of int32 over ``conn``."""
+    import numpy as np
+    x = np.arange(n_bytes // 4, dtype=np.int32)
+    conn.send("ready")
+    conn.send(x)
+    conn.close()
+
+
+def _pipe_rate(coord, widened):
+    """Seconds and MiB/s of ``POOL_PIPE_BYTES`` sent from a spawned
+    process to this one over a pipe like a worker's, with the kernel's
+    default socket buffers or widened as ``coordinator._widen`` widens
+    every worker pipe."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    mine, theirs = ctx.Pipe()
+    if widened:
+        for c in (mine, theirs):
+            coord._widen(c)
+    proc = ctx.Process(target=_pipe_send, args=(theirs, POOL_PIPE_BYTES))
+    proc.start()
+    theirs.close()
+    try:
+        if not mine.poll(60.0) or mine.recv() != "ready":
+            raise AssertionError("pool pipe: the sender did not start")
+        t0 = time.perf_counter()
+        x = mine.recv()
+        sec = time.perf_counter() - t0
+        if x.nbytes != POOL_PIPE_BYTES or int(x[-1]) != x.size - 1:
+            raise AssertionError(f"pool pipe: received {x.nbytes} bytes")
+    finally:
+        proc.join(30.0)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    return {"s": sec, "mib_per_s": POOL_PIPE_BYTES / 2**20 / sec}
+
+
+def phase_pool(torch, np, mats, fused):
+    """Multi-process SpGEMM serving on the one card: a
+    ``ProcessCoordinator`` of two spawned workers, both on cuda:0
+    (``remesh_lanes(1, 2)``), every flush run by a worker's local service
+    and its result unpacked on the caller's card.  Each check runs after
+    its path:
+
+    1. one pool (startup timed; worker 0 armed to SIGKILL itself in the
+       flush of one small bucket it owns, every worker armed with a
+       ``KernelLaunchError`` at the batched launch of a 3-request esc
+       flush):
+       the full-size ``spz`` bucket, [cage11-full, hub-full] x 2 at
+       max_batch 4 — two flushes, every lane bit-identical to its single
+       call (the in-process flush of phase ``service`` equals the same
+       singles), each flush record carrying the worker's launches: K3's
+       expand entry as the batch's bucketing gives (1,136), 2 large
+       buckets on K1 + K2; spz-host on the six stand-ins (K4, K5);
+    2. the kill: every request resolves bit for bit its engine's single
+       call, and ``worker_lost`` (with the orphaned task), ``restart``
+       and ``remesh`` appear;
+    3. the kernel error: it raises out of the parent's ``drain`` naming
+       the worker, answered once — nothing re-dispatched, dead-lettered
+       or served by this process's ladder — and the worker is reaped and
+       respawned;
+    4. the CLI's 200 requests (``--warm``) inline, on two flush threads
+       and on ``--workers 2``: req/s, p50, p99; every pool result equal
+       bit for bit to the in-process service's on the same flush (the
+       same requests, landed together, through an inline service of the
+       same engine);
+    5. the pipe under the pool: 32 MiB from a spawned process to this
+       one, over the default socket buffers and over widened ones, as
+       every worker pipe is widened (the full-size flush's results are
+       ~246 MiB).
+    The pool's launches (``pool_launches``) are the workers' flush
+    records' sums."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import dispatch as dp
+    from repro_torch.core import spgemm
+    from repro_torch.core import spgemm_engines as sg
+    from repro_torch.core.formats import csr_to_numpy, random_sparse
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve_spgemm as cli
+    from repro_torch.runtime import coordinator as coord
+    from repro_torch.runtime import faultinject as fi
+    from repro_torch.serving import spgemm_service as svc
+
+    out = {"counts": {}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pool_")
+    torch.cuda.empty_cache()  # leave the card's memory to the workers
+    kill_A, kill_bucket = _affine_bucket(coord, svc, random_sparse, 0,
+                                         POOL_WORKERS)
+    err_A = random_sparse(48, 48, 0.05, seed=7)
+    # the pool's only esc flush of 3 lanes is step 3's
+    err = fi.FaultSpec(site="kernel.batched",
+                       match={"engine": "esc", "lanes": 3},
+                       exc_factory=_build.KernelLaunchError)
+    specs = {0: [fi.FaultSpec(site="service.flush", kind="kill_process",
+                              match={"bucket": kill_bucket}, max_fires=1),
+                 err],
+             1: [err]}
+    pool = None
+    try:
+        t0 = time.perf_counter()
+        pool = coord.ProcessCoordinator(
+            POOL_WORKERS, cache_path=os.path.join(tmp, "pool.json"),
+            fault_specs=specs, max_worker_restarts=2)
+        out["start_s"] = time.perf_counter() - t0
+        spawns = [e for e in pool.events if e["event"] == "spawn"]
+        if len(spawns) != POOL_WORKERS or pool.n_lanes != 1 or any(
+                e["n_lanes"] != 1 for e in spawns):
+            raise AssertionError(f"pool start: {pool.events}")
+        log(f"pool: {POOL_WORKERS} workers on {pool.devices} started in "
+            f"{out['start_s']:.2f} s (each: spawn, torch import, CUDA "
+            f"context, kb.load) | lanes {pool._partition(POOL_WORKERS)}")
+
+        def pool_service(**kw):
+            return svc.SpGemmService(flush_timeout=1e9, coordinator=pool,
+                                     cache=dp.AutotuneCache(pool.cache_path),
+                                     policy=dp.RetryPolicy(
+                                         backoff_base_s=0.0), **kw)
+
+        # 1. the full-size bucket, then spz-host on the stand-ins
+        reqs = [mats[SERVICE_FULL[i % 2]] for i in range(8)]
+        want_expand, want_large = _work_buckets(np.concatenate(
+            [sg.row_work(A, A) for A in reqs[:4]]))
+        service = pool_service(max_batch=4, engine="spz")
+        got = [service.submit(A, A) for A in reqs]
+        service.drain(timeout=300.0)
+        flushes = service.flush_log
+        if len(flushes) != 2 or any(
+                (f.n_requests, f.reason, f.tier, f.engine) !=
+                (4, "full", "planned", "spz") for f in flushes) or \
+                service.dead_letters or not all(r.done for r in got):
+            raise AssertionError(f"pool full: {flushes}")
+        for r, n in zip(got, [SERVICE_FULL[i % 2] for i in range(8)]):
+            if r.result.device != service.device or not _csr_equal(
+                    np, csr_to_numpy(r.result), fused[n][0]):
+                raise AssertionError(f"pool full: request {r.id} ({n}) "
+                                     f"differs from the in-process flush")
+        for f in flushes:
+            _add_counts(out["counts"], f.launches)
+            got_l = (f.launches.get("fused_bucket.expand"),
+                     f.launches.get("fused_bucket.large"))
+            if got_l != (want_expand, want_large) or \
+                    not f.launches.get("chunk_sort") or \
+                    not f.launches.get("merge_partitions"):
+                raise AssertionError(
+                    f"pool full: a flush's launches {f.launches}, the "
+                    f"batch's bucketing gives {want_expand} expand and "
+                    f"{want_large} large")
+        out["full"] = dict(flush_ms=[f.wall_s * 1e3 for f in flushes],
+                           attempts=[f.attempts for f in flushes],
+                           launches=flushes[0].launches)
+        log(f"pool: full-size spz bucket ({' / '.join(SERVICE_FULL)} x 2) "
+            f"in 2 flushes, " + ", ".join(f"{t:.1f}" for t in
+                                          out["full"]["flush_ms"])
+            + f" ms dispatch to landing, attempts "
+            f"{out['full']['attempts']}, errors "
+            f"{[f.errors for f in flushes]} | every lane bit-identical to "
+            f"the in-process flush | a worker's launches per flush "
+            f"{flushes[0].launches}")
+        service = pool_service(max_batch=len(HOST_BATCH), engine="spz-host")
+        got = [service.submit(mats[n], mats[n]) for n in HOST_BATCH]
+        service.drain(timeout=300.0)
+        for r, n in zip(got, HOST_BATCH):
+            if r.tier != "planned" or not _csr_equal(
+                    np, csr_to_numpy(r.result), fused[n][0]):
+                raise AssertionError(f"pool spz-host: {n} {r.tier}")
+        host = {}
+        for f in service.flush_log:
+            _add_counts(host, f.launches)
+        _add_counts(out["counts"], host)
+        if not host.get("stream_sort") or not host.get("stream_merge.pointer"):
+            raise AssertionError(f"pool spz-host: launches {host}")
+        log(f"pool: spz-host on {len(HOST_BATCH)} stand-ins, "
+            f"{len(service.flush_log)} flushes, every result bit-identical "
+            f"to spz | the workers' launches {host}")
+
+        # 2. SIGKILL mid-flush in worker 0
+        n_events = len(pool.events)
+        service = pool_service(max_batch=2)
+        got = [service.submit(kill_A, kill_A) for _ in range(2)]
+        service.drain(timeout=300.0)
+        events = pool.events[n_events:]
+        names = [e["event"] for e in events]
+        lost = [e for e in events if e["event"] == "worker_lost"]
+        if not all(r.done and not r.failed for r in got) or \
+                service.stats()["availability"] != 1.0 or \
+                names[:4] != ["worker_lost", "spawn", "restart", "remesh"] \
+                or lost[0]["worker"] != 0 or not lost[0]["orphans"]:
+            raise AssertionError(f"pool kill: {events}, "
+                                 f"{[r.tier for r in got]}")
+        for r in got:
+            if not _csr_equal(np, csr_to_numpy(r.result), csr_to_numpy(
+                    spgemm(kill_A, kill_A, engine=r.engine))):
+                raise AssertionError(f"pool kill: request {r.id} differs "
+                                     f"from engine={r.engine!r}")
+        for f in service.flush_log:
+            _add_counts(out["counts"], f.launches)
+        log(f"pool: worker 0 SIGKILLed in a flush of bucket {kill_bucket} "
+            f"-> {names} ({lost[0]['why']}, orphans {lost[0]['orphans']}) | "
+            f"availability 1.0, results bit-identical to engine="
+            f"{got[0].engine!r} on {got[0].tier}")
+
+        # 3. a kernel launch error in a worker
+        n_events = len(pool.events)
+        service = pool_service(max_batch=3, engine="esc")
+        got = [service.submit(err_A, err_A) for _ in range(3)]
+        try:
+            service.drain(timeout=300.0)
+        except _build.KernelLaunchError as e:
+            message = str(e)
+        else:
+            raise AssertionError("pool: a worker's kernel launch error was "
+                                 "served")
+        events = pool.events[n_events:]
+        names = [e["event"] for e in events]
+        if not message.startswith("worker ") or names != [
+                "task_error", "worker_lost", "spawn", "restart", "remesh"] \
+                or events[1]["orphans"] or any(r.done for r in got) or \
+                service.flush_log or service.dead_letters or \
+                pool.in_flight or pool.alive_count != POOL_WORKERS:
+            raise AssertionError(f"pool kernel error: {message!r}, {events}")
+        log(f"pool: an injected KernelLaunchError in a worker raised out of "
+            f"drain ({message[:60]}...), answered once: {names}, nothing "
+            f"re-dispatched, dead-lettered or served here")
+    finally:
+        if pool is not None:
+            pool.shutdown()
+
+    # 4. the CLI's traffic: inline, two flush threads, two workers
+    out["cli"] = {}
+    try:
+        for label, extra in (("inline", []),
+                             ("async 2", ["--async-flushes", "2"]),
+                             ("workers 2", ["--workers",
+                                            str(POOL_WORKERS)])):
+            res = cli.run(["--requests", "200", "--warm", "--cache",
+                           os.path.join(tmp, f"cli-{label[0]}.json")]
+                          + extra)
+            service, steady = res["service"], res["steady"]
+            if res["all"]["n_requests"] != 200 or \
+                    res["all"].get("availability") != 1.0 or \
+                    {f.tier for f in service.flush_log} != {"planned"}:
+                raise AssertionError(f"pool cli {label}: {res['all']}")
+            row = dict(req_per_s=steady["req_per_s"],
+                       p50_ms=steady["p50_latency_s"] * 1e3,
+                       p99_ms=steady["p99_latency_s"] * 1e3,
+                       wall_s=res["wall_s"], warm_s=res["warm_s"],
+                       flushes=len(service.flush_log),
+                       plan_hit_rate=steady["plan_hit_rate"])
+            if res["pool"] is not None:
+                row["start_s"] = res["pool"]["start_s"]
+                launches = {}
+                for f in service.flush_log:
+                    _add_counts(launches, f.launches)
+                _add_counts(out["counts"], launches)
+                row["launches"] = launches
+                # the in-process service on the same flushes: the same
+                # requests landed together, one inline service per engine
+                inline = {}
+                for grp in _flush_groups(service):
+                    eng = grp[0].engine
+                    if eng not in inline:
+                        inline[eng] = svc.SpGemmService(
+                            max_batch=8, flush_timeout=1e9, engine=eng,
+                            cache=dp.AutotuneCache(os.path.join(
+                                tmp, f"replay-{eng}.json")))
+                    mine = [inline[eng].submit(r.A, r.B) for r in grp]
+                    inline[eng].drain()
+                    for r, m in zip(grp, mine):
+                        if m.engine != eng or not _csr_equal(
+                                np, csr_to_numpy(r.result),
+                                csr_to_numpy(m.result)):
+                            raise AssertionError(
+                                f"pool cli: request {r.id} differs from the "
+                                f"in-process flush on {eng}")
+                row["replayed_flushes"] = len(_flush_groups(service))
+            out["cli"][label] = row
+            log(f"pool: cli 200 requests --warm, {label}: steady "
+                f"{row['req_per_s']:.1f} req/s, p50 {row['p50_ms']:.2f} ms, "
+                f"p99 {row['p99_ms']:.2f} ms, plan hit rate "
+                f"{row['plan_hit_rate']:.3f} | {row['flushes']} flushes, "
+                f"wall {row['wall_s']:.2f} s after a {row['warm_s']:.2f} s "
+                f"prewarm"
+                + (f" | pool started in {row['start_s']:.2f} s, every result "
+                   f"bit-identical to the in-process service on the same "
+                   f"{row['replayed_flushes']} flushes | the workers' "
+                   f"launches {row['launches']}" if "start_s" in row
+                   else ""))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 5. the pipe under the pool
+    out["pipe"] = {k: _pipe_rate(coord, k == "widened")
+                   for k in ("default", "widened")}
+    log("pool: pipe, 32 MiB from a spawned process: " + ", ".join(
+        f"{k} socket buffers {v['s']:.3f} s ({v['mib_per_s']:.1f} MiB/s)"
+        for k, v in out["pipe"].items()))
+    _launched({k: out["counts"].get(k, 0) for k in (
+        "chunk_sort", "merge_partitions", "fused_bucket", "stream_sort",
+        "stream_merge")}, ("chunk_sort", "merge_partitions", "fused_bucket",
+                           "stream_sort", "stream_merge"), "pool")
+    log(f"pool: the pool path's launches (in the workers) {out['counts']}")
+    return out
+
+
+def _weight_split(np, dm, card, cpu, samples):
+    """The largest |card.w - cpu.w| on the directions the samples
+    determine and on the flat ones, and the standardised features'
+    singular values.  Each candidate's weights are fit on the samples
+    that timed it: its difference is split along the right singular
+    vectors of those samples' standardised features (``FLAT_SHARE``)."""
+    samples = [s for s in samples if s.get("timings") and s.get("features")]
+    X = np.stack([dm.featurize(s["features"]) for s in samples])
+    Z = (X - card.mean) / card.std
+    seen = flat = 0.0
+    sv = None
+    for j, c in enumerate(card.candidates):
+        rows = [i for i, s in enumerate(samples) if c in s["timings"]]
+        _, S, Vt = np.linalg.svd(Z[rows], full_matrices=False)
+        if sv is None or len(rows) == len(samples):
+            sv = [float(x) for x in S]
+        keep = S >= FLAT_SHARE * S[0]
+        d = card.w[j] - cpu.w[j]
+        on = Vt[keep].T @ (Vt[keep] @ d)
+        seen = max(seen, float(np.abs(on).max()))
+        flat = max(flat, float(np.abs(d - on).max()))
+    return seen, flat, sv
+
+
+def phase_learned(torch, np, mats):
+    """The learned dispatch rung on the card:
+
+    1. autotune sweeps (``autotune=True``: every combo measurable on the
+       card) over the CLI's traffic (200 requests, seed 0) and the 13
+       stand-ins, one operand per cache key, on a temporary cache: each
+       entry a timing vector of card combos;
+    2. the dispatch model trained on the card from those samples, and on
+       the CPU from the same samples: every predicted log-runtime,
+       bias, sigma and confidence within the CPU test's tolerances, the
+       same pick on every sample, and the weights' difference within
+       the CPU test's weight tolerance on the directions the samples
+       determine (its part on the flat ones logged);
+    3. the card's artifact beside a fresh cache: ``plan(A, A)`` on new
+       operands (the CLI's traffic at seed 1 and two SuiteSparse-scale
+       matrices, one operand per key) takes ``source="model"``
+       exactly where ``explain`` calls the model confident, at least
+       once, never on an engine that computes on the host, and
+       ``execute`` equals that engine's direct call bit for bit; on
+       each of them the card's and the CPU's model agree within
+       ``PRED_ATOL`` on every log-cost and pick the same card engine
+       (a tie within twice that is counted);
+    4. the µs of a plan through the model rung, cold and on a memo hit,
+       beside the heuristic table's (no artifact), on the same operands
+       (the medians over the plans each source made)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import dispatch as dp
+    from repro_torch.core.formats import csr_to_numpy
+    from repro_torch.data import table3
+    from repro_torch.launch import serve_spgemm as cli
+    from repro_torch.models import dispatch_model as dm
+
+    def per_key(ops):
+        """The first operand of each cache key (A·A requests)."""
+        seen = {}
+        for A in ops:
+            seen.setdefault(dp.cache_key(A, A), A)
+        return list(seen.values())
+
+    def traffic(seed):
+        return [A for A, _ in cli.make_traffic(200, seed=seed)]
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_learned_")
+    saved = dp._default_cache
+    try:
+        # 1. sweeps
+        cache = dp.AutotuneCache(os.path.join(tmp, "sweep.json"))
+        swept = per_key(traffic(0) + [mats[n] for n in table3.names()])
+        t0 = time.perf_counter()
+        for A in swept:
+            p = dp.plan(A, A, autotune=True, cache=cache, model=False)
+            combos = set(cache.get(p.cache_key).get("timings", {}))
+            if p.source != "autotune" or not combos or any(
+                    c.endswith("|torch") for c in combos):
+                raise AssertionError(f"learned sweep: {p.source} {combos}")
+        out["sweep_s"] = time.perf_counter() - t0
+        samples = dm.samples_from_entries(cache.entries())
+        combos = sorted({c for s in samples for c in s["timings"]})
+        winners = {}
+        for s in samples:
+            w = min(s["timings"], key=s["timings"].get)
+            winners[w] = winners.get(w, 0) + 1
+        log(f"learned: {len(samples)} autotune sweeps ({len(swept)} "
+            f"operands: the CLI traffic's keys and the stand-ins) in "
+            f"{out['sweep_s']:.1f} s | combos {combos} | winners "
+            f"{winners}")
+
+        # 2. train on the card and on the CPU
+        t0 = time.perf_counter()
+        card = dm.DispatchModel.train(samples)
+        torch.cuda.synchronize()
+        out["train_card_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = dm.DispatchModel.train(samples, device="cpu")
+        out["train_cpu_s"] = time.perf_counter() - t0
+        dw = float(np.abs(card.w - cpu.w).max())
+        dw_seen, dw_flat, sv = _weight_split(np, dm, card, cpu, samples)
+        db = float(np.abs(card.bias - cpu.bias).max())
+        dp_ = max(abs(math.log(card.predict(s["features"])[c])
+                      - math.log(cpu.predict(s["features"])[c]))
+                  for s in samples for c in card.candidates)
+        ds = abs(card.sigma - cpu.sigma)
+        dc = 0.0
+        for s in samples:
+            a, b = card.select(s["features"]), cpu.select(s["features"])
+            if a.combo != b.combo:
+                raise AssertionError(f"learned: card picks {a.combo}, CPU "
+                                     f"{b.combo} on {s['key']}")
+            dc = max(dc, abs(a.confidence - b.confidence))
+        if card.candidates != cpu.candidates or dp_ > PRED_ATOL or \
+                db > BIAS_ATOL or ds > SIGMA_ATOL or dc > CONF_ATOL or \
+                dw_seen > W_ATOL or not np.array_equal(card.mean, cpu.mean) \
+                or not np.array_equal(card.std, cpu.std):
+            raise AssertionError(f"learned: card vs CPU model |dpred| {dp_}"
+                                 f", |db| {db}, |dsigma| {ds}, |dconf| {dc}"
+                                 f", |dw| seen {dw_seen} flat {dw_flat}")
+        out.update(dw=dw, dw_seen=dw_seen, dw_flat=dw_flat,
+                   singular_values=sv, dpred=dp_, db=db, dsigma=ds,
+                   dconf=dc, sigma=card.sigma, candidates=card.candidates)
+        log(f"learned: trained on the card in {out['train_card_s']:.2f} s "
+            f"(CPU {out['train_cpu_s']:.2f} s), sigma {card.sigma:.4f}, "
+            f"loss {card.train_loss:.5f} | card vs CPU: |dlog-cost| "
+            f"{dp_:.2e} (limit {PRED_ATOL}), |dbias| {db:.2e}, |dsigma| "
+            f"{ds:.2e}, |dconf| {dc:.2e}, the same pick on all "
+            f"{len(samples)} samples | |dw| {dw:.2e}: {dw_seen:.2e} on "
+            f"the directions the samples determine (limit {W_ATOL}), "
+            f"{dw_flat:.2e} on the flat ones (singular value < "
+            f"{FLAT_SHARE} x the largest; the standardised features' "
+            f"singular values {[round(x, 4) for x in sv]})")
+
+        # 3. plan on new operands beside a fresh cache: the CLI's traffic
+        # at another seed, where the engines' times lie close, and the
+        # SuiteSparse-scale matrices, which no sweep saw
+        new_ops = per_key(traffic(1) + [mats[n] for n in LEARNED_NEW])
+        fresh = dp.AutotuneCache(os.path.join(tmp, "fresh.json"))
+        card.save(dp.model_path_for(fresh))
+        n_model = n_other = n_ties = 0
+        engines = {}
+        dp_new = 0.0
+        for A in new_ops:
+            info = dp.explain(A, A, cache=fresh)["model"]
+            p = dp.plan(A, A, cache=fresh)
+            confident = bool(info and info["confident"])
+            if confident != (p.source == "model"):
+                raise AssertionError(f"learned: plan source {p.source}, "
+                                     f"explain {info}")
+            # the card's and the CPU's model on this operand: every
+            # log-cost within PRED_ATOL, and the same pick among the
+            # card's candidates unless the card's two best lie within
+            # the two models' tolerance of each other
+            feats = dp.extract_features(A, A)
+            pc, pu = card.predict(feats), cpu.predict(feats)
+            dp_new = max(dp_new, max(abs(math.log(pc[c]) - math.log(pu[c]))
+                                     for c in card.candidates))
+            allowed = dp._model_candidates(dp.cache_key(A, A), "auto",
+                                           fresh, "cuda")
+            a, b = card.select(feats, allowed), cpu.select(feats, allowed)
+            if (a is None) != (b is None):
+                raise AssertionError(f"learned: card {a}, CPU {b}")
+            if a is not None and a.combo != b.combo:
+                two = sorted(math.log(t) for t in a.costs.values())[:2]
+                if len(two) < 2 or two[1] - two[0] > 2 * PRED_ATOL:
+                    raise AssertionError(
+                        f"learned: on a new operand the card picks "
+                        f"{a.combo}, the CPU {b.combo}")
+                n_ties += 1
+            if not confident:
+                n_other += 1
+                continue
+            n_model += 1
+            engines[p.engine] = engines.get(p.engine, 0) + 1
+            if dp.get_engine(p.engine).on_host:
+                raise AssertionError(f"learned: the model planned the host "
+                                     f"engine {p.engine} on the card")
+            got = dp.execute(p, A, A)
+            want = dp.spgemm(A, A, engine=p.engine,
+                             **({"backend": p.backend} if p.backend else {}))
+            if not _csr_equal(np, csr_to_numpy(got), csr_to_numpy(want)):
+                raise AssertionError(f"learned: model plan {p.engine} "
+                                     f"differs from its direct call")
+        if not n_model:
+            raise AssertionError("learned: the model was never confident")
+        if dp_new > PRED_ATOL:
+            raise AssertionError(f"learned: on the new operands the card's "
+                                 f"and the CPU's model differ by {dp_new} "
+                                 f"in a log-cost")
+        out.update(n_model=n_model, n_other=n_other, engines=engines,
+                   dpred_new=dp_new, ties_new=n_ties)
+        log(f"learned: {len(new_ops)} new operands, {n_model} planned by "
+            f"the model (engines {engines}, none on the host), {n_other} "
+            f"below the confidence floor (heuristic) | every model plan's "
+            f"result bit-identical to its engine's direct call | card vs "
+            f"CPU model on them: |dlog-cost| {dp_new:.2e} (limit "
+            f"{PRED_ATOL}), the same pick on {len(new_ops) - n_ties}, "
+            f"{n_ties} ties within {2 * PRED_ATOL} in log-cost")
+
+        # 4. plan µs: the model rung against the table, cold and memo hit,
+        # on the operands the model planned
+        def plan_us(path, with_model):
+            """(source, cold µs, memo-hit µs) of each of ``new_ops``, on
+            a default cache of its own (the plan memo keys on it)."""
+            dp._default_cache = dp.AutotuneCache(path)
+            if with_model:
+                card.save(dp.model_path_for(dp._default_cache))
+                dp.resolve_model("auto", dp._default_cache)  # load once
+            rows = []
+            for A in new_ops:
+                t0 = time.perf_counter()
+                p = dp.plan(A, A)
+                cold = (time.perf_counter() - t0) * 1e6
+                t0 = time.perf_counter()
+                if dp.plan(A, A) is not p:
+                    raise AssertionError("learned: second plan not a memo "
+                                         "hit")
+                rows.append((p.source, cold,
+                             (time.perf_counter() - t0) * 1e6))
+            return rows
+
+        m_rows = plan_us(os.path.join(tmp, "m.json"), True)
+        h_rows = plan_us(os.path.join(tmp, "h.json"), False)
+        picked = [i for i, r in enumerate(m_rows) if r[0] == "model"]
+        if len(picked) != n_model or any(h_rows[i][0] != "heuristic"
+                                         for i in picked):
+            raise AssertionError(f"learned: plan sources {m_rows} / "
+                                 f"{h_rows}")
+        for key, rows in (("model", m_rows), ("heuristic", h_rows)):
+            out[f"{key}_cold_us"] = statistics.median(rows[i][1]
+                                                      for i in picked)
+            out[f"{key}_hit_us"] = statistics.median(rows[i][2]
+                                                     for i in picked)
+        log(f"learned: plan on the {len(picked)} operands the model "
+            f"planned, median: through the model rung "
+            f"{out['model_cold_us']:.0f} us cold, {out['model_hit_us']:.1f} "
+            f"us memo hit | the heuristic table (no artifact) "
+            f"{out['heuristic_cold_us']:.0f} us cold (it writes the cache "
+            f"file), {out['heuristic_hit_us']:.1f} us memo hit")
+    finally:
+        dp._default_cache = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def _count_waits(torch, fn):
     """``fn()`` and the host's waits for the card inside it, counted by
     PyTorch's sync debug mode (one warning per synchronizing operation).
@@ -2353,6 +2975,10 @@ def main() -> int:
                                                   res["spgemm"][1])),
               ("service", lambda: phase_service(torch, np, res["inputs"][0],
                                                 res["spgemm"][1])),
+              ("pool", lambda: phase_pool(torch, np, res["inputs"][0],
+                                          res["spgemm"][1])),
+              ("learned", lambda: phase_learned(torch, np,
+                                                res["inputs"][0])),
               ("serve", lambda: phase_serve(torch, np)),
               ("profile", lambda: phase_profile(torch, np, res["serve"])),
               ("moe", lambda: phase_moe(torch, np, res["serve"])))
@@ -2403,6 +3029,9 @@ def main() -> int:
     service = res["service"]["counts"]
     log("kernels: service path " + ", ".join(
         f"{k}={v}" for k, v in service.items()))
+    pool = res["pool"]["counts"]
+    log("kernels: pool path (in the workers) " + ", ".join(
+        f"{k}={v}" for k, v in pool.items()))
     table = []
     for key, r in rows.items():
         kernel = key.split(".")[0]
@@ -2412,6 +3041,7 @@ def main() -> int:
                       "replaces": replaces, "launches": launches,
                       "service_launches": service.get(
                           key, service.get(kernel, 0)),
+                      "pool_launches": pool.get(key, pool.get(kernel, 0)),
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "wrapper_ms": r["wrapper_ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

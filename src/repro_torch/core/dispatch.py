@@ -34,10 +34,14 @@ layer, split into a **selection** phase and an **execution** phase:
     capacity, ``spz`` through a lock-step driver that packs rows from
     every batch lane into shared groups of S streams.
 
-The reference's learned dispatch model (the ``"model"`` rung of the
-ladder) is not ported yet: ``model="auto"`` (the default), ``None`` and
-``False`` act as if no trained model exists, and any other value raises
-``NotImplementedError`` (ROADMAP.md queue 1, item 8).
+The **learned dispatch model** (``models/dispatch_model.py``) is the
+selection ladder's rung between a cache hit and measurement: a
+``DispatchModel`` trained from the cache's timing vectors, kept next to
+the cache file (``<cache>.model.json``, so processes sharing a cache
+share its model), plans a cache miss at once (``source="model"``) when
+it is confident, among the combos measurable on the plan's device; a
+model that never saw those combos (one trained on the CPU, asked on a
+card) abstains and selection falls through.
 
 The serving layer's warm pool closes the module: :func:`warm_bucket` runs
 one flush-shaped sharded pass over a pad bucket before its first request
@@ -91,7 +95,8 @@ class EngineSpec:
     a driver for :func:`spgemm_batched`; ``measure`` engines are autotune
     candidates; ``backend_aware`` engines take a ``backend=``
     kernel-backend kwarg, resolved once at plan time from the registry
-    in ``kernels/backend.py``."""
+    in ``kernels/backend.py``; ``on_host`` engines compute with numpy on
+    the CPU whatever ``device`` they return on."""
 
     name: str
     fn: Callable
@@ -99,6 +104,7 @@ class EngineSpec:
     batchable: bool = False
     measure: bool = True  # candidate for autotune measurement
     backend_aware: bool = False
+    on_host: bool = False
     description: str = ""
 
 
@@ -128,10 +134,12 @@ def available_engines() -> dict[str, EngineSpec]:
 
 register_engine("scl-array",
                 lambda A, B, *, device: sg.spgemm_scl_array(A, B).to(device),
+                on_host=True,
                 description="scalar row loop, dense accumulator row (oracle)")
 register_engine("scl-hash",
                 lambda A, B, *, device: sg.spgemm_scl_hash(A, B,
                                                            device=device),
+                on_host=True,
                 description="scalar row loop, hash-style unique/accumulate")
 register_engine("esc", sg.spgemm_esc, batchable=True,
                 description="vectorized Expand-Sort-Compress (vec-radix)")
@@ -679,9 +687,12 @@ class AutotuneCache:
                 self.version += 1
             return changed
 
-    def _flush(self) -> None:
+    def _flush(self, merge: bool = True) -> None:
         """Merge the on-disk entries in and publish the result; callers
-        hold ``self._mu``."""
+        hold ``self._mu``.  ``merge=False`` writes the in-memory view
+        verbatim — maintenance rewrites (``compact --drop-timings``)
+        that must NOT re-union the on-disk dataset fields they just
+        stripped."""
         tmp = None
         lock = None
         try:
@@ -693,7 +704,8 @@ class AutotuneCache:
                 lock = None
                 return
             fi.fire("autotune.flush", path=self.path)
-            self._merge_from(self._read_disk() or {})
+            if merge:
+                self._merge_from(self._read_disk() or {})
             fd, tmp = tempfile.mkstemp(
                 dir=os.path.dirname(self.path) or ".",
                 prefix=os.path.basename(self.path) + ".tmp.")
@@ -749,14 +761,112 @@ def default_cache() -> AutotuneCache:
     return _default_cache
 
 
-def _check_model(model) -> None:
-    """The learned-dispatch rung is not ported: "auto" (no trained model
-    exists yet), None and False are accepted and select nothing."""
-    if model not in ("auto", None, False):
-        raise NotImplementedError(
-            "learned dispatch (a DispatchModel passed as model=) is not "
-            "ported yet: ROADMAP.md queue 1, item 8; pass model='auto', "
-            "None or False")
+# ---------------------------------------------------------------------------
+# learned cost-model selection (models/dispatch_model.py artifacts)
+# ---------------------------------------------------------------------------
+
+# the model artifact lives NEXT TO the cache file it was trained from:
+# the cache is the dataset, the model is its fitted view, and serving
+# processes that share the cache path automatically share the model
+MODEL_SUFFIX = ".model.json"
+
+
+def model_path_for(cache: AutotuneCache) -> str:
+    """Default on-disk path of the dispatch model trained from ``cache``."""
+    return cache.path + MODEL_SUFFIX
+
+
+_model_mu = threading.Lock()
+# path -> (mtime_ns, model-or-None): a retrained artifact (new mtime) is
+# picked up on the next plan without a restart; a corrupt one caches as
+# None so selection does not re-parse it per plan
+_model_memo: dict[str, tuple[int, Any]] = {}
+
+
+def _artifact_mtime_ns(path: str) -> Optional[int]:
+    try:
+        return os.stat(path).st_mtime_ns
+    except OSError:
+        return None
+
+
+def resolve_model(model, cache: AutotuneCache):
+    """Resolve plan()'s ``model`` request to a DispatchModel or None.
+
+    ``"auto"`` loads (and memoizes, keyed on file mtime) the artifact
+    next to the cache file — absent or unreadable artifacts resolve to
+    None and selection falls through to measurement/heuristics; a
+    DispatchModel instance is used as-is; False/None disables."""
+    if model in (False, None):
+        return None
+    if model != "auto":  # an explicit DispatchModel (tests, notebooks)
+        return model
+    path = model_path_for(cache)
+    mtime = _artifact_mtime_ns(path)
+    if mtime is None:
+        return None
+    with _model_mu:
+        hit = _model_memo.get(path)
+        if hit is not None and hit[0] == mtime:
+            return hit[1]
+    from repro_torch.models import dispatch_model as dm
+    try:
+        loaded = dm.DispatchModel.load(path)
+    except Exception:
+        # a corrupt/foreign artifact must never fail a plan
+        loaded = None
+    with _model_mu:
+        _model_memo[path] = (mtime, loaded)
+    return loaded
+
+
+def _model_token(model, cache: AutotuneCache) -> Optional[tuple]:
+    """Hashable identity of the model a plan would consult — keyed into
+    the plan memo so a retrained artifact invalidates memoized plans."""
+    if model in (False, None):
+        return None
+    if model != "auto":
+        return ("obj", id(model))
+    return ("file", _artifact_mtime_ns(model_path_for(cache)))
+
+
+def _model_candidates(key: str, backend: str, cache: AutotuneCache,
+                      device) -> set:
+    """Combo strings ("engine|backend") legal for this request on
+    ``device``: every candidate the autotune sweep would measure there
+    (``_measure_candidates``) minus quarantined combos, and on a card
+    minus the engines that compute on the host, so that the model never
+    moves a card's multiply to the CPU.  A pinned backend restricts
+    backend-aware engines to it, exactly like the sweep.
+
+    One ``quarantined()`` snapshot instead of per-combo
+    ``is_quarantined`` checks: this runs on the plan hot path and each
+    check is a lock round-trip."""
+    poisoned = {combo_str(e, b) for e, b in cache.quarantined(key)}
+    on_card = torch.device(device).type == "cuda"
+    allowed = set()
+    for name, bk_name in _measure_candidates(backend, device):
+        if on_card and _REGISTRY[name].on_host:
+            continue
+        c = combo_str(name, bk_name)
+        # an engine-wide quarantine (backend=None) poisons every backend
+        if c in poisoned or combo_str(name, None) in poisoned:
+            continue
+        allowed.add(c)
+    return allowed
+
+
+def _model_select(model, feats: dict, key: str, backend: str,
+                  cache: AutotuneCache, device):
+    """One model-based selection attempt; None when the model abstains
+    (no healthy candidate it knows, or a prediction failure)."""
+    if model is None:
+        return None
+    try:
+        return model.select(feats, allowed=_model_candidates(
+            key, backend, cache, device))
+    except Exception:
+        return None  # a broken model must never fail a plan
 
 
 # ---------------------------------------------------------------------------
@@ -852,7 +962,8 @@ class ExecutionPlan:
     kwargs: tuple               # sorted (name, value) pairs, plan-resolved
     work_bucket: tuple          # (nnz bucket A, nnz bucket B)
     cache_key: str              # autotune-cache key the selection used
-    source: str    # "explicit" | "heuristic" | "cache" | "autotune" | "fallback"
+    # "explicit" | "heuristic" | "cache" | "model" | "autotune" | "fallback"
+    source: str
     rule: Optional[str] = None  # heuristic rule that fired (source="heuristic")
     batch: Optional[int] = None  # lane capacity (batched plans only)
     backend: Optional[str] = None  # resolved kernel backend (aware engines)
@@ -965,13 +1076,18 @@ def plan(A: CSR, B: CSR, engine: str = "auto", *,
              input once and cache the winner for the shape/nnz bucket.
     cache:   AutotuneCache override (default: process-wide disk cache).
              Non-default ``rules`` bypass the cache entirely.
-    model:   the learned-selection rung is not ported: "auto" (default),
-             None or False select nothing; anything else raises
-             ``NotImplementedError``.
+    model:   learned-selection request.  "auto" (default) consults the
+             trained dispatch model artifact next to the cache file, if
+             one exists; a DispatchModel instance uses it directly;
+             False/None disables learned selection.  The model sits
+             between cache-hit and measurement in the ladder: a
+             confident prediction among the combos measurable on
+             ``device`` plans immediately (``source="model"``), a
+             low-confidence one falls through to measurement
+             (``autotune=True``) or heuristics.
 
     Repeat plans on the *same matrix objects* are memoized on operand
     identity and skip selection entirely."""
-    _check_model(model)
     if A.n_cols != B.n_rows:
         raise ValueError(f"inner dims differ: {A.shape} @ {B.shape}")
     dev = resolve_device(device)
@@ -983,7 +1099,7 @@ def plan(A: CSR, B: CSR, engine: str = "auto", *,
     if engine == "auto" and use_cache and cache is default_cache():
         try:
             memo_extra = ("plan", backend, dev, autotune, cache.version,
-                          _sorted_kwargs(kw))
+                          _model_token(model, cache), _sorted_kwargs(kw))
             hit = _plan_memo.get(A, B, memo_extra)
             if hit is not None:
                 return hit
@@ -1009,43 +1125,59 @@ def plan(A: CSR, B: CSR, engine: str = "auto", *,
         if hit is not None and (hit["source"] == "autotune" or not autotune):
             selected, source = hit["engine"], "cache"
             sel_bk = hit.get("backend")
-        elif autotune:
-            timings: dict[tuple, float] = {}
-            for name, bk_name in _measure_candidates(backend, dev):
-                if cache.is_quarantined(key, name, bk_name):
-                    continue
-                try:
-                    timings[(name, bk_name)] = _measure(
-                        get_engine(name), A, B, backend=bk_name, device=dev)
-                except kb.KERNEL_ERRORS:
-                    raise  # a kernel that cannot run is a fault, not a loss
-                except Exception as e:
-                    # a candidate that dies mid-sweep is quarantined and
-                    # the sweep continues on the healthy candidates
-                    cache.quarantine(key, name, bk_name,
-                                     reason=f"{type(e).__name__}: {e}")
-            if timings:
-                (selected, sel_bk), source = \
-                    min(timings, key=timings.get), "autotune"
-                cache.put(key, selected, "autotune", backend=sel_bk,
-                          timings={combo_str(n, b): t
-                                   for (n, b), t in timings.items()},
-                          features=extract_features(A, B))
-            else:  # nothing measurable survived: heuristic fallback
+        else:
+            # the learned-model rung: a cache miss asks the trained cost
+            # model for an argmin over predicted runtimes.  A confident
+            # prediction plans right here; a low-confidence one (or no
+            # artifact) falls through to measurement / heuristics
+            sel = None
+            if use_cache:
+                mdl = resolve_model(model, cache)
+                sel = _model_select(mdl, extract_features(A, B), key,
+                                    backend, cache, dev)
+                if sel is not None and not sel.confident:
+                    sel = None
+            if sel is not None:
+                selected, sel_bk, source = sel.engine, sel.backend, "model"
+            elif autotune:
+                timings: dict[tuple, float] = {}
+                for name, bk_name in _measure_candidates(backend, dev):
+                    if cache.is_quarantined(key, name, bk_name):
+                        continue
+                    try:
+                        timings[(name, bk_name)] = _measure(
+                            get_engine(name), A, B, backend=bk_name,
+                            device=dev)
+                    except kb.KERNEL_ERRORS:
+                        raise  # a kernel that cannot run is a fault
+                    except Exception as e:
+                        # a candidate that dies mid-sweep is quarantined
+                        # and the sweep continues on the healthy ones
+                        cache.quarantine(key, name, bk_name,
+                                         reason=f"{type(e).__name__}: {e}")
+                if timings:
+                    (selected, sel_bk), source = \
+                        min(timings, key=timings.get), "autotune"
+                    cache.put(key, selected, "autotune", backend=sel_bk,
+                              timings={combo_str(n, b): t
+                                       for (n, b), t in timings.items()},
+                              features=extract_features(A, B))
+                else:  # nothing measurable survived: heuristic fallback
+                    selected, rule = choose_engine(extract_features(A, B),
+                                                   rules)
+                    selected, _ = _dequarantine(selected, key, backend,
+                                                cache, dev)
+                    source = "heuristic"
+            else:
                 selected, rule = choose_engine(extract_features(A, B),
                                                rules)
-                selected, _ = _dequarantine(selected, key, backend, cache,
-                                            dev)
                 source = "heuristic"
-        else:
-            selected, rule = choose_engine(extract_features(A, B), rules)
-            source = "heuristic"
-            if use_cache:
-                remapped, was_q = _dequarantine(selected, key, backend,
-                                                cache, dev)
-                if was_q:
-                    selected, rule = remapped, "quarantine-fallback"
-                cache.put(key, selected, "heuristic")
+                if use_cache:
+                    remapped, was_q = _dequarantine(selected, key, backend,
+                                                    cache, dev)
+                    if was_q:
+                        selected, rule = remapped, "quarantine-fallback"
+                    cache.put(key, selected, "heuristic")
     spec = get_engine(selected)
     resolved = _filter_kwargs(spec.fn, kw) if engine == "auto" else dict(kw)
     resolved["device"] = dev
@@ -1324,9 +1456,12 @@ def explain(A: CSR, B: CSR,
     ``backend`` is the kernel backend a plan for this (engine, request)
     would run on ``device`` — an autotuned backend recorded for the
     bucket beats the "auto" default, exactly as in :func:`plan`; ``None``
-    for engines that take no kernel backend.  ``model`` is always None:
-    the learned-dispatch rung is not ported."""
-    _check_model(model)
+    for engines that take no kernel backend.  ``model`` is the learned
+    dispatch view of the same request when a trained model resolves:
+    predicted winner, calibrated confidence, whether that clears the
+    confidence floor (whether :func:`plan` would take it), predicted
+    costs in seconds per combo measurable on ``device``, and the
+    artifact version; ``None`` when no model is available."""
     dev = resolve_device(device)
     feats = extract_features(A, B)
     engine, rule = choose_engine(feats, rules)
@@ -1337,8 +1472,17 @@ def explain(A: CSR, B: CSR,
     cached_bk = hit.get("backend") if hit else None
     plan_bk, _ = _resolve_plan_backend(get_engine(engine), backend,
                                        cached_bk, {}, dev, strict=False)
+    mdl = resolve_model(model, cache)
+    sel = _model_select(mdl, feats, key, backend, cache, dev)
+    model_info = None
+    if sel is not None:
+        model_info = {"engine": sel.engine, "backend": sel.backend,
+                      "confidence": sel.confidence,
+                      "confident": sel.confident,
+                      "costs": dict(sel.costs),
+                      "version": getattr(mdl, "version", None)}
     return {"engine": engine, "rule": rule, "backend": plan_bk,
-            "features": feats, "cache_key": key, "model": None}
+            "features": feats, "cache_key": key, "model": model_info}
 
 
 # ---------------------------------------------------------------------------
@@ -1508,8 +1652,9 @@ def plan_batched(A: BatchedCSR, B: BatchedCSR, engine: str = "auto", *,
     and the kernel backend (spz), resolved exactly like :func:`plan`.
 
     lane_work_hint: per-lane total row_work, if the caller already
-    computed it — skips the recompute when sizing the esc capacity."""
-    _check_model(model)
+    computed it — skips the recompute when sizing the esc capacity.
+
+    model: as in :func:`plan`, on the heaviest lane's features."""
     check_batch(A, B)
     dev = resolve_device(device)
     kb.resolve_backend(backend, dev)  # validate the request up front
@@ -1535,16 +1680,30 @@ def plan_batched(A: BatchedCSR, B: BatchedCSR, engine: str = "auto", *,
             selected, source = hit["engine"], "cache"
             sel_bk = hit.get("backend")
         else:
-            selected, rule = choose_engine(
-                extract_features(A[i_heavy], B[i_heavy]), rules)
-            source = "heuristic"
+            # same model rung as plan(): a confident learned prediction
+            # (on the heaviest lane's features) beats the rules table;
+            # the selection flows through _BATCH_FALLBACK below like
+            # every other source
+            # one lane view per call: the feature memo keys on identity
+            feats = extract_features(A[i_heavy], B[i_heavy])
+            sel = None
             if use_cache:
-                remapped_q, was_q = _dequarantine(
-                    _BATCH_FALLBACK.get(selected, selected), key,
-                    backend, cache, dev)
-                if was_q:
-                    selected, rule = remapped_q, "quarantine-fallback"
-                cache.put(key, selected, "heuristic")
+                mdl = resolve_model(model, cache)
+                sel = _model_select(mdl, feats, key, backend, cache, dev)
+                if sel is not None and not sel.confident:
+                    sel = None
+            if sel is not None:
+                selected, sel_bk, source = sel.engine, sel.backend, "model"
+            else:
+                selected, rule = choose_engine(feats, rules)
+                source = "heuristic"
+                if use_cache:
+                    remapped_q, was_q = _dequarantine(
+                        _BATCH_FALLBACK.get(selected, selected), key,
+                        backend, cache, dev)
+                    if was_q:
+                        selected, rule = remapped_q, "quarantine-fallback"
+                    cache.put(key, selected, "heuristic")
     remapped = _BATCH_FALLBACK.get(selected, selected)
     spec = get_engine(remapped)
     if not spec.batchable or remapped not in _BATCH_DRIVERS:

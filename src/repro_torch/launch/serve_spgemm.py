@@ -1,6 +1,6 @@
 """Continuous SpGEMM serving CLI: synthetic mixed traffic -> SpGemmService.
 
-Port of ``repro.launch.serve_spgemm``, in process.  Generates a stream of
+Port of ``repro.launch.serve_spgemm``.  Generates a stream of
 mixed-shape, mixed-density sparse multiply requests (the request mix the
 dispatch heuristics distinguish), feeds them through the bucketed
 service with work-balanced lane sharding, and reports throughput,
@@ -24,9 +24,16 @@ pool) and warms the traffic mix's pad buckets before the first request:
   PYTHONPATH=src python -m repro_torch.launch.serve_spgemm --requests 200 \\
       --async-flushes 2 --warm
 
-The reference's multi-process mode (``--workers``, ``--kill-worker-proc``)
-belongs to the worker-process coordinator, which is not ported: either
-option exits non-zero.
+Multi-process mode spreads flushes over a supervised pool of spawned
+worker processes (``runtime/coordinator.py``), every worker on the
+service's lane devices (on one card, all share it); ``--kill-worker-proc``
+SIGKILLs worker process 0 mid-flush (the flush re-runs on a survivor;
+availability stays 1.0):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve_spgemm --requests 200 \\
+      --workers 2
+  PYTHONPATH=src python -m repro_torch.launch.serve_spgemm --device cpu \\
+      --requests 40 --workers 2 --kill-worker-proc --inject-rate 0.1
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ from repro_torch.core.formats import random_sparse
 from repro_torch.core.spgemm import spgemm_scl_array
 from repro_torch.distributed import spgemm_shard as shard
 from repro_torch.runtime import faultinject as fi
+from repro_torch.runtime.coordinator import ProcessCoordinator
 from repro_torch.serving.plan_warmer import PlanWarmer
 from repro_torch.serving.spgemm_service import SpGemmService
 
@@ -56,10 +64,6 @@ TRAFFIC_MIX = (
     (128, 0.01, "uniform"),
     (128, 0.03, "powerlaw"),
 )
-
-COORDINATOR_SLICE = ("the worker-process coordinator is not ported yet "
-                     "(ROADMAP.md queue 1, item 7b)")
-
 
 def make_traffic(n_requests: int, seed: int = 0) -> list:
     """Pre-generate (A, B) request pairs drawn from the traffic mix, on
@@ -109,15 +113,18 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--chaos-seed", type=int, default=0,
                     help="seed for the fault-injection RNG")
     ap.add_argument("--workers", type=int, default=0, metavar="N",
-                    help="multi-process mode: not ported (exits non-zero "
-                         "for N > 0)")
+                    help="multi-process mode: dispatch flushes to a "
+                         "supervised pool of N spawned worker processes "
+                         "(0 = in-process serving)")
     ap.add_argument("--kill-worker-proc", action="store_true",
-                    help="multi-process chaos: not ported (exits non-zero)")
+                    help="SIGKILL worker process 0 once, mid-flush "
+                         "(requires --workers >= 1)")
     ap.add_argument("--async-flushes", type=int, default=0, metavar="N",
                     help="run flushes on an executor pool of N threads: "
                          "admission never blocks on execution and "
                          "concurrent buckets overlap (0 = synchronous "
-                         "inline flushes)")
+                         "inline flushes; not with --workers, where the "
+                         "process pool is the async vehicle)")
     ap.add_argument("--warm", action="store_true",
                     help="warm the traffic mix's pad buckets (plus their "
                          "pow2 neighbors) before the first request, and "
@@ -130,18 +137,42 @@ def _parser() -> argparse.ArgumentParser:
 
 def run(argv=None) -> dict:
     """Serve the traffic ``argv`` describes and print the report; returns
-    ``{"service", "wall_s", "warm_s", "snap", "all", "steady"}`` (the
-    closed service, the stats of every request and of the steady state
-    after the warm-up window).  Raises ``SystemExit`` for the options of
-    the worker-process mode."""
-    args = _parser().parse_args(argv)
-    if args.workers > 0 or args.kill_worker_proc:
-        raise SystemExit(f"--workers/--kill-worker-proc: {COORDINATOR_SLICE}")
+    ``{"service", "wall_s", "warm_s", "snap", "all", "steady", "pool"}``
+    (the closed service, the stats of every request and of the steady
+    state after the warm-up window, and under ``--workers`` the pool's
+    startup seconds, supervision events and live workers at drain)."""
+    ap = _parser()
+    args = ap.parse_args(argv)
+    if args.workers > 0 and args.async_flushes > 0:
+        ap.error("--async-flushes and --workers exclude each other: the "
+                 "process pool is the async vehicle")
     devices = shard.lane_devices(args.device)
     cache = dp.AutotuneCache(args.cache or os.path.join(
         tempfile.mkdtemp(prefix="serve_spgemm_"), "autotune.json"))
     policy = dp.RetryPolicy(max_attempts=args.max_attempts,
                             deadline_s=args.deadline)
+    coordinator, pool = None, None
+    if args.workers > 0:
+        # chaos specs are re-armed *inside* each worker process (they
+        # must be picklable, so the in-process kill_worker_spec does not
+        # apply there; --kill-worker-proc kills the real process)
+        pool_specs: dict = {}
+        if args.inject_rate > 0.0:
+            common = [fi.FaultSpec(site="kernel.batched", kind="raise",
+                                   rate=args.inject_rate)]
+            pool_specs = {i: list(common) for i in range(args.workers)}
+        if args.kill_worker_proc:
+            pool_specs.setdefault(0, []).append(
+                fi.FaultSpec(site="service.flush", kind="kill_process",
+                             max_fires=1))
+        t_pool = time.perf_counter()
+        coordinator = ProcessCoordinator(
+            args.workers, devices=list(devices), cache_path=cache.path,
+            fault_specs=pool_specs or None,
+            fault_seed=args.chaos_seed)
+        pool = {"start_s": time.perf_counter() - t_pool}
+        print(f"# pool: {args.workers} workers on {devices[0]} started in "
+              f"{pool['start_s']:.2f}s")
     warmer = None
     if args.warm:
         # one representative pair per traffic class, at nominal density;
@@ -152,7 +183,8 @@ def run(argv=None) -> dict:
     service = SpGemmService(max_batch=args.max_batch,
                             flush_timeout=args.timeout,
                             engine=args.engine, devices=devices, cache=cache,
-                            policy=policy, async_flushes=args.async_flushes,
+                            policy=policy, coordinator=coordinator,
+                            async_flushes=args.async_flushes,
                             warmer=warmer)
     warm_s = None
     try:
@@ -163,7 +195,7 @@ def run(argv=None) -> dict:
             print(f"# prewarmed {n_warmed} pad buckets in {warm_s:.2f}s "
                   f"({warmer.stats()['failed']} failed)")
         specs = []
-        if args.inject_rate > 0.0:
+        if args.workers == 0 and args.inject_rate > 0.0:
             specs.append(fi.FaultSpec(site="kernel.batched", kind="raise",
                                       rate=args.inject_rate))
         if args.kill_worker is not None:
@@ -192,6 +224,16 @@ def run(argv=None) -> dict:
         wall = time.perf_counter() - t0
     finally:
         service.close()
+        if coordinator is not None:
+            pool["events"] = list(coordinator.events)
+            pool["alive"] = coordinator.alive_count
+            coordinator.shutdown()
+    if pool is not None:
+        events = [e["event"] for e in pool["events"]]
+        print(f"# pool: {args.workers} workers, {pool['alive']} alive at "
+              "drain | events: "
+              + ",".join(f"{e}x{events.count(e)}"
+                         for e in sorted(set(events))))
 
     full = service.stats()
     steady = service.stats(since_request=snap[0], since_flush=snap[1])
@@ -209,7 +251,8 @@ def run(argv=None) -> dict:
               f"plan_hit_rate={s.get('plan_hit_rate', 0.0):.2f}"
               + (f" | warm_hit_rate={s.get('warm_hit_rate', 0.0):.2f}"
                  if args.warm else ""))
-    if args.inject_rate > 0.0 or args.kill_worker is not None:
+    if args.inject_rate > 0.0 or args.kill_worker is not None \
+            or args.kill_worker_proc:
         tiers: dict = {}
         for r in service.completed:
             tiers[r.tier] = tiers.get(r.tier, 0) + 1
@@ -235,7 +278,7 @@ def run(argv=None) -> dict:
         print(f"verified {len(service.completed)} results against "
               "the scl-array oracle")
     return {"service": service, "wall_s": wall, "warm_s": warm_s,
-            "snap": snap, "all": full, "steady": steady}
+            "snap": snap, "all": full, "steady": steady, "pool": pool}
 
 
 def main(argv=None) -> int:

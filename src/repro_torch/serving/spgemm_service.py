@@ -1,19 +1,18 @@
 """Continuous SpGEMM serving: admission -> bucketed lanes -> plan.
 
-Port of ``repro.serving.spgemm_service``, in process (the reference's
-worker-process coordinator is not ported: ``coordinator=`` anything but
-None raises).  The dispatch layer's caches only pay off under a *stream*
-of requests.  Callers ``submit`` CSR pairs of mixed shapes and
-densities; requests are queued per **pad bucket** (operand shapes +
-power-of-two nnz bounds), so every flush of a bucket builds
-``BatchedCSR`` lanes with identical tensor shapes and lands on one plan;
-a bucket flushes when it reaches ``max_batch`` lanes or its oldest
-request ages past ``flush_timeout``.  Execution goes through the
+Port of ``repro.serving.spgemm_service``.  The dispatch layer's caches
+only pay off under a *stream* of requests.  Callers ``submit`` CSR pairs
+of mixed shapes and densities; requests are queued per **pad bucket**
+(operand shapes + power-of-two nnz bounds), so every flush of a bucket
+builds ``BatchedCSR`` lanes with identical tensor shapes and lands on
+one plan; a bucket flushes when it reaches ``max_batch`` lanes or its
+oldest request ages past ``flush_timeout``.  Execution goes through the
 work-balanced sharded plan path (``distributed/spgemm_shard.py``) on the
 service's devices (every card unless the caller names others; the first
 is the service's device, where requests' operands and results live), and
 every flush records its plan provenance — after warm-up, selections come
-from the autotune cache and the plan hit rate approaches 1.
+from the autotune cache (or a confident dispatch model) and the plan hit
+rate approaches 1.
 
 **Async flushes**: with ``async_flushes > 0`` a full or timed-out bucket
 is handed to a flush executor thread and ``submit`` returns at once;
@@ -26,12 +25,19 @@ no other; so a result made on a flush thread and read on the caller's
 thread is ordered without events or ``record_stream``, and the caching
 allocator cannot hand its memory to the next flush early.
 
+**Worker processes**: with a ``coordinator`` (a :class:`~repro_torch.
+runtime.coordinator.ProcessCoordinator`) a flush is packed (host numpy)
+and dispatched to a worker process, whose local service runs the ladder
+on its lane devices; ``pump``/``drain`` collect finished tasks and
+unpack each result onto this service's device.
+
 **Warming ahead of traffic**: a :class:`~repro_torch.serving.plan_warmer.
-PlanWarmer` predicts upcoming pad buckets and the service warms them on
-the flush executor (or inline, from ``prewarm``) through
-:func:`repro_torch.core.dispatch.warm_bucket`.  Each flush records
-whether its plan was warmed (``FlushRecord.warm_hit``); warmed esc
-capacities seed the bucket's sticky cap so real flushes pin to the
+PlanWarmer` predicts upcoming pad buckets and the service warms them
+through ``{"kind": "warm"}`` pool tasks (landing on the worker that will
+flush the bucket), on the flush executor, or inline from ``prewarm``,
+through :func:`repro_torch.core.dispatch.warm_bucket`.  Each flush
+records whether its plan was warmed (``FlushRecord.warm_hit``); warmed
+esc capacities seed the bucket's sticky cap so real flushes pin to the
 warmed plan identity.
 
 **Failure model**: operands are validated at ``submit``
@@ -44,14 +50,30 @@ finally *isolates* each request alone (:func:`isolation_engine`: ``esc``
 on a card, the reference's ``scl-array`` on the CPU), so one poisoned
 request dead-letters alone.  A lost shard worker is recovered one layer
 down (``_execute_groups``).  Injected faults, ``CorruptOutput`` and
-``WorkerLost`` walk the ladder; a kernel that fails to build or launch,
-or a fault the card reports (``kb.KERNEL_ERRORS``), is never retried,
-degraded or dead-lettered: it raises out of ``submit`` (inline flush),
-``pump``/``drain`` (the one that collects an async flush) or
-``prewarm``.  Every other request resolves: ``result`` on success, or a
-:class:`SpgemmError` on the dead-letter queue.  Per-request deadlines
-(``policy.deadline_s``, on the service clock from submission) bound how
-long a request may be retried.
+``WorkerLost`` walk the ladder.  Every request resolves: ``result`` on
+success, or a :class:`SpgemmError` on the dead-letter queue.
+Per-request deadlines (``policy.deadline_s``, on the service clock from
+submission) bound how long a request may be retried.
+
+Two rules keep a failed kernel visible, in process and across the
+process boundary:
+
+  (a) **A kernel error reaches the caller.**  A kernel that fails to
+      build or launch, or a fault the card reports (``kb.KERNEL_ERRORS``),
+      is never retried, degraded or dead-lettered: it raises out of
+      ``submit`` (inline flush), ``pump``/``drain`` (the one that
+      collects an async flush or a pool task) or ``prewarm``.  From a
+      worker process it comes back marked as a kernel error and is
+      raised here as ``KernelBuildError``/``KernelLaunchError`` naming
+      the worker and its message; it is never re-queued on a survivor
+      nor sent down this process's ladder.  The worker exits and the
+      coordinator respawns it within budget.
+  (b) **Worker loss follows the reference.**  A SIGKILLed or hung worker
+      is not the program's kernels failing: its flush re-runs on a
+      survivor, and when the pool is lost (or ``drain`` times out) the
+      flush runs through this process's ladder — on a card the card's
+      own (``spz-fused/cuda``, then ``esc``, isolation on ``esc``), never
+      the host or the plain tier.
 
 The clock is injectable (and ``submit``/``pump`` take an explicit
 ``now``) so tests drive deterministic virtual traffic; the CLI
@@ -71,7 +93,9 @@ import torch
 from repro_torch.core import dispatch as dp
 from repro_torch.core.formats import CSR, batch_csr, validate_operands
 from repro_torch.distributed import spgemm_shard as shard
+from repro_torch.kernels import _build
 from repro_torch.kernels import backend as kb
+from repro_torch.runtime import coordinator as coord
 from repro_torch.runtime import faultinject as fi
 
 
@@ -160,12 +184,13 @@ class FlushRecord:
     n_failed: int = 0       # requests dead-lettered by this flush
     errors: tuple = ()      # per-attempt error trail (str)
     warm_hit: bool = False  # planned tier landed on a warmed plan
+    # a pool flush: the worker's kernel launch counts for this flush
+    launches: dict = dataclasses.field(default_factory=dict)
 
     @property
     def plan_hit(self) -> bool:
         # selection that skipped measurement and the heuristic table:
-        # a replayed cache entry (the reference also counts its model
-        # rung, which the port does not have)
+        # a replayed cache entry or a confident model prediction
         return self.source in ("cache", "model")
 
     @property
@@ -214,10 +239,22 @@ class SpGemmService:
     warmer:        a :class:`~repro_torch.serving.plan_warmer.PlanWarmer`;
                    when set, ``submit`` feeds it the admission stream,
                    ``pump`` dispatches warm work for the buckets it
-                   predicts (with an executor), and ``prewarm()`` warms
-                   configured traffic classes before the first request.
-    coordinator:   the reference's worker-process pool is not ported;
-                   anything but None raises ``NotImplementedError``."""
+                   predicts (with an executor or a pool), and
+                   ``prewarm()`` warms configured traffic classes before
+                   the first request.
+    coordinator:   a :class:`~repro_torch.runtime.coordinator.
+                   ProcessCoordinator` — when set, flushes are
+                   *dispatched* to its worker processes instead of run
+                   here: ``_flush`` submits a packed task and returns,
+                   ``pump``/``drain`` collect finished tasks.  A worker
+                   lost mid-flush is recovered by the coordinator (re-run
+                   on a survivor); when the whole pool is lost, the
+                   affected requests run through this process's ladder.
+                   A kernel error in a worker raises here (rule (a)).
+    bucket_caps:   optional shared sticky-cap dict (bucket -> esc
+                   cap_products); pool workers pass a per-process dict
+                   so caps — and the warmed plan identities they pin —
+                   survive across their per-task service instances."""
 
     def __init__(self, *, max_batch: int = 8, flush_timeout: float = 0.02,
                  engine: str = "auto",
@@ -228,11 +265,8 @@ class SpGemmService:
                  policy: Optional[dp.RetryPolicy] = None,
                  async_flushes: int = 0,
                  warmer=None,
-                 coordinator=None):
-        if coordinator is not None:
-            raise NotImplementedError(
-                "the worker-process coordinator is not ported yet "
-                "(ROADMAP.md queue 1, item 7b: runtime/coordinator.py)")
+                 coordinator=None,
+                 bucket_caps: Optional[dict] = None):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         self.max_batch = max_batch
@@ -244,6 +278,7 @@ class SpGemmService:
         self.rules = rules
         self.clock = clock
         self.policy = policy if policy is not None else dp.RetryPolicy()
+        self.coordinator = coordinator
         self.warmer = warmer
         self.async_flushes = int(async_flushes)
         self._executor = (cf.ThreadPoolExecutor(
@@ -256,13 +291,20 @@ class SpGemmService:
         self._caps_mu = threading.Lock()
         self._queues: dict[tuple, list[SpGemmRequest]] = {}
         self._opened: dict[tuple, float] = {}
-        self._bucket_caps: dict[tuple, int] = {}  # sticky esc caps
+        # sticky esc caps per bucket; injectable so a pool worker keeps
+        # its caps across the per-task service instances it builds
+        self._bucket_caps: dict[tuple, int] = \
+            bucket_caps if bucket_caps is not None else {}
         self._next_id = 0
         self._by_id: dict[int, SpGemmRequest] = {}
+        # pool task id -> (bucket, requests, reason, t_flush, t0)
+        self._inflight: dict[int, tuple] = {}
         # local future id -> (bucket, requests, reason, t_flush, t0, fut)
         self._local_inflight: dict[int, tuple] = {}
         self._next_local = 0
-        # warm work in flight: local id -> (bucket, fut, t0)
+        # warm work in flight: pool task id -> (bucket, t0) / local id ->
+        # (bucket, fut, t0)
+        self._warm_inflight: dict[int, tuple] = {}
         self._local_warm: dict[int, tuple] = {}
         self._next_warm = 0
         self.completed: list[SpGemmRequest] = []
@@ -308,6 +350,7 @@ class SpGemmService:
     @property
     def pending(self) -> int:
         return (sum(len(q) for q in self._queues.values())
+                + sum(len(e[1]) for e in self._inflight.values())
                 + sum(len(e[1]) for e in self._local_inflight.values()))
 
     # -- flushing --------------------------------------------------------
@@ -316,12 +359,14 @@ class SpGemmService:
         """Flush every bucket whose oldest request aged past the
         timeout; returns the number of requests completed.
 
-        This is also the collection point for every async flush and the
+        This is also the collection point for every asynchronous
+        completion — pool tasks and executor flushes land here — and the
         warmer's heartbeat: buckets the warmer predicts get their warm
         work dispatched."""
         with self._mu:
             now = self.clock() if now is None else now
-            done = self._collect_local()
+            done = self._collect(block=False)
+            done += self._collect_local()
             self._collect_warm_local()
             for key in [k for k, t in self._opened.items()
                         if now - t >= self.flush_timeout]:
@@ -333,14 +378,21 @@ class SpGemmService:
               timeout: float = 300.0) -> int:
         """Flush everything regardless of age (shutdown / end of a run).
 
-        Blocks until every in-flight async flush came back (or
-        ``timeout`` expired — stragglers then dead-letter, so drain
-        still resolves every request)."""
+        Blocks until every dispatched pool task and in-flight async
+        flush came back (or ``timeout`` expired — pool stragglers then
+        run through this process's ladder and executor stragglers
+        dead-letter, so drain still resolves every request)."""
         with self._mu:
             now = self.clock() if now is None else now
             done = 0
             for key in list(self._queues):
                 done += self._flush(key, now, reason="drain")
+            if self._inflight or self._warm_inflight:
+                done += self._collect(block=True, timeout=timeout)
+                for tid in list(self._inflight):
+                    # the pool never answered: serve the stragglers here
+                    done += self._finish_remote(
+                        tid, {"pool_lost": True, "why": "drain timeout"})
             done += self._wait_local(timeout)
             return done
 
@@ -400,11 +452,132 @@ class SpGemmService:
         return planner(A, B)
 
     def _flush(self, key: tuple, now: float, reason: str) -> int:
-        """Flush one bucket: to the flush executor under
-        ``async_flushes``, inline otherwise."""
+        """Flush one bucket: to the worker pool when a coordinator is
+        attached, to the flush executor under ``async_flushes``, inline
+        otherwise."""
+        if self.coordinator is not None:
+            return self._flush_remote(key, now, reason)
         if self._executor is not None:
             return self._flush_async(key, now, reason)
         return self._flush_local(key, now, reason)
+
+    # -- multi-process flushing -----------------------------------------
+
+    def _flush_remote(self, key: tuple, now: float, reason: str) -> int:
+        """Pack the bucket into a task and hand it to the worker pool.
+
+        Returns 0 — completion is asynchronous; ``pump``/``drain``
+        collect.  A pool that is already fully lost degrades to this
+        process's ladder right here."""
+        reqs = self._queues.pop(key, [])
+        self._opened.pop(key, None)
+        if not reqs:
+            return 0
+        payload = coord.make_flush_payload(
+            reqs, bucket=key, engine=self.engine, max_batch=self.max_batch,
+            policy=self.policy)
+        with self._caps_mu:
+            sticky = self._bucket_caps.get(key)
+        if sticky:
+            payload["sticky_cap"] = sticky
+        try:
+            tid = self.coordinator.submit(payload)
+        except coord.PoolLost:
+            self._queues[key] = reqs
+            return self._flush_local(key, now, reason)
+        self._inflight[tid] = (key, reqs, reason, now, time.perf_counter())
+        return 0
+
+    def _collect(self, block: bool, timeout: float = 300.0) -> int:
+        """Absorb finished pool tasks into request completions."""
+        if self.coordinator is None or \
+                not (self._inflight or self._warm_inflight):
+            return 0
+        done = 0
+        deadline = time.monotonic() + timeout
+        while True:
+            results = self.coordinator.poll(timeout=0.2 if block else 0.0)
+            done += self._land_remote(results)
+            if not block or not self._inflight:
+                break
+            if not results and time.monotonic() >= deadline:
+                break
+        return done
+
+    def _land_remote(self, results: list) -> int:
+        """Land a poll's results (flushes and warms); a kernel error among
+        them raises after the others have landed."""
+        done, fault = 0, None
+        for tid, res in results:
+            try:
+                if tid in self._warm_inflight:
+                    self._finish_warm_remote(tid, res)
+                else:
+                    done += self._finish_remote(tid, res)
+            except kb.KERNEL_ERRORS as e:
+                fault = fault or e
+        if fault is not None:
+            raise fault
+        return done
+
+    @staticmethod
+    def _check_remote_kernel_error(res: dict) -> None:
+        """Rule (a) across the process boundary: a worker's kernel error
+        raises here, naming the worker."""
+        err = res.get("error") if isinstance(res, dict) else None
+        if not err or not err.get("kernel"):
+            return
+        cls = _build.KernelBuildError if err.get("kind") == \
+            "KernelBuildError" else _build.KernelLaunchError
+        raise cls(f"worker {err.get('worker')}: {err.get('kind')}: "
+                  f"{err.get('message')}")
+
+    def _finish_remote(self, tid: int, res: dict) -> int:
+        """Land one pool task's outcome on its requests.
+
+        Success lands per-request results (unpacked onto this service's
+        device) and dead letters plus the worker's flush provenance; a
+        kernel error raises (rule (a)); ``pool_lost`` or another error
+        re-queues the bucket through this process's ladder (rule (b)),
+        so every request still resolves."""
+        inflight = self._inflight.pop(tid, None)
+        if inflight is None:
+            return 0
+        key, reqs, reason, t_flush, t0 = inflight
+        self._check_remote_kernel_error(res)
+        if "outcomes" not in res:
+            # the pool could not run it (lost / infrastructural error):
+            # degrade to this process's ladder
+            self._queues.setdefault(key, []).extend(reqs)
+            return self._flush_local(key, t_flush, reason)
+        t_done = self.clock()
+        done_n = 0
+        for r, o in zip(reqs, res["outcomes"]):
+            if o["ok"]:
+                r.result = coord.unpack_csr(o["result"], self.device)
+                r.t_done = t_done
+                r.engine = o.get("engine")
+                r.tier = o.get("tier")
+                self.completed.append(r)
+                done_n += 1
+            else:
+                self._dead_letter(r, o.get("stage", "flush"),
+                                  o.get("kind", "Error"),
+                                  o.get("message", ""),
+                                  o.get("attempts", 1))
+        f = res.get("flush") or {}
+        self.flush_log.append(FlushRecord(
+            bucket=key, n_requests=len(reqs),
+            engine=f.get("engine", "?"), source=f.get("source", "?"),
+            reason=reason, t=t_flush,
+            wall_s=time.perf_counter() - t0,
+            tier=f.get("tier", "planned"),
+            attempts=f.get("attempts", 1),
+            n_failed=len(reqs) - done_n,
+            errors=tuple(f.get("errors", ())),
+            warm_hit=bool(f.get("warm_hit", False)),
+            launches=dict(f.get("launches") or {})))
+        return done_n
 
     # -- async local flushing -------------------------------------------
 
@@ -657,9 +830,10 @@ class SpGemmService:
 
         ``buckets`` defaults to everything the warmer currently
         predicts (configured traffic classes first).  Warm work runs on
-        the flush executor when there is one, inline otherwise; with
-        ``block`` the call returns only after the dispatched warms
-        finished.  Returns the number of buckets dispatched."""
+        the worker pool or the flush executor when there is one, inline
+        otherwise; with ``block`` the call returns only after the
+        dispatched warms finished.  Returns the number of buckets
+        dispatched."""
         with self._mu:
             if buckets is None:
                 buckets = self.warmer.due() if self.warmer is not None \
@@ -673,19 +847,37 @@ class SpGemmService:
 
     def _pump_warmer(self) -> None:
         """Dispatch warm work for freshly predicted buckets — only with
-        a flush executor (warming inline from ``pump`` would block
-        admission, the very thing warming is for)."""
-        if self.warmer is None or self._executor is None:
+        a pool or a flush executor (warming inline from ``pump`` would
+        block admission, the very thing warming is for)."""
+        if self.warmer is None:
+            return
+        if self.coordinator is None and self._executor is None:
             return
         for bucket in self.warmer.due():
             self._dispatch_warm(bucket)
 
     def _dispatch_warm(self, bucket: tuple) -> bool:
-        """Route one bucket's warm to the executor, or run it inline."""
+        """Route one bucket's warm to the pool / executor / inline."""
         sample = self.warmer.sample(bucket) \
             if self.warmer is not None else None
         with self._caps_mu:
             sticky = self._bucket_caps.get(bucket)
+        if self.coordinator is not None:
+            payload = {"kind": "warm", "bucket": bucket,
+                       "engine": self.engine, "max_batch": self.max_batch,
+                       "sticky_cap": sticky}
+            if sample is not None:
+                payload["pair"] = (coord.pack_csr(sample[0]),
+                                   coord.pack_csr(sample[1]))
+            try:
+                tid = self.coordinator.submit(payload)
+            except coord.PoolLost:
+                pass  # fall through to a local warm
+            else:
+                self._warm_inflight[tid] = (bucket, time.perf_counter())
+                if self.warmer is not None:
+                    self.warmer.mark_pending(bucket)
+                return True
         if self._executor is not None:
             fut = self._executor.submit(self._warm_local, bucket, sample,
                                         sticky)
@@ -740,12 +932,31 @@ class SpGemmService:
             else:
                 self._note_warm_ok(bucket, res)
 
+    def _finish_warm_remote(self, tid: int, res: dict) -> None:
+        """Land one pool warm: a kernel error raises (rule (a)); a lost
+        or failed warm is noted and serving goes on cold."""
+        entry = self._warm_inflight.pop(tid, None)
+        if entry is None:
+            return
+        bucket, _ = entry
+        self._check_remote_kernel_error(res)
+        w = res.get("warm") if isinstance(res, dict) else None
+        if w is None:
+            err = res.get("error") or {}
+            why = err.get("message") or res.get("why") or "warm failed"
+            self._note_warm_failed(bucket, str(why))
+        else:
+            self._note_warm_ok(bucket, w)
+
     def _await_warms(self, timeout: float) -> None:
         """Block until in-flight warm work resolved (prewarm barrier)."""
         deadline = time.monotonic() + timeout
-        while self._local_warm and time.monotonic() < deadline:
+        while (self._warm_inflight or self._local_warm) \
+                and time.monotonic() < deadline:
             self._collect_warm_local()
-            if self._local_warm:
+            if self._warm_inflight and self.coordinator is not None:
+                self._land_remote(self.coordinator.poll(timeout=0.1))
+            elif self._local_warm:
                 cf.wait([e[1] for e in self._local_warm.values()],
                         timeout=0.1, return_when=cf.FIRST_COMPLETED)
 

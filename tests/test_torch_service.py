@@ -15,8 +15,8 @@ the reference's on one ``observe`` sequence.
 The card rules hold on the CPU too: a kernel that fails to build or
 launch raises out of ``drain`` and ``prewarm`` (inline and async), never
 retried, degraded or dead-lettered; isolation runs ``esc`` on a card and
-``scl-array`` on the CPU; the worker-process coordinator and the CLI's
-``--workers``/``--kill-worker-proc`` refuse.
+``scl-array`` on the CPU.  The CLI serves on a pool of worker processes
+(``--workers``).
 
 The reference service runs once per test session, in one fresh process
 (both traffic runs), shared by the xdist workers through a lock file, as
@@ -26,6 +26,7 @@ import fcntl
 import json
 import os
 import pathlib
+import signal
 import subprocess
 import sys
 import threading
@@ -397,14 +398,37 @@ def test_injected_faults_still_walk_the_ladder(cache):
                                                kb.KERNEL_ERRORS)
 
 
-def test_coordinator_and_worker_options_refuse():
-    with pytest.raises(NotImplementedError, match="coordinator"):
-        svc.SpGemmService(devices="cpu", coordinator=object())
-    for argv in (["--workers", "1"], ["--kill-worker-proc"]):
-        with pytest.raises(SystemExit) as e:
-            cli.main(["--device", "cpu", "--requests", "2", *argv])
-        assert e.value.code not in (0, None)
-        assert "coordinator" in str(e.value.code)
+def test_cli_serves_on_a_worker_pool(tmp_path, capsys, monkeypatch):
+    """``--workers 2 --verify`` on the CPU: two spawned workers serve
+    every request, each result checked against the scl-array oracle
+    (within 120 s, or SIGALRM fails the test).  ``--async-flushes`` with
+    ``--workers`` is refused before any worker starts."""
+    with pytest.raises(SystemExit) as refused:
+        cli.run(["--device", "cpu", "--workers", "2", "--async-flushes",
+                 "2"])
+    assert refused.value.code == 2
+    assert "exclude each other" in capsys.readouterr().err
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the spawned workers'
+
+    def overdue(*_):
+        raise TimeoutError("the worker-pool CLI run took over 120 s")
+    old = signal.signal(signal.SIGALRM, overdue)
+    signal.alarm(120)
+    try:
+        res = cli.run(["--device", "cpu", "--requests", "12", "--max-batch",
+                       "4", "--workers", "2", "--verify", "--cache",
+                       str(tmp_path / "c.json")])
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
+    assert res["all"]["n_requests"] == 12 and res["all"]["availability"] == 1
+    assert [e["event"] for e in res["pool"]["events"]] == ["spawn"] * 2
+    assert res["pool"]["alive"] == 2 and res["pool"]["start_s"] > 0
+    assert all(r.result.device == torch.device("cpu")
+               for r in res["service"].completed)
+    out = capsys.readouterr().out
+    assert "verified 12 results" in out
+    assert "# pool: 2 workers, 2 alive at drain | events: spawnx2" in out
 
 
 def test_entry_points_default_to_the_card():
