@@ -138,6 +138,37 @@ drives the port's main path on one card:
            after: K6 once per layer on the wgmma route, K7 three times
            per layer per forward pass in the counts layout, nothing else;
            one profiled generate
+  families the three architectures of MLA, local attention and the
+           recurrent blocks at full width, random weights from SEED,
+           behind ``Engine(max_batch=4).generate`` x 32 greedy tokens,
+           counters set to 0 before one measured generate and read
+           after, each model dropped before the next is made:
+           RecurrentGemma-9B (38 layers, RG-LRU + local attention,
+           attn_impl="pallas"; prompts of 2,560, 2,300, 2,100 and 1,800
+           tokens, max_seq 4,096, so the prefill's window of 2,048 and
+           the decode ring both wrap): K6 at its served prefill shape
+           (B = 4, S = 2,560, 16 / 1 heads, hd 256, window 2,048, bf16)
+           against its plain version, with times, bound and SDPA's
+           (boolean window mask); K6 once per local-attention layer (12)
+           on the wgmma route and nothing else; prefill logits with K6
+           against attn_impl="xla" in float32 within 1e-3, and in bf16
+           no further from the float32 ones than the plain bf16 logits
+           are, by BF16_SPREAD (two plain bf16 attentions that only block
+           differently lie 0.17 apart here).  DeepSeek-V2-236B (2 of 60
+           layers: the dense lead layer and one MoE layer of 160 experts
+           top-6, MLA; TinyLlama's prompts): one MoE block at 4 x 512
+           and 4 x 1 tokens through K7 vs the plain grouped matmul
+           (within 0.05), K7 at the prefill's w1 product in the counts
+           layout of that routing, with times, bound and torch.bmm's; K7
+           3 x 32 passes, nothing else.  Mamba2-780M (48 SSD layers, no
+           kernel; prompts of 500, 480, 400 and 300 tokens, no multiple
+           of the chunk of 256): nothing launched; prefill then 4
+           decode steps against the full forward over the same tokens,
+           in float32 within 1e-3, in bf16 no further from the float32
+           forward than the bf16 forward is, by BF16_SPREAD; 2 layers
+           at full width in float32, card vs CPU within 1e-3.  For each:
+           prefill ms, decode ms per step, tokens/s, peak memory, and
+           one decode step profiled (launches, device idle share)
   kernels  every ported kernel and its launches on its path's run, on
            the service path's (``service_launches``) and in the pool's
            workers (``pool_launches``)
@@ -170,6 +201,11 @@ SERVE_PROMPTS = (512, 480, 400, 300)
 SERVE_NEW_TOKENS = 32
 SERVE_LOGIT_TOL = 0.15      # bf16 bound of tests/test_archs.py
 CPU_LOGIT_TOL = 1e-3        # float32, card vs CPU, 2 layers at full width
+# at full depth in bf16, a run under test (K6, or prefill + decode) lies no
+# further from the float32 logits than its plain bf16 counterpart, by this
+# factor: bf16 rounding puts either 0.3-0.4 away at RecurrentGemma-9B's
+# 38 layers, a wrong kernel or state carry several units
+BF16_SPREAD = 1.5
 
 
 def log(*a):
@@ -2408,7 +2444,8 @@ def _k6_head_dims(torch, np, rng, k6):
                                  f"{lib_err} > 3e-2")
         b, by = bound_ms(nbytes(q, k, v, got), ops, rate)
         out = torch.empty_like(q)
-        name = "flash_attention.rg9b" + ("" if route == "wgmma" else ".fma")
+        name = "flash_attention.rg9b_s4096" + ("" if route == "wgmma"
+                                               else ".fma")
         r = rows[name] = dict(
             max_abs_err=err,
             ms=time_ms(torch, lambda: k6.launch(q, k, v, out, causal=True,
@@ -2937,6 +2974,401 @@ def phase_moe(torch, np, serve):
                 decode_ms=decode_ms, tokens_per_s=tokens / wall)
 
 
+# phase families: the three architectures of MLA, local attention and the
+# recurrent blocks, each at full width behind the engine (DeepSeek-V2 at 2
+# of its 60 layers: the dense lead layer and one MoE layer)
+RG9B_PROMPTS = (2560, 2300, 2100, 1800)  # past the window of 2,048
+RG9B_MAX_SEQ = 4096
+DEEPSEEK_LAYERS = 2                      # of 60
+# not a multiple of the SSD chunk (256): the prefill pads with dt = 0
+MAMBA2_PROMPTS = (500, 480, 400, 300)
+MAMBA2_DECODE_CHECK = 4                  # decode steps held to the forward
+
+
+def _family_model(torch, cfg, label):
+    """``cfg``'s model on the card with random weights from SEED, its
+    size logged."""
+    from repro_torch.models import model as M
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(SEED))
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    size = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"families: {label}: {cfg.num_layers} layers {cfg.groups}, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}; {n:,} parameters "
+        f"({size / 1e9:.2f} GB, {cfg.param_dtype} but the float32 leaves) "
+        f"made on the card in {time.perf_counter() - t0:.1f} s; compute "
+        f"{cfg.dtype}")
+    return params
+
+
+def _family_serve(torch, np, cfg, params, prompts, max_seq, want, label):
+    """Serve ``prompts`` x SERVE_NEW_TOKENS greedy tokens through
+    ``Engine(max_batch=4)``: a warm generate, then one with every launch
+    counter set to 0 before and read after, which must launch exactly
+    ``want`` (kernel -> count) and nothing else; then one decode step
+    profiled.  Returns the engine, the prompts' tokens and the metrics."""
+    from repro_torch.kernels import backend as kb
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine, Request
+
+    eng = Engine(cfg, params, max_batch=len(prompts), max_seq=max_seq)
+    rng = np.random.default_rng(SEED)
+    toks = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+            for n in prompts]
+
+    def generate():
+        return eng.generate([Request(prompt=p, max_new_tokens=SERVE_NEW_TOKENS)
+                             for p in toks])
+
+    generate()  # warm
+    torch.cuda.synchronize()
+    kb.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = generate()
+    wall = time.perf_counter() - t0
+    counts = kb.launch_counts()
+    others = {k: n for k, n in counts.items() if n and k not in want}
+    if any(counts[k] != n for k, n in want.items()) or others:
+        raise AssertionError(f"{label}: one generate launched {counts} (want "
+                             f"{want} and nothing else)")
+    for r in reqs:
+        if r.out.shape != (SERVE_NEW_TOKENS,) or r.out.min() < 0 \
+                or r.out.max() >= cfg.vocab_size:
+            raise AssertionError(f"{label}: bad tokens {r.out}")
+    tokens = sum(len(r.out) for r in reqs)
+    res = dict(counts=counts, wall_ms=wall * 1e3,
+               prefill_ms=eng.stats["prefill_s"] * 1e3,
+               decode_ms=statistics.median(eng.stats["decode_s"]) * 1e3,
+               tokens_per_s=tokens / wall,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"families: {label}: generate of {len(reqs)} requests x "
+        f"{SERVE_NEW_TOKENS} tokens (prompts {prompts}) in {wall * 1e3:.1f} "
+        f"ms; K6 launched {counts.get('flash_attention', 0)} times "
+        f"({counts.get('flash_attention.wgmma', 0)} wgmma), K7 "
+        f"{counts.get('grouped_matmul', 0)} times "
+        f"({counts.get('grouped_matmul.counts', 0)} counts layout), nothing "
+        f"else launched")
+    log(f"families: {label}: prefill_ms {res['prefill_ms']:.3f}")
+    log(f"families: {label}: decode_ms_per_token {res['decode_ms']:.3f} "
+        f"(median of {len(eng.stats['decode_s'])} steps)")
+    log(f"families: {label}: tokens_per_s {res['tokens_per_s']:.1f}")
+    log(f"families: {label}: max_memory_allocated {res['peak_gib']:.2f} GiB")
+    log(f"families: {label}: first tokens "
+        f"{[r.out[:6].tolist() for r in reqs]}")
+
+    # one decode step under the profiler: launches per step, idle share
+    batch = _left_padded(torch, np, toks, "cuda")
+    cache = M.init_cache(cfg, len(toks), max_seq, "cuda")
+    logits, cache = M.prefill(params, cfg, batch, cache)
+    nxt = logits.argmax(-1)[:, None]
+    # decode returns a new cache and leaves this one as it is
+    M.decode_step(params, cfg, nxt, cache, batch.shape[1])  # warm
+    prof = _profiled(torch, f"{label} decode step", lambda: M.decode_step(
+        params, cfg, nxt, cache, batch.shape[1]))
+    if prof is not None:
+        res["step_launches"] = prof["launches"]
+        res["step_idle"] = 1 - prof["busy"] / prof["wall"]
+        log(f"families: {label}: {prof['launches']} device launches per "
+            f"decode step, device idle share {res['step_idle']:.3f}")
+    else:
+        log(f"families: {label}: launches per decode step and idle share "
+            f"not measured")
+    del cache, logits
+    return eng, toks, res
+
+
+def _rg9b_k6_row(torch, np, k6, cfg):
+    """K6 against its plain version at RecurrentGemma-9B's served
+    local-attention prefill (B = 4, S = 2,560, 16 / 1 heads, hd 256,
+    window 2,048, bf16, wgmma route), with its time, the plain version's,
+    SDPA's (boolean window mask) and the bound."""
+    import torch.nn.functional as F
+
+    B, S = len(RG9B_PROMPTS), RG9B_PROMPTS[0]
+    H, KVH, hd, W = (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
+                     cfg.local_window)
+    rng = np.random.default_rng(SEED)
+    q, k, v = _attn_inputs(torch, np, rng, B, S, S, H, KVH, hd,
+                           torch.bfloat16)
+    got = _k6_routed(torch, k6, q, k, v, window=W)
+    want = k6.flash_attention_plain(q, k, v, window=W)
+    err = _k6_check(torch, "K6 rg9b served", got, want, 3e-2)
+    pos = torch.arange(S, device="cuda")
+    mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < W)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+
+    ops = 4 * hd * B * H * int(torch.clamp(pos + 1, max=W).sum())
+    b, by = bound_ms(nbytes(q, k, v, got), ops, BF16_OPS_PER_S)
+    out = torch.empty_like(q)
+    r = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: k6.launch(q, k, v, out, causal=True,
+                                            window=W, scale=hd ** -0.5)),
+        wrapper_ms=time_ms(torch, lambda: k6.flash_attention(q, k, v,
+                                                             window=W)),
+        plain_ms=time_ms(torch, lambda: k6.flash_attention_plain(
+            q, k, v, window=W), reps=3, warmup=1),
+        bound_ms=b, bound_by=by, library_ms=time_ms(torch, sdpa),
+        shape=f"B={B} S={S} H={H} KVH={KVH} hd={hd} window={W} bf16 "
+              f"(wgmma route)")
+    r["tflops"] = ops / r["ms"] / 1e9
+    log(f"families: K6 flash_attention.rg9b {r['shape']} max_abs_err {err} "
+        f"(within 3e-2 and one bf16 rounding of the plain version) "
+        f"kernel_ms {r['ms']:.4f} ({r['tflops']:.1f} TFLOP/s) wrapper_ms "
+        f"{r['wrapper_ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
+        f"{b:.5f} ({by}) library_ms {r['library_ms']:.4f} (SDPA, boolean "
+        f"window mask, enable_gqa)")
+    return r
+
+
+def _family_rg9b(torch, np):
+    """RecurrentGemma-9B, all 38 layers: K6 at its served prefill shape,
+    serving (K6 once per local-attention layer, on the wgmma route, and
+    nothing else), the prefill's last-token logits with K6 against the
+    plain blocked attention (the gates below)."""
+    import dataclasses
+
+    from repro_torch.configs import base as cb
+    from repro_torch.kernels import flash_attention as k6
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(cb.get_config("recurrentgemma-9b"),
+                              attn_impl="pallas")
+    row = _rg9b_k6_row(torch, np, k6, cfg)
+    torch.cuda.empty_cache()
+    params = _family_model(torch, cfg, cfg.name)
+    n_local = sum(kind == "local_attn" for kind, _ in M.layer_kinds(cfg))
+    _, toks, res = _family_serve(
+        torch, np, cfg, params, RG9B_PROMPTS, RG9B_MAX_SEQ,
+        {"flash_attention": n_local, "flash_attention.wgmma": n_local},
+        cfg.name)
+    # the prefill's last-token logits four ways: K6 and the plain blocked
+    # attention, each in bf16 (served) and in float32.  In bf16 the logits
+    # of two plain attentions that only block the keys differently lie
+    # 0.170 apart at this depth on an H100, past SERVE_LOGIT_TOL, so the
+    # bf16 pair is logged and the gates are: float32, K6 (fma route)
+    # against the plain attention within CPU_LOGIT_TOL; and K6's bf16
+    # logits no further from the plain float32 ones than the plain bf16
+    # logits are, by BF16_SPREAD
+    batch = _left_padded(torch, np, toks, "cuda")
+    lg = {}
+    for impl in ("pallas", "xla"):
+        for dt in ("bfloat16", "float32"):
+            c = dataclasses.replace(cfg, attn_impl=impl, dtype=dt)
+            lg[impl, dt] = M.prefill(params, c, batch, M.init_cache(
+                c, len(toks), RG9B_MAX_SEQ, "cuda"))[0].float()
+            torch.cuda.empty_cache()
+    if not all(bool(torch.isfinite(x).all()) for x in lg.values()):
+        raise AssertionError("rg9b: non-finite prefill logits")
+
+    def dist(a, b):
+        return float((lg[a] - lg[b]).abs().max())
+
+    err32 = dist(("pallas", "float32"), ("xla", "float32"))
+    err16 = dist(("pallas", "bfloat16"), ("xla", "bfloat16"))
+    k6_off = dist(("pallas", "bfloat16"), ("xla", "float32"))
+    plain_off = dist(("xla", "bfloat16"), ("xla", "float32"))
+    log(f"families: {cfg.name}: prefill last-token logits (largest "
+        f"|logit| {float(lg['xla', 'float32'].abs().max()):.3f}): float32 "
+        f"K6 vs attn_impl='xla' max abs err {err32} (tolerance "
+        f"{CPU_LOGIT_TOL}); bf16 K6 vs 'xla' {err16}; from the float32 "
+        f"plain logits: bf16 K6 {k6_off}, bf16 plain {plain_off} (K6 within "
+        f"{BF16_SPREAD} x the plain's); all finite")
+    if not (err32 <= CPU_LOGIT_TOL and k6_off <= BF16_SPREAD * plain_off):
+        raise AssertionError(f"rg9b prefill logits: float32 K6 vs plain "
+                             f"{err32} (> {CPU_LOGIT_TOL}?) or bf16 K6 "
+                             f"{k6_off} from float32 against the plain's "
+                             f"{plain_off} (x {BF16_SPREAD})")
+    return dict(res, row=row, logit_err=err16, logit_err32=err32,
+                k6_off=k6_off, plain_off=plain_off)
+
+
+def _family_deepseek(torch, np):
+    """DeepSeek-V2-236B at full width, 2 of 60 layers (the dense lead
+    layer and one MoE layer: 160 experts top-6, 2 shared, MLA): one MoE
+    block through K7 against the plain grouped matmul, K7 at the
+    prefill's expert-product shape in the counts layout the block
+    launches (the kept counts of that routing), and serving (K7 three
+    times per forward pass, nothing else)."""
+    import dataclasses
+
+    from repro_torch.configs import base as cb
+    from repro_torch.kernels import grouped_matmul as k7
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(cb.get_config("deepseek-v2-236b"),
+                              num_layers=DEEPSEEK_LAYERS, attn_impl="pallas")
+    params = _family_model(torch, cfg, f"{cfg.name} ({DEEPSEEK_LAYERS} of 60 "
+                           f"layers)")
+    ffn = params.layers[1].ffn
+    B, S = len(SERVE_PROMPTS), SERVE_PROMPTS[0]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for s in (S, 1):
+        x = torch.randn((B, s, cfg.d_model), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        dropped = _moe_block_check(torch, cfg, ffn, x, f"deepseek {B} x {s} "
+                                   f"tokens")
+        if s == 1 and dropped:
+            raise AssertionError("deepseek: a decode step dropped "
+                                 "assignments")
+        if s == S:
+            xt = x.reshape(-1, cfg.d_model)
+    # K7 at the prefill's w1 product: the (E * cap, D) buffer of kept rows
+    # the block builds for this routing, against the plain version
+    ids, _, _, cap, pos, keep = moe._assign(ffn, xt, cfg)
+    E = cfg.num_experts
+    counts = torch.zeros(E, dtype=torch.int64, device="cuda")
+    counts.scatter_add_(0, ids.reshape(-1).long(), keep.long())
+    w = ffn.experts.w1.to(torch.bfloat16)
+    xb = torch.randn((E * cap, cfg.d_model), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    r = _k7_counts_row(torch, np, k7, "deepseek", xb, w, cap,
+                       counts.cpu().numpy())
+
+    def bmm():
+        return torch.bmm(xb.view(E, cap, cfg.d_model), w)
+
+    r["library_ms"] = time_ms(torch, bmm, reps=10)
+    log(f"families: K7 grouped_matmul.deepseek {r['shape']} max_abs_err "
+        f"{r['max_abs_err']} (vs the contiguous launch on the kept rows "
+        f"{r['packed_err']}), unkept rows exactly zero; kernel_ms "
+        f"{r['ms']:.4f} wrapper_ms {r['wrapper_ms']:.4f} plain_ms "
+        f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.5f} ({r['bound_by']}) "
+        f"library_ms {r['library_ms']:.4f} (torch.bmm over (E, cap, D))")
+    del w, xb, x, xt
+    torch.cuda.empty_cache()
+    n_moe = DEEPSEEK_LAYERS - cfg.first_k_dense
+    passes = SERVE_NEW_TOKENS  # the prefill and 31 decode steps
+    want = {"grouped_matmul": 3 * n_moe * passes,
+            "grouped_matmul.counts": 3 * n_moe * passes}
+    _, _, res = _family_serve(torch, np, cfg, params, SERVE_PROMPTS, 1024,
+                              want, f"{cfg.name} ({DEEPSEEK_LAYERS} layers)")
+    return dict(res, row=r)
+
+
+def _family_mamba2(torch, np):
+    """Mamba2-780M, all 48 layers: serving (no kernel: SSD has no Pallas
+    kernel in the reference), prefill-then-decode logits against the full
+    forward over the same tokens (the gates below), and 2 layers at full
+    width in float32 on the card against the CPU within CPU_LOGIT_TOL."""
+    import dataclasses
+
+    from repro_torch.configs import base as cb
+    from repro_torch.models import model as M
+
+    cfg = cb.get_config("mamba2-780m")
+    params = _family_model(torch, cfg, cfg.name)
+    _, toks, res = _family_serve(torch, np, cfg, params, MAMBA2_PROMPTS,
+                                 1024, {}, cfg.name)
+    # prefill then decode against the full forward over the same tokens
+    # (those the bf16 steps pick), in bf16 (served) and in float32.  In
+    # bf16 the two sides round differently through 48 layers, so the gates
+    # are: float32 within CPU_LOGIT_TOL; and the bf16 steps no further
+    # from the float32 forward than the bf16 forward is, by BF16_SPREAD
+    batch = _left_padded(torch, np, toks, "cuda")
+    B, P = batch.shape
+    steps, full, fed = {}, {}, []
+    for dt in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, dtype=dt)
+        logits, cache = M.prefill(params, c, batch,
+                                  M.init_cache(c, B, 1024, "cuda"))
+        steps[dt] = [logits.float()]
+        for t in range(MAMBA2_DECODE_CHECK):
+            if dt == "bfloat16":
+                fed.append(steps[dt][-1].argmax(-1)[:, None])
+            logits, cache = M.decode_step(params, c, fed[t], cache, P + t)
+            steps[dt].append(logits.float())
+        lg, _, _ = M.forward(params, c, torch.cat([batch] + fed, dim=1))
+        full[dt] = [lg[:, P - 1 + t].float()
+                    for t in range(MAMBA2_DECODE_CHECK + 1)]
+        del cache, lg
+        torch.cuda.empty_cache()
+    if not all(bool(torch.isfinite(x).all())
+               for d in (steps, full) for v in d.values() for x in v):
+        raise AssertionError("mamba2: non-finite logits")
+
+    def dist(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+    err32 = dist(steps["float32"], full["float32"])
+    err16 = dist(steps["bfloat16"], full["bfloat16"])
+    served_off = dist(steps["bfloat16"], full["float32"])
+    forward_off = dist(full["bfloat16"], full["float32"])
+    log(f"families: {cfg.name}: prefill ({P} tokens, {P % cfg.ssm_chunk} "
+        f"past the last whole chunk of {cfg.ssm_chunk}) then "
+        f"{MAMBA2_DECODE_CHECK} decode steps against the full forward over "
+        f"the same tokens (largest |logit| "
+        f"{max(float(x.abs().max()) for x in full['float32']):.3f}): "
+        f"float32 max abs err {err32} (tolerance {CPU_LOGIT_TOL}); bf16 "
+        f"{err16}; from the float32 forward: bf16 steps {served_off}, bf16 "
+        f"forward {forward_off} (steps within {BF16_SPREAD} x the "
+        f"forward's); all finite")
+    if not (err32 <= CPU_LOGIT_TOL and served_off <= BF16_SPREAD
+            * forward_off):
+        raise AssertionError(f"mamba2 prefill + decode vs forward: float32 "
+                             f"{err32} (> {CPU_LOGIT_TOL}?) or bf16 steps "
+                             f"{served_off} from float32 against the bf16 "
+                             f"forward's {forward_off} (x {BF16_SPREAD})")
+    del params
+    torch.cuda.empty_cache()
+    c2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    lg = {}
+    for where in ("cpu", "cuda"):
+        model = M.init_params(c2, torch.Generator().manual_seed(SEED),
+                              device=where)
+        lg[where] = M.prefill(model, c2, batch.to(where), M.init_cache(
+            c2, B, 1024, where))[0].cpu()
+    cpu_err = float((lg["cuda"] - lg["cpu"]).abs().max())
+    if not (bool(torch.isfinite(lg["cuda"]).all())
+            and cpu_err <= CPU_LOGIT_TOL):
+        raise AssertionError(f"mamba2 2-layer float32 logits card vs CPU: "
+                             f"max abs err {cpu_err} > {CPU_LOGIT_TOL}")
+    log(f"families: {cfg.name}: 2 layers at full width, float32: last-token "
+        f"logits on the card vs the CPU max abs err {cpu_err} (tolerance "
+        f"{CPU_LOGIT_TOL})")
+    return dict(res, logit_err=err16, logit_err32=err32,
+                served_off=served_off, forward_off=forward_off,
+                cpu_err=cpu_err)
+
+
+def phase_families(torch, np):
+    """RecurrentGemma-9B (RG-LRU + local attention, K6 on the windowed
+    prefill), DeepSeek-V2-236B at 2 of 60 layers (MLA + MoE, K7) and
+    Mamba2-780M (SSD) at full width behind the engine, one after the
+    other (each model dropped before the next is made).  Returns each
+    model's metrics and the kernel table's rows."""
+    import gc
+
+    out, failed = {}, []
+    for name, fn in (("rg9b", _family_rg9b), ("deepseek", _family_deepseek),
+                     ("mamba2", _family_mamba2)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        try:
+            out[name] = fn(torch, np)
+        except Exception:  # report it, then go on to the next model
+            traceback.print_exc()
+            failed.append(name)
+        log(f"families: {name} {'FAILED' if name in failed else 'passed'} "
+            f"in {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"families: {failed} failed")
+    out["rows"] = {"flash_attention.rg9b": out["rg9b"].pop("row"),
+                   "grouped_matmul.deepseek": out["deepseek"].pop("row")}
+    return out
+
+
 def phase_inputs(np):
     """The 16 matrices of the main paths plus dense-row-full, and the
     scl-array oracle of each (host numpy)."""
@@ -2981,7 +3413,8 @@ def main() -> int:
                                                 res["inputs"][0])),
               ("serve", lambda: phase_serve(torch, np)),
               ("profile", lambda: phase_profile(torch, np, res["serve"])),
-              ("moe", lambda: phase_moe(torch, np, res["serve"])))
+              ("moe", lambda: phase_moe(torch, np, res["serve"])),
+              ("families", lambda: phase_families(torch, np)))
     for label, fn in phases:
         t0 = time.perf_counter()
         try:
@@ -2999,7 +3432,8 @@ def main() -> int:
         return 1
     name = res["device"]
     kernel_rows, floor = res["kernel"]
-    rows = {**kernel_rows, **res["attention"], **res["moe"]["rows"]}
+    rows = {**kernel_rows, **res["attention"], **res["moe"]["rows"],
+            **res["families"]["rows"]}
     # each kernel's launches on its own path's run
     counts = {k: v for k, v in res["spgemm"][0].items()
               if not k.startswith(("stream_", "flash_attention",
@@ -3009,6 +3443,10 @@ def main() -> int:
     counts["flash_attention"] = res["serve"]["counts"]["flash_attention"]
     counts["flash_attention.arctic"] = res["moe"]["counts"]["flash_attention"]
     counts["grouped_matmul"] = res["moe"]["counts"]["grouped_matmul"]
+    fam = res["families"]
+    counts["flash_attention.rg9b"] = fam["rg9b"]["counts"]["flash_attention"]
+    counts["grouped_matmul.deepseek"] = \
+        fam["deepseek"]["counts"]["grouped_matmul"]
     log("kernels: " + ", ".join(f"{k}={v}" for k, v in counts.items()))
     sources = {
         "chunk_sort": ("src/repro_torch/kernels/csrc/chunk_sort.cu",

@@ -15,7 +15,10 @@ What the fields mean in the port, where it differs from the reference:
   (``models.attention.blocked_attention``, with ``attn_q_block``,
   ``attn_kv_block``, ``attn_block_skip`` and ``attn_p_bf16``);
   ``"pallas"`` is the hand-written flash-attention kernel K6
-  (``kernels.flash_attention``), its plain version on CPU tensors.
+  (``kernels.flash_attention``), its plain version on CPU tensors.  It
+  acts on ``attn`` and ``local_attn`` layers alike (the latter with
+  ``local_window``); an MLA layer always takes the plain blocked
+  attention, as the reference's does.
 - The sharding knobs do nothing on one card: ``layer_layout``, ``fsdp``
   and ``prefill_cache_seqshard`` are read by no code of the port.
   ``remat`` acts only in training, which the port does not run yet.
@@ -41,7 +44,8 @@ from typing import Optional, Tuple
 #   cross_attn  self-attention + cross-attention + MLP
 #   rglru       RG-LRU recurrent block + MLP
 #   ssd         Mamba-2 SSD block (standalone, no MLP)
-# The port builds "attn" with a dense or MoE FFN; the others raise.
+# The port builds every kind but "cross_attn", which raises (it waits
+# for the encoder, ROADMAP queue 1 item 9.3).
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,11 +182,12 @@ class ModelConfig:
         return int(n)
 
 
-# the architectures whose every layer the port can build (GQA attention
-# with a SwiGLU MLP or an MoE FFN); the reference's others wait for their
-# slices
+# the architectures whose every layer the port can build; the reference's
+# other two (whisper_small, llama_3_2_vision_11b) need cross attention and
+# the encoder
 ARCH_IDS = ["tinyllama_1_1b", "phi4_mini_3_8b", "qwen1_5_0_5b",
-            "granite_3_2b", "arctic_480b"]
+            "granite_3_2b", "recurrentgemma_9b", "arctic_480b",
+            "deepseek_v2_236b", "mamba2_780m"]
 
 
 def norm_id(name: str) -> str:
@@ -194,8 +199,8 @@ def _module(name: str):
     if arch not in ARCH_IDS:
         raise NotImplementedError(
             f"architecture {name!r} is not ported yet (ROADMAP queue 1 item "
-            f"12: MLA, SSM/RG-LRU, local and cross attention and the "
-            f"encoder wait); ported: {ARCH_IDS}")
+            f"9.3: cross attention and the encoder wait); ported: "
+            f"{ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

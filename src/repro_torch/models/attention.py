@@ -1,20 +1,24 @@
-"""Attention: GQA (grouped-query, optional QKV bias).
+"""Attention: GQA (grouped-query, optional QKV bias, local windows) and
+MLA (DeepSeek-V2's multi-head latent attention).
 
-Port of the GQA half of ``repro.models.attention``.  The full-sequence
-forward (prefill) runs one of two attentions, picked by
-``cfg.attn_impl``:
+Port of ``repro.models.attention`` less cross attention (``kv_override``,
+ROADMAP queue 1 item 9.3).  The full-sequence GQA forward (prefill)
+runs one of two attentions, picked by ``cfg.attn_impl``:
 
   ``"pallas"``  K6, the hand-written flash-attention kernel
                 (``kernels.flash_attention``; its plain version on CPU
-                tensors);
+                tensors), causal or windowed;
   otherwise     :func:`blocked_attention`, the plain blocked
                 online-softmax attention in torch (memory O(S · block)),
                 with the reference's static causal block skip, bf16
                 probabilities and query offset.
 
-Decode attends the whole KV cache in plain torch, as the reference does
-(it has no kernel there).  The MLA functions wait for their slice
-(ROADMAP queue 1 item 12).
+The MLA forward always runs :func:`blocked_attention` (the reference
+runs its kernel only for GQA): its scale is (nope + rope) ** -0.5 and
+its value head dim differs from the query/key one.  Decode attends the
+whole cache in plain torch, as the reference does (it has no kernel
+there); MLA decodes in the absorbed form, scores and context in the
+compressed space.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import Dense, normal, rope
+from repro_torch.models.layers import Dense, RMSNorm, normal, rmsnorm, rope
 
 NEG_INF = -1e30
 
@@ -59,6 +63,31 @@ class GQA(nn.Module):
 
 def gqa_init(cfg, dtype, *, generator, device=None) -> GQA:
     return GQA(cfg, dtype, generator=generator, device=device)
+
+
+class MLA(nn.Module):
+    """w_dq (D, q_lora), q_norm, w_uq (q_lora, H, nope + rope), w_dkv (D,
+    kv_lora + rope), kv_norm, w_uk (kv_lora, H, nope), w_uv (kv_lora, H,
+    v_head_dim), wo (H, v_head_dim, D)."""
+
+    def __init__(self, cfg, dtype, *, generator, device=None):
+        super().__init__()
+        device = device or generator.device
+        H, r = cfg.num_heads, cfg.kv_lora_rank
+        qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+        kw = dict(generator=generator, device=device)
+        self.w_dq = Dense(cfg.d_model, cfg.q_lora_rank, dtype, **kw)
+        self.q_norm = RMSNorm(cfg.q_lora_rank, dtype, device=device)
+        self.w_uq = Dense(cfg.q_lora_rank, (H, qk), dtype, **kw)
+        self.w_dkv = Dense(cfg.d_model, r + cfg.qk_rope_dim, dtype, **kw)
+        self.kv_norm = RMSNorm(r, dtype, device=device)
+        self.w_uk = Dense(r, (H, cfg.qk_nope_dim), dtype, **kw)
+        self.w_uv = Dense(r, (H, cfg.v_head_dim), dtype, **kw)
+        self.wo = OutProj(H, cfg.v_head_dim, cfg.d_model, dtype, **kw)
+
+
+def mla_init(cfg, dtype, *, generator, device=None) -> MLA:
+    return MLA(cfg, dtype, generator=generator, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -152,10 +181,11 @@ def blocked_attention(q, k, v, *, causal=True, window=0, q_block=2048,
 # GQA block forward
 # ---------------------------------------------------------------------------
 
-def gqa_forward(p: GQA, x, pos, cfg):
-    """Full-sequence (prefill) causal GQA self-attention.  x: (B, S, D);
-    pos: (B, S) positions.  Returns (out (B, S, D), k, v), k/v
-    (B, S, KVH, hd) after rope, for the prefill cache."""
+def gqa_forward(p: GQA, x, pos, cfg, *, causal=True, window=0):
+    """Full-sequence (prefill) GQA self-attention, causal or not, over a
+    ``window`` of keys when it is not 0.  x: (B, S, D); pos: (B, S)
+    positions.  Returns (out (B, S, D), k, v), k/v (B, S, KVH, hd) after
+    rope, for the prefill cache."""
     q = p.wq(x)
     k = p.wk(x)
     v = p.wv(x)
@@ -163,9 +193,10 @@ def gqa_forward(p: GQA, x, pos, cfg):
         q = rope(q, pos, cfg.rope_theta)
         k = rope(k, pos, cfg.rope_theta)
     if cfg.attn_impl == "pallas":
-        out = flash_attention(q, k, v)
+        out = flash_attention(q, k, v, causal=causal, window=window)
     else:
-        out = blocked_attention(q, k, v, q_block=cfg.attn_q_block,
+        out = blocked_attention(q, k, v, causal=causal, window=window,
+                                q_block=cfg.attn_q_block,
                                 kv_block=cfg.attn_kv_block,
                                 block_skip=cfg.attn_block_skip,
                                 p_bf16=cfg.attn_p_bf16)
@@ -213,3 +244,79 @@ def gqa_decode(p: GQA, x, cache_k, cache_v, cache_len: int, cfg, *,
     out = out.reshape(B, 1, cfg.num_heads, hd).to(x.dtype)
     y = torch.einsum("bshd,hdo->bso", out, p.wo.w.to(x.dtype))
     return y, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): compressed KV cache + absorbed decode
+# ---------------------------------------------------------------------------
+
+def _mla_kv(p: MLA, x, pos, cfg):
+    """The compressed KV of x: (c_kv (B, S, kv_lora) after kv_norm, k_rope
+    (B, S, rope) after rope), what the cache holds."""
+    dkv = p.w_dkv(x)
+    c_kv = rmsnorm(dkv[..., :cfg.kv_lora_rank], p.kv_norm.scale, cfg.norm_eps)
+    k_rope = rope(dkv[..., None, cfg.kv_lora_rank:], pos, cfg.rope_theta)
+    return c_kv, k_rope[..., 0, :]
+
+
+def _mla_q(p: MLA, x, pos, cfg):
+    """(q_nope (B, S, H, nope), q_rope (B, S, H, rope) after rope)."""
+    cq = rmsnorm(p.w_dq(x), p.q_norm.scale, cfg.norm_eps)
+    q = p.w_uq(cq)
+    q_nope, q_rope = q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
+    return q_nope, rope(q_rope, pos, cfg.rope_theta)
+
+
+def mla_forward(p: MLA, x, pos, cfg):
+    """Full-sequence causal MLA.  x: (B, S, D); pos: (B, S).  Returns (out
+    (B, S, D), c_kv, k_rope) for the prefill cache."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    q_nope, q_rope = _mla_q(p, x, pos, cfg)
+    c_kv, k_rope = _mla_kv(p, x, pos, cfg)
+    k_nope = p.w_uk(c_kv)  # (B, S, H, nope)
+    v = p.w_uv(c_kv)       # (B, S, H, v_head_dim)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H,
+                                                     cfg.qk_rope_dim)],
+                  dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = blocked_attention(q, k, v, causal=True,
+                            scale=(cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5,
+                            q_block=cfg.attn_q_block,
+                            kv_block=cfg.attn_kv_block,
+                            block_skip=cfg.attn_block_skip,
+                            p_bf16=cfg.attn_p_bf16)
+    y = torch.einsum("bshd,hdo->bso", out, p.wo.w.to(x.dtype))
+    return y, c_kv, k_rope
+
+
+def mla_decode(p: MLA, x, cache_c, cache_kr, cache_len: int, cfg):
+    """Absorbed MLA decode: scores and context in the compressed space.
+    x: (B, 1, D); cache_c: (B, Smax, kv_lora); cache_kr: (B, Smax, rope).
+    Returns (out, new_c, new_kr); the cache update is as in
+    :func:`gqa_decode`."""
+    B = x.shape[0]
+    pos = torch.full((B, 1), cache_len, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = (t[:, 0] for t in _mla_q(p, x, pos, cfg))  # (B, H, .)
+    c_new, kr_new = _mla_kv(p, x, pos, cfg)                     # (B, 1, .)
+    Smax = cache_c.shape[1]
+    if cfg.decode_dus:
+        cache_c[:, cache_len:cache_len + 1] = c_new.to(cache_c.dtype)
+        cache_kr[:, cache_len:cache_len + 1] = kr_new.to(cache_kr.dtype)
+    else:
+        onehot = (torch.arange(Smax, device=x.device) == cache_len
+                  ).to(cache_c.dtype)[None, :, None]
+        cache_c = cache_c * (1 - onehot) + c_new * onehot
+        cache_kr = cache_kr * (1 - onehot) + kr_new * onehot
+    # absorb w_uk into q: q' = q_nope @ w_uk^T -> (B, H, kv_lora)
+    qc = torch.einsum("bhn,rhn->bhr", q_nope, p.w_uk.w.to(x.dtype))
+    s = torch.einsum("bhr,bsr->bhs", qc.float(), cache_c.float())
+    s = s + torch.einsum("bhe,bse->bhs", q_rope.float(), cache_kr.float())
+    s = s * (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    valid = torch.arange(Smax, device=x.device) <= cache_len
+    s = torch.where(valid, s, NEG_INF)
+    pr = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhs,bsr->bhr", pr, cache_c.float())
+    v = torch.einsum("bhr,rhv->bhv", ctx.to(x.dtype), p.w_uv.w.to(x.dtype))
+    y = torch.einsum("bhv,hvo->bo", v, p.wo.w.to(x.dtype))
+    return y[:, None], cache_c, cache_kr

@@ -7,9 +7,17 @@ caller's side; nothing here imports JAX) and returns the port's
 stacked group ``g{j}/s{k}`` is unstacked along its leading repeat dim
 into one block per layer, in the reference's execution order, and
 ``embed/w``, ``norm/scale`` and ``lm_head/w`` are copied as they are.
-A block's subtree is carried path for path, the MoE FFN's included
+A block's subtree is carried path for path: the MoE FFN's
 (``ffn.router.w``, ``ffn.experts.{w1,w3,w2}``, ``ffn.dense_mlp.*``,
-``ffn.shared.*``).
+``ffn.shared.*``), MLA's (``mixer.w_dq``, ``q_norm``, ``w_uq``,
+``w_dkv``, ``kv_norm``, ``w_uk``, ``w_uv``, ``wo``), RG-LRU's
+(``mixer.gate_proj``, ``in_proj``, ``conv.w``, ``a_gate.{w,b}``,
+``x_gate.{w,b}``, ``a_param``, ``out_proj``) and SSD's (``mixer.in_proj``,
+``conv.w``, ``a_param``, ``dt_bias``, ``d_skip``, ``out_proj``,
+``norm.scale``).  Each array lands in its parameter's dtype: bfloat16
+arrays pass through float32 (exactly), and the float32 leaves stay
+float32 under a bfloat16 ``param_dtype``, since the port makes them
+float32 as the reference does.
 """
 from __future__ import annotations
 
@@ -25,6 +33,15 @@ def _flat(tree, prefix=""):
             yield from _flat(v, f"{prefix}{k}.")
         else:
             yield prefix + k, v
+
+
+def _np32(arr) -> np.ndarray:
+    """A numpy copy of ``arr`` that torch reads: bfloat16 (numpy has no
+    such dtype of its own) widened to float32, which is exact."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        arr = arr.astype(np.float32)
+    return np.array(arr)
 
 
 def params_from_jax(tree, cfg, *, device="cpu") -> Model:
@@ -43,6 +60,6 @@ def params_from_jax(tree, cfg, *, device="cpu") -> Model:
                         arr if reps is None else arr[r])
                 layer += 1
     model = Model(cfg, generator=torch.Generator().manual_seed(0))
-    model.load_state_dict({k: torch.tensor(np.asarray(v))
+    model.load_state_dict({k: torch.from_numpy(_np32(v))
                            for k, v in state.items()}, strict=True)
     return model.to(device)

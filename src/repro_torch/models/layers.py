@@ -12,6 +12,7 @@ counterpart on one card and are dropped.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Union
 
 import torch
@@ -88,6 +89,26 @@ def rope(x, positions, theta: float = 10000.0):
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def gelu(x):
+    """GELU in its tanh approximation, the reference's (``jax.nn.gelu``
+    defaults to ``approximate=True``; torch's default is the erf form),
+    op for op in ``x``'s dtype with its constants rounded to that dtype,
+    as the reference computes it: ``F.gelu`` rounds once, and in bf16
+    differs from the reference by one rounding in ~40% of elements."""
+    c = torch.tensor([(2 / math.pi) ** 0.5, 0.044715], dtype=x.dtype,
+                     device=x.device)
+    return x * (0.5 * (1.0 + torch.tanh(c[0] * (x + c[1] * (x * x * x)))))
+
+
+def silu(x):
+    """x * sigmoid(x) with the sigmoid as 1 / (1 + e^-x), op for op in
+    ``x``'s dtype, as the reference computes ``jax.nn.silu`` on the CPU
+    (``F.silu`` rounds once, and in bf16 differs from it by one rounding
+    in ~40% of elements).  The SSM blocks use it; the MLP keeps
+    ``F.silu``."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
 
 
 class MLP(nn.Module):

@@ -15,9 +15,13 @@ parameter paths:
 
 A block's FFN is the MoE block (``models/moe.py``) when ``cfg.moe`` and
 the layer is not one of the leading dense units; ``forward`` sums the
-MoE load-balance losses into ``aux`` as the reference does.  The cache
-is a list with one ``{"k", "v"}`` dict per layer.  forward, prefill and
-decode run under ``torch.inference_mode()``.  The training
+MoE load-balance losses into ``aux`` as the reference does.  The
+layers of every group run in order, a tail group (RecurrentGemma's
+trailing recurrent pair) after the body.  The cache is a list with one
+dict per layer, each kind's entries in their own dtypes
+(``transformer.sublayer_cache``: float32 recurrent state, int32 ring
+positions).  forward, prefill and decode run under
+``torch.inference_mode()``.  The training
 loss (``loss_fn``, the chunked cross-entropy) and the whisper encoder
 wait for their slices.
 """
@@ -58,10 +62,10 @@ class Model(nn.Module):
         super().__init__()
         if cfg.encoder_layers:
             raise NotImplementedError("the whisper encoder is not ported yet "
-                                      "(ROADMAP queue 1 item 12)")
+                                      "(ROADMAP queue 1 item 9.3)")
         if cfg.pos_emb != "rope":
             raise NotImplementedError(f"pos_emb {cfg.pos_emb!r} is not "
-                                      f"ported yet (ROADMAP queue 1 item 12)")
+                                      f"ported yet (ROADMAP queue 1 item 9.3)")
         device = device or generator.device
         dt = getattr(torch, cfg.param_dtype)
         kw = dict(generator=generator, device=device)
@@ -82,8 +86,8 @@ def init_params(cfg, generator: torch.Generator, device=None) -> Model:
 @torch.inference_mode()
 def forward(params: Model, cfg, tokens, *, cache=None):
     """Full-sequence forward.  tokens: (B, S) int.  Returns (logits
-    (B, S, V), aux, cache-or-None); with a zeroed ``cache`` the K/V of
-    every position are written into it."""
+    (B, S, V), aux, cache-or-None); with a zeroed ``cache`` each layer's
+    prefill state (K/V, ring, recurrent state) is written into it."""
     cdt = getattr(torch, cfg.dtype)
     B, S = tokens.shape
     x = embed_lookup(params.embed, tokens, cdt)

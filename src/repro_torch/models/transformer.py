@@ -1,15 +1,27 @@
-"""Transformer sublayers: init, full-sequence apply, KV cache, decode.
+"""Transformer sublayers: init, full-sequence apply, cache, decode.
 
-Port of ``repro.models.transformer`` for the kind the port builds:
-``"attn"``, a pre-norm residual block of GQA self-attention and an FFN,
-a SwiGLU MLP or, when ``cfg.moe`` and the layer uses it, the MoE block
-(``models/moe.py``).  Its cache is ``{"k", "v"}``, each (B, Smax, KVH,
-hd) in the compute dtype.  The other kinds (``local_attn``,
-``cross_attn``, ``rglru``, ``ssd``) and MLA raise
-``NotImplementedError`` naming the ROADMAP item they wait for.
+Port of ``repro.models.transformer`` for every kind but cross attention:
 
-Functions take the block module ``p`` where the reference takes its
-parameter subtree, and return what the reference returns.
+  attn        pre-norm residual block of self-attention (GQA, or MLA when
+              ``cfg.mla``) and an FFN: a SwiGLU MLP or, when ``cfg.moe``
+              and the layer uses it, the MoE block (``models/moe.py``)
+  local_attn  the same with sliding-window GQA over ``cfg.local_window``
+              keys, decoded from a ring buffer of that many slots
+  rglru       the RG-LRU recurrent block (``models/ssm.py``) and an FFN
+  ssd         the Mamba-2 SSD block alone (no norm2, no FFN)
+
+Cache entries per kind (compute dtype unless named):
+
+  attn        k, v: (B, Smax, KVH, hd); MLA: c (B, Smax, kv_lora),
+              kr (B, Smax, rope)
+  local_attn  k, v: (B, W, KVH, hd) ring, slot_pos (B, W) int32
+  rglru       h (B, w) float32, conv (B, cw-1, w)
+  ssd         h (B, H, P, N) float32, conv (B, cw-1, conv_ch)
+
+``cross_attn`` raises ``NotImplementedError``: it waits for the encoder
+(ROADMAP queue 1 item 9.3).  Functions take the block module ``p`` where
+the reference takes its parameter subtree, and return what the reference
+returns.
 """
 from __future__ import annotations
 
@@ -18,14 +30,10 @@ from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import MLP, RMSNorm, mlp, rmsnorm
+from repro_torch.models import ssm
+from repro_torch.models.layers import MLP, RMSNorm, mlp, rmsnorm, rope
 
-_WAITING = {
-    "local_attn": "local attention (ROADMAP queue 1 item 12)",
-    "cross_attn": "cross attention and the encoder (ROADMAP queue 1 item 12)",
-    "rglru": "the RG-LRU block (ROADMAP queue 1 item 12, ssm.py)",
-    "ssd": "the Mamba-2 SSD block (ROADMAP queue 1 item 12, ssm.py)",
-}
+KINDS = ("attn", "local_attn", "rglru", "ssd")
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -37,16 +45,14 @@ def _cdtype(cfg) -> torch.dtype:
 
 
 def check_ported(kind, cfg) -> None:
-    """Raise ``NotImplementedError`` unless the port builds this
-    sublayer: kind "attn" with GQA."""
-    if kind in _WAITING:
-        raise NotImplementedError(f"layer kind {kind!r} is not ported yet: "
-                                  f"{_WAITING[kind]}")
-    if kind != "attn":
+    """Raise ``NotImplementedError`` for cross attention, which the port
+    does not build yet, and ``ValueError`` for an unknown kind."""
+    if kind == "cross_attn":
+        raise NotImplementedError("layer kind 'cross_attn' is not ported "
+                                  "yet: cross attention and the encoder "
+                                  "(ROADMAP queue 1 item 9.3)")
+    if kind not in KINDS:
         raise ValueError(kind)
-    if cfg.mla:
-        raise NotImplementedError("MLA attention is not ported yet (ROADMAP "
-                                  "queue 1 item 12)")
 
 
 # ---------------------------------------------------------------------------
@@ -54,8 +60,8 @@ def check_ported(kind, cfg) -> None:
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """norm1, mixer (GQA), norm2, ffn (SwiGLU MLP, or MoE when
-    ``cfg.moe and use_moe``)."""
+    """norm1 and the kind's mixer; but for ``ssd``, norm2 and an ffn
+    (SwiGLU MLP, or MoE when ``cfg.moe and use_moe``)."""
 
     def __init__(self, kind, cfg, *, generator, device=None, use_moe=True):
         super().__init__()
@@ -67,7 +73,15 @@ class Block(nn.Module):
         self.kind = kind
         self.use_moe = use_moe
         self.norm1 = RMSNorm(D, dt, device=device)
-        self.mixer = attn.gqa_init(cfg, dt, **kw)
+        if kind == "ssd":
+            self.mixer = ssm.ssd_init(cfg, dt, **kw)
+            return
+        if kind == "rglru":
+            self.mixer = ssm.rglru_init(cfg, dt, **kw)
+        elif cfg.mla:
+            self.mixer = attn.mla_init(cfg, dt, **kw)
+        else:
+            self.mixer = attn.gqa_init(cfg, dt, **kw)
         self.norm2 = RMSNorm(D, dt, device=device)
         self.ffn = (moe_mod.moe_init(cfg, dt, **kw) if cfg.moe and use_moe
                     else MLP(D, cfg.d_ff, dt, **kw))
@@ -85,19 +99,40 @@ def _ffn_apply(p: Block, x, cfg):
     return mlp(p.ffn, x), 0.0
 
 
+def _with_ffn(p: Block, x, cfg):
+    """x + FFN(norm2(x)), and the FFN's aux loss."""
+    y, aux = _ffn_apply(p, rmsnorm(x, p.norm2.scale, cfg.norm_eps), cfg)
+    return x + y, aux
+
+
 def sublayer_apply(p: Block, kind, x, pos, cfg, *, cache=None):
     """Full-sequence causal forward.  Returns (x, aux, cache): ``aux`` is
     the MoE load-balance loss (0.0 for a dense FFN); ``cache`` is the
     populated prefill cache when a (zeroed) cache is passed, else
     None."""
     h = rmsnorm(x, p.norm1.scale, cfg.norm_eps)
-    y, k, v = attn.gqa_forward(p.mixer, h, pos, cfg)
-    if cache is not None:
-        cache = sublayer_prefill_cache(cache, k, v)
-    x = x + y
-    h2 = rmsnorm(x, p.norm2.scale, cfg.norm_eps)
-    y2, aux = _ffn_apply(p, h2, cfg)
-    return x + y2, aux, cache
+    if kind == "ssd":
+        y, hstate, conv_tail = ssm.ssd_forward(p.mixer, h, cfg)
+        if cache is not None:
+            cache = _recurrent_cache(cache, hstate, conv_tail)
+        return x + y, 0.0, cache
+    if kind == "rglru":
+        y, hstate, conv_tail = ssm.rglru_forward(p.mixer, h, cfg)
+        if cache is not None:
+            cache = _recurrent_cache(cache, hstate, conv_tail)
+    elif cfg.mla:
+        y, c_kv, kr = attn.mla_forward(p.mixer, h, pos, cfg)
+        if cache is not None:
+            cache = dict(cache, c=_write_prefix(cache["c"], c_kv),
+                         kr=_write_prefix(cache["kr"], kr))
+    else:
+        window = cfg.local_window if kind == "local_attn" else 0
+        y, k, v = attn.gqa_forward(p.mixer, h, pos, cfg, window=window)
+        if cache is not None:
+            cache = (_ring_prefill(cache, k, v, pos, window) if window
+                     else sublayer_prefill_cache(cache, k, v))
+    x, aux = _with_ffn(p, x + y, cfg)
+    return x, aux, cache
 
 
 # ---------------------------------------------------------------------------
@@ -107,8 +142,27 @@ def sublayer_apply(p: Block, kind, x, pos, cfg, *, cache=None):
 def sublayer_cache(kind, cfg, batch, smax):
     """{name: (shape, dtype)} of one sublayer's cache."""
     check_ported(kind, cfg)
-    shape = (batch, smax, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return {"k": (shape, _cdtype(cfg)), "v": (shape, _cdtype(cfg))}
+    dt = _cdtype(cfg)
+    D = cfg.d_model
+    if kind == "attn" and cfg.mla:
+        return {"c": ((batch, smax, cfg.kv_lora_rank), dt),
+                "kr": ((batch, smax, cfg.qk_rope_dim), dt)}
+    if kind in ("attn", "local_attn"):
+        W = cfg.local_window if kind == "local_attn" else smax
+        kv = ((batch, W, cfg.num_kv_heads, cfg.resolved_head_dim), dt)
+        c = {"k": kv, "v": kv}
+        if kind == "local_attn":
+            c["slot_pos"] = ((batch, W), torch.int32)
+        return c
+    if kind == "rglru":
+        w = cfg.rnn_width or D
+        return {"h": ((batch, w), torch.float32),
+                "conv": ((batch, cfg.conv_width - 1, w), dt)}
+    inner = cfg.ssm_expand * D
+    H = inner // cfg.ssm_head_dim
+    return {"h": ((batch, H, cfg.ssm_head_dim, cfg.ssm_state), torch.float32),
+            "conv": ((batch, cfg.conv_width - 1, inner + 2 * cfg.ssm_state),
+                     dt)}
 
 
 # ---------------------------------------------------------------------------
@@ -118,13 +172,57 @@ def sublayer_cache(kind, cfg, batch, smax):
 def sublayer_decode(p: Block, kind, x, cache, cache_len, cfg):
     """One token through the sublayer.  Returns (x, cache, aux)."""
     h = rmsnorm(x, p.norm1.scale, cfg.norm_eps)
-    y, ck, cv = attn.gqa_decode(p.mixer, h, cache["k"], cache["v"],
-                                cache_len, cfg)
-    cache = dict(cache, k=ck, v=cv)
-    x = x + y
-    h2 = rmsnorm(x, p.norm2.scale, cfg.norm_eps)
-    y2, aux = _ffn_apply(p, h2, cfg)
-    return x + y2, cache, aux
+    if kind in ("rglru", "ssd"):
+        step = ssm.rglru_decode if kind == "rglru" else ssm.ssd_decode
+        y, hs, conv = step(p.mixer, h, cache["h"], cache["conv"], cfg)
+        cache = dict(cache, h=hs, conv=conv)
+        if kind == "ssd":
+            return x + y, cache, 0.0
+    elif kind == "local_attn":
+        y, cache = _local_ring_decode(p.mixer, h, cache, cache_len, cfg)
+    elif cfg.mla:
+        y, c, kr = attn.mla_decode(p.mixer, h, cache["c"], cache["kr"],
+                                   cache_len, cfg)
+        cache = dict(cache, c=c, kr=kr)
+    else:
+        y, ck, cv = attn.gqa_decode(p.mixer, h, cache["k"], cache["v"],
+                                    cache_len, cfg)
+        cache = dict(cache, k=ck, v=cv)
+    x, aux = _with_ffn(p, x + y, cfg)
+    return x, cache, aux
+
+
+def _local_ring_decode(p: attn.GQA, x, cache, cache_len: int, cfg):
+    """Sliding-window decode with a ring buffer of ``local_window`` slots:
+    the new token's K/V go to slot ``cache_len % W`` (a one-hot blend, as
+    in the reference), and a slot is attended while its position lies in
+    the window."""
+    B = x.shape[0]
+    hd = cfg.resolved_head_dim
+    W = cfg.local_window
+    dev = x.device
+    pos = torch.full((B, 1), cache_len, dtype=torch.int32, device=dev)
+    q = rope(p.wq(x), pos, cfg.rope_theta)
+    k_new = rope(p.wk(x), pos, cfg.rope_theta)
+    v_new = p.wv(x)
+    hot = torch.arange(W, device=dev) == cache_len % W
+    dt = cache["k"].dtype
+    onehot = hot.to(dt)[None, :, None, None]
+    ck = cache["k"] * (1 - onehot) + k_new.to(dt) * onehot
+    cv = cache["v"] * (1 - onehot) + v_new.to(dt) * onehot
+    ihot = hot.to(torch.int32)[None]
+    spos = cache["slot_pos"] * (1 - ihot) + cache_len * ihot
+    valid = (spos <= cache_len) & (spos > cache_len - W)
+    KVH = ck.shape[2]
+    G = cfg.num_heads // KVH
+    qg = q.reshape(B, KVH, G, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(), ck.float()) * hd ** -0.5
+    s = torch.where(valid[:, None, None], s, attn.NEG_INF)
+    pr = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", pr, cv.float())
+    out = out.reshape(B, 1, cfg.num_heads, hd).to(x.dtype)
+    y = torch.einsum("bshd,hdo->bso", out, p.wo.w.to(x.dtype))
+    return y, dict(cache, k=ck, v=cv, slot_pos=spos)
 
 
 # ---------------------------------------------------------------------------
@@ -138,6 +236,29 @@ def sublayer_prefill_cache(cache, k, v):
     both, so the forward hands its own over."""
     return dict(cache, k=_write_prefix(cache["k"], k),
                 v=_write_prefix(cache["v"], v))
+
+
+def _ring_prefill(cache, k, v, pos, W):
+    """A local-attention ring after the prompt, in place: the last
+    min(W, S) positions' K/V in their slots (position % W), their
+    positions in ``slot_pos``, -10**9 (never in a window) elsewhere."""
+    S = k.shape[1]
+    take = min(W, S)
+    p_last = pos[0, S - take:]
+    slots = p_last % W
+    for name, val in (("k", k), ("v", v)):
+        cache[name].zero_()
+        cache[name][:, slots] = val[:, S - take:].to(cache[name].dtype)
+    cache["slot_pos"].fill_(-10**9)
+    cache["slot_pos"][:, slots] = p_last.to(torch.int32)
+    return cache
+
+
+def _recurrent_cache(cache, hstate, conv_tail):
+    """A recurrent block's cache after the prompt: its final state and
+    the last cw - 1 inputs of its conv."""
+    return dict(cache, h=hstate,
+                conv=conv_tail.to(cache["conv"].dtype))
 
 
 def _write_prefix(buf, val):

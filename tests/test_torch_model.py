@@ -1,12 +1,16 @@
 """The port's LLM path against the JAX reference, on the CPU.
 
-For the smoke configs of the five ported architectures (the dense
-TinyLlama, Qwen1.5, Granite-3 and Phi4-mini, and the MoE Arctic): the
-configs themselves, the elementary layers, ``forward`` / ``prefill`` /
-``decode_step`` with the reference's weights carried across by
-``params_from_jax``, and the serving engine's greedy tokens.  In float32
-the logits agree within 1e-4; with the bf16 default within 0.15, the
-bound ``tests/test_archs.py`` allows for bf16 reorderings.
+For the smoke configs of the eight ported architectures (the dense
+TinyLlama, Qwen1.5, Granite-3 and Phi4-mini, the MoE Arctic, DeepSeek-V2
+with MLA, the hybrid RecurrentGemma with RG-LRU and local attention, and
+the SSM Mamba2): the configs themselves, the elementary layers,
+``forward`` / ``prefill`` / ``decode_step`` with the reference's weights
+carried across by ``params_from_jax``, and the serving engine's greedy
+tokens.  In float32 the logits agree within 1e-4; with the bf16 default
+within 0.15, the bound ``tests/test_archs.py`` allows for bf16
+reorderings.  RecurrentGemma's prompt is longer than its local window
+(32), so the prefill's window and the decode ring both wrap; Mamba2's is
+no multiple of its SSD chunk (8).
 """
 import contextlib
 import dataclasses
@@ -32,6 +36,9 @@ from repro_torch.serving import sampler as tsampler
 
 ARCHS = tcb.ARCH_IDS
 BF16_ULP = 2.0 ** -7   # one bf16 rounding, relative
+# prompt length of the forward / prefill / decode test: past the local
+# window (RecurrentGemma) and no multiple of the SSD chunk (Mamba2)
+PROMPT = {"recurrentgemma_9b": 40, "mamba2_780m": 13}
 
 
 def _np(t):
@@ -61,18 +68,22 @@ def test_config_matches_reference(arch):
     assert tcb.get_config(arch.replace("_", "-")) == tcb.get_config(arch)
 
 
-@pytest.mark.parametrize("arch", ["deepseek_v2_236b", "mamba2_780m",
-                                  "whisper_small", "llama_3_2_vision_11b",
-                                  "recurrentgemma_9b"])
+@pytest.mark.parametrize("arch", ["whisper_small", "llama_3_2_vision_11b"])
 def test_unported_architectures_raise(arch):
+    """Cross attention and the encoder (ROADMAP queue 1 item 9.3) raise;
+    MLA, local attention and the recurrent kinds build."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcb.get_config(arch)
-    cfg = dataclasses.replace(tcb.get_smoke_config("tinyllama_1_1b"),
-                              group_pattern=("ssd",))
+    cfg = tcb.get_smoke_config("tinyllama_1_1b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.init_params(cfg, torch.Generator().manual_seed(0))
+        TM.init_params(dataclasses.replace(cfg, group_pattern=("cross_attn",)),
+                       torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.check_ported("attn", dataclasses.replace(cfg, mla=True))
+        ttf.check_ported("cross_attn", cfg)
+    with pytest.raises(ValueError):
+        ttf.check_ported("conv", cfg)
+    for kind in ("attn", "local_attn", "rglru", "ssd"):
+        ttf.check_ported(kind, dataclasses.replace(cfg, mla=True))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -99,10 +110,26 @@ def test_layers_match_reference(arch, dtype):
                         jcfg.rope_theta)
     assert got.dtype == tdt
     np.testing.assert_allclose(_np(got), _np(want), **tol)
-    jffn = jax.tree_util.tree_map(lambda a: a[0], jp["g0"]["s0"]["ffn"])
-    ffn = model.layers[0].ffn
-    if jcfg.moe:  # the MoE block's dense residual MLP (test_torch_moe.py
-        jffn, ffn = jffn["dense_mlp"], ffn.dense_mlp  # holds the block)
+    got = tlayers.gelu(xt)
+    want = jax.nn.gelu(xj)  # the tanh approximation, jax's default
+    if dtype == "float32":
+        np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-6)
+    else:  # the reference's bf16 ops, rounded where it rounds
+        np.testing.assert_array_equal(_np(got), _np(want))
+    # a SwiGLU MLP: the first layer's FFN, the leading dense layer's
+    # (DeepSeek-V2), or the MoE block's dense residual MLP (Arctic;
+    # test_torch_moe.py holds the block); Mamba2's SSD layers have none
+    if jcfg.first_k_dense:
+        jffn, ffn = jp["lead0"]["s0"]["ffn"], model.layers[0].ffn
+    elif jcfg.moe:
+        jffn = jax.tree_util.tree_map(lambda a: a[0],
+                                      jp["g0"]["s0"]["ffn"]["dense_mlp"])
+        ffn = model.layers[0].ffn.dense_mlp
+    elif "ssd" in jcfg.group_pattern:
+        return
+    else:
+        jffn = jax.tree_util.tree_map(lambda a: a[0], jp["g0"]["s0"]["ffn"])
+        ffn = model.layers[0].ffn
     got = tlayers.mlp(ffn, xt)
     want = jlayers.mlp(jffn, xj)
     if dtype == "float32":
@@ -117,12 +144,13 @@ def test_layers_match_reference(arch, dtype):
                                              ("bfloat16", "xla"),
                                              ("bfloat16", "pallas")])
 def test_forward_prefill_decode_match_reference(arch, dtype, attn_impl):
-    """In bf16 an MoE reference runs eagerly, as the port does: under jit,
-    XLA's fusions round bf16 elsewhere, and for Arctic that flips one
+    """In bf16 the Arctic reference runs eagerly, as the port does: under
+    jit, XLA's fusions round bf16 elsewhere, and for Arctic that flips one
     token's top-2 experts (the jitted reference's logits differ from its
     own eager ones by 1.99 at that token, where the port's and the eager
-    reference's differ by less than 0.06)."""
-    eager = tcb.get_smoke_config(arch).moe and dtype == "bfloat16"
+    reference's differ by less than 0.06).  DeepSeek-V2's routing flips
+    no expert, and its reference runs as the others' do."""
+    eager = arch == "arctic_480b" and dtype == "bfloat16"
     with jax.disable_jit() if eager else contextlib.nullcontext():
         _forward_prefill_decode(arch, dtype, attn_impl)
 
@@ -130,7 +158,7 @@ def test_forward_prefill_decode_match_reference(arch, dtype, attn_impl):
 def _forward_prefill_decode(arch, dtype, attn_impl):
     jcfg, tcfg, jp, model = _models(arch, dtype=dtype, attn_impl=attn_impl)
     tol = 1e-4 if dtype == "float32" else 0.15
-    B, S = 2, 16
+    B, S = 2, PROMPT.get(arch, 16)
     toks = np.random.default_rng(2).integers(0, jcfg.vocab_size, (B, S + 2))
 
     def close(got, want):
@@ -140,8 +168,8 @@ def _forward_prefill_decode(arch, dtype, attn_impl):
     want, _, _ = JM.forward(jp, jcfg, jnp.asarray(toks, jnp.int32))
     got, _, _ = TM.forward(model, tcfg, torch.from_numpy(toks))
     close(got, want)
-    jc = JM.init_cache(jcfg, B, 24)
-    tc = TM.init_cache(tcfg, B, 24)
+    jc = JM.init_cache(jcfg, B, S + 8)
+    tc = TM.init_cache(tcfg, B, S + 8)
     want, jc = JM.prefill(jp, jcfg, jnp.asarray(toks[:, :S], jnp.int32), jc)
     got, tc = TM.prefill(model, tcfg, torch.from_numpy(toks[:, :S]), tc)
     close(got, want)
@@ -152,15 +180,31 @@ def _forward_prefill_decode(arch, dtype, attn_impl):
         got, tc = TM.decode_step(model, tcfg,
                                  torch.from_numpy(toks[:, t:t + 1]), tc, t)
         close(got, want)
-    for name in ("k", "v"):
-        close(tc[-1][name], jc["g0"]["s0"][name][-1])
+    # the last layer's cache, entry by entry, in its own dtype
+    name, pattern, reps = TM._groups(tcfg)[-1]
+    want = jc[name][f"s{len(pattern) - 1}"]
+    assert sorted(tc[-1]) == sorted(want)
+    for key, got in tc[-1].items():
+        w = want[key] if reps is None else want[key][-1]
+        assert got.dtype == getattr(torch, str(w.dtype))
+        assert tuple(got.shape) == w.shape
+        # a recurrent state h sums bf16 inputs over the whole prompt in
+        # float32: its bound scales with its size (SSD's reaches ~5)
+        scale = max(1.0, float(np.abs(_np(w)).max())) if key == "h" else 1.0
+        assert np.abs(_np(got) - _np(w)).max() < tol * scale
 
 
-def _requests(module, vocab):
+def _requests(module, vocab, lengths=((5, 4), (9, 3))):
+    """(prompt length, new tokens) per request."""
     rng = np.random.default_rng(3)
     return [module.Request(prompt=rng.integers(0, vocab, n).astype(np.int32),
                            max_new_tokens=m)
-            for n, m in ((5, 4), (9, 3))]
+            for n, m in lengths]
+
+
+# the engine's requests: RecurrentGemma's longer prompt, left-padded with
+# the shorter one's, wraps the local window of 32 in prefill and decode
+ENGINE_REQUESTS = {"recurrentgemma_9b": (((37, 4), (9, 3)), 48)}
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -168,10 +212,11 @@ def _requests(module, vocab):
 def test_engine_greedy_tokens_match_reference(arch, attn_impl):
     jcfg, tcfg, jp, model = _models(arch, dtype="float32",
                                     attn_impl=attn_impl)
-    want = JE.Engine(jcfg, jp, max_batch=2, max_seq=32).generate(
-        _requests(JE, jcfg.vocab_size))
-    eng = TE.Engine(tcfg, model, max_batch=2, max_seq=32, device="cpu")
-    got = eng.generate(_requests(TE, tcfg.vocab_size))
+    lengths, max_seq = ENGINE_REQUESTS.get(arch, (((5, 4), (9, 3)), 32))
+    want = JE.Engine(jcfg, jp, max_batch=2, max_seq=max_seq).generate(
+        _requests(JE, jcfg.vocab_size, lengths))
+    eng = TE.Engine(tcfg, model, max_batch=2, max_seq=max_seq, device="cpu")
+    got = eng.generate(_requests(TE, tcfg.vocab_size, lengths))
     for g, w in zip(got, want):
         assert g.out.dtype == np.int32
         np.testing.assert_array_equal(g.out, w.out)
@@ -220,5 +265,18 @@ def test_serve_cli_on_cpu(capsys):
     tserve.main(["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu",
                  "--requests", "2", "--prompt-len", "6", "--new-tokens",
                  "3", "--max-seq", "16"])
+    out = capsys.readouterr().out
+    assert "6 tokens in" in out and out.count("req") == 2
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "recurrentgemma-9b",
+                                  "mamba2-780m"])
+def test_serve_cli_new_families_on_cpu(arch, capsys):
+    """The three --arch ids of MLA, local attention and the recurrent
+    blocks through the serving CLI (smoke configs; RecurrentGemma's
+    prompt past its window of 32)."""
+    tserve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                 "--requests", "2", "--prompt-len", "36", "--new-tokens",
+                 "3", "--max-seq", "48"])
     out = capsys.readouterr().out
     assert "6 tokens in" in out and out.count("req") == 2
