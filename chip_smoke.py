@@ -169,6 +169,30 @@ drives the port's main path on one card:
            at full width in float32, card vs CPU within 1e-3.  For each:
            prefill ms, decode ms per step, tokens/s, peak memory, and
            one decode step profiled (launches, device idle share)
+  encdec   cross attention and the whisper encoder, each model whole at
+           full width behind ``Engine(max_batch=4).generate`` x 32
+           greedy tokens on stub frontend embeddings (float32 normal
+           from SEED), counters set to 0 before one measured generate and
+           read after, the families' models dropped first:
+           Whisper-small (12 encoder + 12 decoder layers, 1,500 frames,
+           prompts 400 / 360 / 300 / 200, max_seq 448): K6 at the
+           encoder's shape (B = 4, Sq = Skv = 1,500, 12 / 12 heads, hd
+           64, bidirectional, bf16) on the first encoder layer's
+           projections against its plain version, with times, bound and
+           SDPA's; K6 once per encoder and decoder layer (24) on the
+           wgmma route and nothing else; the prefill logits with K6
+           against attn_impl="xla" with a key block of 1,500 (at the
+           config's 1,024 the plain attention counts zero-padded keys in
+           its bidirectional softmax, as the reference's does: logged,
+           not gated) in float32 within 1e-3 and in bf16 by BF16_SPREAD;
+           2 + 2 layers at full width in float32, card vs CPU within
+           1e-3.  Llama-3.2-Vision-11B's backbone (40 layers, every 5th
+           cross-attending 1,601 patch embeddings; TinyLlama's prompts):
+           K6 at its prefill shape (B = 4, S = 512, 32 / 8 heads, hd
+           128, causal) with times, bound and SDPA's; K6 once per layer
+           (40), nothing else; the same logit gates.  For each: prefill
+           ms, decode ms per step, tokens/s, peak memory, one decode step
+           profiled
   kernels  every ported kernel and its launches on its path's run, on
            the service path's (``service_launches``) and in the pool's
            workers (``pool_launches``)
@@ -2274,17 +2298,17 @@ def _attn_inputs(torch, np, rng, B, Sq, Skv, H, KVH, hd, dtype):
             .to("cuda", dtype) for s in shapes]
 
 
-def _k6_check(torch, what, got, want, tol):
+def _k6_check(torch, what, got, want, tol, floor=1e-6):
     """Max abs error of K6 against its plain version, which fails above
     ``tol`` and, in bf16, above one rounding of the float32 result both
-    compute (2**-7 of the value, 1e-6 near zero)."""
+    compute (2**-7 of the value, ``floor`` near zero)."""
     diff = (got.float() - want.float()).abs()
     err = float(diff.max())
     if got.dtype != want.dtype or not err <= tol:
         raise AssertionError(f"{what} {got.dtype}: max abs err {err} > {tol}")
     if got.dtype == torch.bfloat16:
         over = float((diff - 2 ** -7 * want.float().abs()).max())
-        if not over <= 1e-6:
+        if not over <= floor:
             raise AssertionError(f"{what}: off by more than one bf16 "
                                  f"rounding (by {over} beyond 2**-7 |want|)")
     return err
@@ -2985,7 +3009,7 @@ MAMBA2_PROMPTS = (500, 480, 400, 300)
 MAMBA2_DECODE_CHECK = 4                  # decode steps held to the forward
 
 
-def _family_model(torch, cfg, label):
+def _family_model(torch, cfg, label, phase="families"):
     """``cfg``'s model on the card with random weights from SEED, its
     size logged."""
     from repro_torch.models import model as M
@@ -2997,7 +3021,7 @@ def _family_model(torch, cfg, label):
     torch.cuda.synchronize()
     n = sum(p.numel() for p in params.parameters())
     size = sum(p.numel() * p.element_size() for p in params.parameters())
-    log(f"families: {label}: {cfg.num_layers} layers {cfg.groups}, d_model "
+    log(f"{phase}: {label}: {cfg.num_layers} layers {cfg.groups}, d_model "
         f"{cfg.d_model}, vocab {cfg.vocab_size}; {n:,} parameters "
         f"({size / 1e9:.2f} GB, {cfg.param_dtype} but the float32 leaves) "
         f"made on the card in {time.perf_counter() - t0:.1f} s; compute "
@@ -3005,12 +3029,15 @@ def _family_model(torch, cfg, label):
     return params
 
 
-def _family_serve(torch, np, cfg, params, prompts, max_seq, want, label):
+def _family_serve(torch, np, cfg, params, prompts, max_seq, want, label,
+                  enc=None, phase="families"):
     """Serve ``prompts`` x SERVE_NEW_TOKENS greedy tokens through
-    ``Engine(max_batch=4)``: a warm generate, then one with every launch
-    counter set to 0 before and read after, which must launch exactly
-    ``want`` (kernel -> count) and nothing else; then one decode step
-    profiled.  Returns the engine, the prompts' tokens and the metrics."""
+    ``Engine(max_batch=4)``, with the frontend's embeddings ``enc`` (a
+    host array) for a model with cross attention: a warm generate, then
+    one with every launch counter set to 0 before and read after, which
+    must launch exactly ``want`` (kernel -> count) and nothing else; then
+    one decode step profiled.  Returns the engine, the prompts' tokens
+    and the metrics."""
     from repro_torch.kernels import backend as kb
     from repro_torch.models import model as M
     from repro_torch.serving.engine import Engine, Request
@@ -3022,7 +3049,7 @@ def _family_serve(torch, np, cfg, params, prompts, max_seq, want, label):
 
     def generate():
         return eng.generate([Request(prompt=p, max_new_tokens=SERVE_NEW_TOKENS)
-                             for p in toks])
+                             for p in toks], enc_inp=enc)
 
     generate()  # warm
     torch.cuda.synchronize()
@@ -3045,25 +3072,27 @@ def _family_serve(torch, np, cfg, params, prompts, max_seq, want, label):
                decode_ms=statistics.median(eng.stats["decode_s"]) * 1e3,
                tokens_per_s=tokens / wall,
                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-    log(f"families: {label}: generate of {len(reqs)} requests x "
+    log(f"{phase}: {label}: generate of {len(reqs)} requests x "
         f"{SERVE_NEW_TOKENS} tokens (prompts {prompts}) in {wall * 1e3:.1f} "
         f"ms; K6 launched {counts.get('flash_attention', 0)} times "
         f"({counts.get('flash_attention.wgmma', 0)} wgmma), K7 "
         f"{counts.get('grouped_matmul', 0)} times "
         f"({counts.get('grouped_matmul.counts', 0)} counts layout), nothing "
         f"else launched")
-    log(f"families: {label}: prefill_ms {res['prefill_ms']:.3f}")
-    log(f"families: {label}: decode_ms_per_token {res['decode_ms']:.3f} "
+    log(f"{phase}: {label}: prefill_ms {res['prefill_ms']:.3f}")
+    log(f"{phase}: {label}: decode_ms_per_token {res['decode_ms']:.3f} "
         f"(median of {len(eng.stats['decode_s'])} steps)")
-    log(f"families: {label}: tokens_per_s {res['tokens_per_s']:.1f}")
-    log(f"families: {label}: max_memory_allocated {res['peak_gib']:.2f} GiB")
-    log(f"families: {label}: first tokens "
+    log(f"{phase}: {label}: tokens_per_s {res['tokens_per_s']:.1f}")
+    log(f"{phase}: {label}: max_memory_allocated {res['peak_gib']:.2f} GiB")
+    log(f"{phase}: {label}: first tokens "
         f"{[r.out[:6].tolist() for r in reqs]}")
 
     # one decode step under the profiler: launches per step, idle share
     batch = _left_padded(torch, np, toks, "cuda")
-    cache = M.init_cache(cfg, len(toks), max_seq, "cuda")
-    logits, cache = M.prefill(params, cfg, batch, cache)
+    cache = M.init_cache(cfg, len(toks), max_seq, "cuda",
+                         enc_len=cfg.num_frontend_tokens)
+    logits, cache = M.prefill(params, cfg, batch, cache, enc_inp=None if enc
+                              is None else torch.from_numpy(enc).cuda())
     nxt = logits.argmax(-1)[:, None]
     # decode returns a new cache and leaves this one as it is
     M.decode_step(params, cfg, nxt, cache, batch.shape[1])  # warm
@@ -3072,10 +3101,10 @@ def _family_serve(torch, np, cfg, params, prompts, max_seq, want, label):
     if prof is not None:
         res["step_launches"] = prof["launches"]
         res["step_idle"] = 1 - prof["busy"] / prof["wall"]
-        log(f"families: {label}: {prof['launches']} device launches per "
+        log(f"{phase}: {label}: {prof['launches']} device launches per "
             f"decode step, device idle share {res['step_idle']:.3f}")
     else:
-        log(f"families: {label}: launches per decode step and idle share "
+        log(f"{phase}: {label}: launches per decode step and idle share "
             f"not measured")
     del cache, logits
     return eng, toks, res
@@ -3129,6 +3158,70 @@ def _rg9b_k6_row(torch, np, k6, cfg):
     return r
 
 
+def _prefill_logit_gates(torch, np, cfg, params, toks, max_seq, label,
+                         phase, enc=None, **plain):
+    """The prefill's last-token logits four ways (on the frontend's
+    embeddings ``enc`` for a cross-attention model): K6 and the plain
+    blocked attention, each in bf16 (served) and in float32, with
+    ``plain`` set in all four configs.  Gates: float32 K6 (fma route)
+    within CPU_LOGIT_TOL of the plain attention, and bf16 K6 no further
+    from the float32 plain logits than the plain bf16 logits are, by
+    BF16_SPREAD.  Returns the four distances."""
+    import dataclasses
+
+    from repro_torch.models import model as M
+
+    batch = _left_padded(torch, np, toks, "cuda")
+    e = None if enc is None else torch.from_numpy(enc).cuda()
+    lg = {}
+    for impl in ("pallas", "xla"):
+        for dt in ("bfloat16", "float32"):
+            c = dataclasses.replace(cfg, attn_impl=impl, dtype=dt, **plain)
+            lg[impl, dt] = M.prefill(params, c, batch, M.init_cache(
+                c, len(toks), max_seq, "cuda",
+                enc_len=c.num_frontend_tokens), enc_inp=e)[0].float()
+            torch.cuda.empty_cache()
+    if not all(bool(torch.isfinite(x).all()) for x in lg.values()):
+        raise AssertionError(f"{label}: non-finite prefill logits")
+
+    def dist(a, b):
+        return float((lg[a] - lg[b]).abs().max())
+
+    res = dict(logit_err32=dist(("pallas", "float32"), ("xla", "float32")),
+               logit_err=dist(("pallas", "bfloat16"), ("xla", "bfloat16")),
+               k6_off=dist(("pallas", "bfloat16"), ("xla", "float32")),
+               plain_off=dist(("xla", "bfloat16"), ("xla", "float32")))
+    with_plain = f" with {plain}" if plain else ""
+    log(f"{phase}: {label}: prefill last-token logits{with_plain} (largest "
+        f"|logit| "
+        f"{float(lg['xla', 'float32'].abs().max()):.3f}): float32 K6 vs "
+        f"attn_impl='xla' max abs err {res['logit_err32']} (tolerance "
+        f"{CPU_LOGIT_TOL}); bf16 K6 vs 'xla' {res['logit_err']}; from the "
+        f"float32 plain logits: bf16 K6 {res['k6_off']}, bf16 plain "
+        f"{res['plain_off']} (K6 within {BF16_SPREAD} x the plain's); all "
+        f"finite")
+    if not (res["logit_err32"] <= CPU_LOGIT_TOL
+            and res["k6_off"] <= BF16_SPREAD * res["plain_off"]):
+        raise AssertionError(f"{label} prefill logits: float32 K6 vs plain "
+                             f"{res['logit_err32']} (> {CPU_LOGIT_TOL}?) or "
+                             f"bf16 K6 {res['k6_off']} from float32 against "
+                             f"the plain's {res['plain_off']} (x "
+                             f"{BF16_SPREAD})")
+    if plain:  # the served config's plain attention, for the record
+        c = dataclasses.replace(cfg, attn_impl="xla", dtype="float32")
+        x = M.prefill(params, c, batch, M.init_cache(
+            c, len(toks), max_seq, "cuda", enc_len=c.num_frontend_tokens),
+            enc_inp=e)[0].float()
+        res["served_plain_err32"] = float((lg["pallas", "float32"] - x)
+                                          .abs().max())
+        log(f"{phase}: {label}: float32 K6 vs attn_impl='xla' at the "
+            f"config's own key block ({cfg.attn_kv_block}) "
+            f"{res['served_plain_err32']}: not gated, that plain attention "
+            f"counts the zero-padded keys of its last block in a "
+            f"bidirectional softmax, as the reference's does")
+    return res
+
+
 def _family_rg9b(torch, np):
     """RecurrentGemma-9B, all 38 layers: K6 at its served prefill shape,
     serving (K6 once per local-attention layer, on the wgmma route, and
@@ -3150,45 +3243,13 @@ def _family_rg9b(torch, np):
         torch, np, cfg, params, RG9B_PROMPTS, RG9B_MAX_SEQ,
         {"flash_attention": n_local, "flash_attention.wgmma": n_local},
         cfg.name)
-    # the prefill's last-token logits four ways: K6 and the plain blocked
-    # attention, each in bf16 (served) and in float32.  In bf16 the logits
-    # of two plain attentions that only block the keys differently lie
-    # 0.170 apart at this depth on an H100, past SERVE_LOGIT_TOL, so the
-    # bf16 pair is logged and the gates are: float32, K6 (fma route)
-    # against the plain attention within CPU_LOGIT_TOL; and K6's bf16
-    # logits no further from the plain float32 ones than the plain bf16
-    # logits are, by BF16_SPREAD
-    batch = _left_padded(torch, np, toks, "cuda")
-    lg = {}
-    for impl in ("pallas", "xla"):
-        for dt in ("bfloat16", "float32"):
-            c = dataclasses.replace(cfg, attn_impl=impl, dtype=dt)
-            lg[impl, dt] = M.prefill(params, c, batch, M.init_cache(
-                c, len(toks), RG9B_MAX_SEQ, "cuda"))[0].float()
-            torch.cuda.empty_cache()
-    if not all(bool(torch.isfinite(x).all()) for x in lg.values()):
-        raise AssertionError("rg9b: non-finite prefill logits")
-
-    def dist(a, b):
-        return float((lg[a] - lg[b]).abs().max())
-
-    err32 = dist(("pallas", "float32"), ("xla", "float32"))
-    err16 = dist(("pallas", "bfloat16"), ("xla", "bfloat16"))
-    k6_off = dist(("pallas", "bfloat16"), ("xla", "float32"))
-    plain_off = dist(("xla", "bfloat16"), ("xla", "float32"))
-    log(f"families: {cfg.name}: prefill last-token logits (largest "
-        f"|logit| {float(lg['xla', 'float32'].abs().max()):.3f}): float32 "
-        f"K6 vs attn_impl='xla' max abs err {err32} (tolerance "
-        f"{CPU_LOGIT_TOL}); bf16 K6 vs 'xla' {err16}; from the float32 "
-        f"plain logits: bf16 K6 {k6_off}, bf16 plain {plain_off} (K6 within "
-        f"{BF16_SPREAD} x the plain's); all finite")
-    if not (err32 <= CPU_LOGIT_TOL and k6_off <= BF16_SPREAD * plain_off):
-        raise AssertionError(f"rg9b prefill logits: float32 K6 vs plain "
-                             f"{err32} (> {CPU_LOGIT_TOL}?) or bf16 K6 "
-                             f"{k6_off} from float32 against the plain's "
-                             f"{plain_off} (x {BF16_SPREAD})")
-    return dict(res, row=row, logit_err=err16, logit_err32=err32,
-                k6_off=k6_off, plain_off=plain_off)
+    # the prefill's last-token logits four ways (_prefill_logit_gates).  In
+    # bf16 the logits of two plain attentions that only block the keys
+    # differently lie 0.170 apart at this depth on an H100, past
+    # SERVE_LOGIT_TOL, so the bf16 pair is logged and the gates are
+    # float32 and the bf16 spread
+    return dict(res, row=row, **_prefill_logit_gates(
+        torch, np, cfg, params, toks, RG9B_MAX_SEQ, cfg.name, "families"))
 
 
 def _family_deepseek(torch, np):
@@ -3369,6 +3430,202 @@ def phase_families(torch, np):
     return out
 
 
+# phase encdec: cross attention and the whisper encoder, each model whole
+# at full width behind the engine, on stub frontend embeddings from SEED
+WHISPER_PROMPTS = (400, 360, 300, 200)
+WHISPER_MAX_SEQ = 448                    # Whisper's decoder context
+VISION_PROMPTS = SERVE_PROMPTS
+VISION_MAX_SEQ = 1024
+
+
+def _frontend(np, cfg, B):
+    """Stub frontend embeddings (B, num_frontend_tokens, D), float32
+    standard normal from SEED (the reference's frontends are stubs)."""
+    return np.random.default_rng(SEED + 1).standard_normal(
+        (B, cfg.num_frontend_tokens, cfg.d_model)).astype(np.float32)
+
+
+def _k6_served_row(torch, k6, q, k, v, causal, what):
+    """K6 on the wgmma route against its plain version within 3e-2 and one
+    bf16 rounding, on the main path's inputs ``q, k, v`` (bf16, in the
+    layout the model hands them), with the kernel's time (on the inputs
+    the wrapper passes it), the wrapper's (any copy TMA's stride rules
+    force included), the plain version's, SDPA's and the bound."""
+    import torch.nn.functional as F
+
+    B, Sq, H, hd = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    ready = [k6.tma_ready(t.stride(), t.data_ptr()) for t in (q, k, v)]
+    got = _k6_routed(torch, k6, q, k, v, causal=causal)
+    want = k6.flash_attention_plain(q, k, v, causal=causal)
+    # near zero the two float32 results may differ by the rounding of a
+    # sum over Skv keys, in the worst case Skv ulps of the largest value
+    # (an output that cancels over 1,500 keys differs by ~2.5e-6)
+    floor = max(1e-6, Skv * 2 ** -24 * float(v.float().abs().max()))
+    err = _k6_check(torch, f"K6 {what}", got, want, 3e-2, floor)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              enable_gqa=True)
+
+    lib_err = float((sdpa().transpose(1, 2).float() - want.float())
+                    .abs().max())
+    if not lib_err <= 3e-2:
+        raise AssertionError(f"SDPA at {what}: max abs err {lib_err} > 3e-2")
+    # (query, key) pairs: all of them, or the causal triangle (Sq = Skv)
+    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
+    ops = 4 * hd * B * H * pairs
+    b, by = bound_ms(nbytes(q, k, v, got), ops, BF16_OPS_PER_S)
+    qc, kc, vc = (t if ok else t.clone(memory_format=torch.contiguous_format)
+                  for t, ok in zip((q, k, v), ready))
+    out = torch.empty_like(qc)
+    r = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: k6.launch(qc, kc, vc, out, causal=causal,
+                                            window=0, scale=hd ** -0.5)),
+        wrapper_ms=time_ms(torch, lambda: k6.flash_attention(
+            q, k, v, causal=causal)),
+        plain_ms=time_ms(torch, lambda: k6.flash_attention_plain(
+            q, k, v, causal=causal), reps=3, warmup=1),
+        bound_ms=b, bound_by=by, library_ms=time_ms(torch, sdpa),
+        shape=f"B={B} Sq={Sq} Skv={Skv} H={H} KVH={KVH} hd={hd} bf16 "
+              f"{'causal' if causal else 'bidirectional'} (wgmma route)")
+    r["tflops"] = ops / r["ms"] / 1e9
+    log(f"encdec: K6 flash_attention.{what} {r['shape']} max_abs_err {err} "
+        f"(within 3e-2 and one bf16 rounding of the plain version, "
+        f"{floor:.3g} near zero; SDPA vs plain {lib_err}); q, k, v "
+        f"TMA-ready in place {ready} (else copied by the wrapper, in "
+        f"wrapper_ms); kernel_ms {r['ms']:.4f} "
+        f"({r['tflops']:.1f} TFLOP/s) wrapper_ms {r['wrapper_ms']:.4f} "
+        f"plain_ms {r['plain_ms']:.4f} bound_ms {b:.5f} ({by}) library_ms "
+        f"{r['library_ms']:.4f} (SDPA, is_causal={causal})")
+    return r
+
+
+def _encdec_whisper(torch, np):
+    """Whisper-small whole (12 encoder + 12 decoder layers): K6 at the
+    encoder's shape on the first layer's projections, serving (K6 once
+    per encoder and decoder layer, nothing else), the logit gates, and 2
+    + 2 layers at full width in float32 on the card against the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import base as cb
+    from repro_torch.kernels import flash_attention as k6
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import rmsnorm
+
+    cfg = dataclasses.replace(cb.get_config("whisper-small"),
+                              attn_impl="pallas")
+    B = len(WHISPER_PROMPTS)
+    enc = _frontend(np, cfg, B)
+    params = _family_model(torch, cfg, f"{cfg.name} ({cfg.encoder_layers} "
+                           f"encoder layers)", phase="encdec")
+    # K6 on what the first encoder layer hands it
+    with torch.inference_mode():
+        blk = params.encoder[0]
+        x = torch.from_numpy(enc).cuda().to(torch.bfloat16)
+        S = x.shape[1]
+        pos = torch.arange(S, device="cuda")[None].expand(B, S)
+        h = rmsnorm(x + M._sinusoid(pos, cfg.d_model, x.dtype),
+                    blk.norm1.scale, cfg.norm_eps)
+        q, k, v = blk.mixer.wq(h), blk.mixer.wk(h), blk.mixer.wv(h)
+        row = _k6_served_row(torch, k6, q, k, v, False, "whisper_enc")
+        del x, h, q, k, v
+    n = cfg.encoder_layers + cfg.num_layers
+    _, toks, res = _family_serve(
+        torch, np, cfg, params, WHISPER_PROMPTS, WHISPER_MAX_SEQ,
+        {"flash_attention": n, "flash_attention.wgmma": n}, cfg.name,
+        enc=enc, phase="encdec")
+    # the gates with a key block of the encoder's length: at the config's
+    # 1,024 the plain attention pads 1,500 keys to 2,048 and, being
+    # bidirectional, counts the 548 zero keys (the reference's blocked
+    # attention masks padding only through the causal test), which K6 and
+    # the reference's kernel do not
+    res.update(_prefill_logit_gates(
+        torch, np, cfg, params, toks, WHISPER_MAX_SEQ, cfg.name, "encdec",
+        enc, attn_kv_block=cfg.num_frontend_tokens))
+    del params
+    torch.cuda.empty_cache()
+    c2 = dataclasses.replace(cfg, num_layers=2, encoder_layers=2,
+                             dtype="float32")
+    batch = _left_padded(torch, np, toks, "cpu")
+    lg = {}
+    for where in ("cpu", "cuda"):
+        model = M.init_params(c2, torch.Generator().manual_seed(SEED),
+                              device=where)
+        lg[where] = M.prefill(model, c2, batch.to(where), M.init_cache(
+            c2, B, WHISPER_MAX_SEQ, where, enc_len=c2.num_frontend_tokens),
+            enc_inp=torch.from_numpy(enc).to(where))[0].cpu()
+    cpu_err = float((lg["cuda"] - lg["cpu"]).abs().max())
+    if not (bool(torch.isfinite(lg["cuda"]).all())
+            and cpu_err <= CPU_LOGIT_TOL):
+        raise AssertionError(f"whisper 2 + 2 layer float32 logits card vs "
+                             f"CPU: max abs err {cpu_err} > {CPU_LOGIT_TOL}")
+    log(f"encdec: {cfg.name}: 2 encoder + 2 decoder layers at full width, "
+        f"float32: last-token logits on the card (K6) vs the CPU (plain "
+        f"version) max abs err {cpu_err} (tolerance {CPU_LOGIT_TOL})")
+    return dict(res, row=row, cpu_err=cpu_err)
+
+
+def _encdec_vision(torch, np):
+    """Llama-3.2-Vision-11B's backbone whole (40 layers, every 5th with
+    cross attention to 1,601 patch embeddings): K6 at its prefill shape,
+    serving (K6 once per layer, nothing else) and the logit gates."""
+    import dataclasses
+
+    from repro_torch.configs import base as cb
+    from repro_torch.kernels import flash_attention as k6
+
+    cfg = dataclasses.replace(cb.get_config("llama-3.2-vision-11b"),
+                              attn_impl="pallas")
+    B, S = len(VISION_PROMPTS), VISION_PROMPTS[0]
+    q, k, v = _attn_inputs(torch, np, np.random.default_rng(SEED), B, S, S,
+                           cfg.num_heads, cfg.num_kv_heads,
+                           cfg.resolved_head_dim, torch.bfloat16)
+    row = _k6_served_row(torch, k6, q, k, v, True, "vision")
+    del q, k, v
+    enc = _frontend(np, cfg, B)
+    params = _family_model(torch, cfg, cfg.name, phase="encdec")
+    _, toks, res = _family_serve(
+        torch, np, cfg, params, VISION_PROMPTS, VISION_MAX_SEQ,
+        {"flash_attention": cfg.num_layers,
+         "flash_attention.wgmma": cfg.num_layers}, cfg.name, enc=enc,
+        phase="encdec")
+    res.update(_prefill_logit_gates(torch, np, cfg, params, toks,
+                                    VISION_MAX_SEQ, cfg.name, "encdec", enc))
+    return dict(res, row=row)
+
+
+def phase_encdec(torch, np):
+    """Whisper-small (its encoder bidirectional through K6) and
+    Llama-3.2-Vision-11B's backbone at full width behind the engine, one
+    after the other (each model dropped before the next is made).
+    Returns each model's metrics and the kernel table's rows."""
+    import gc
+
+    out, failed = {}, []
+    for name, fn in (("whisper", _encdec_whisper),
+                     ("vision", _encdec_vision)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        try:
+            out[name] = fn(torch, np)
+        except Exception:  # report it, then go on to the next model
+            traceback.print_exc()
+            failed.append(name)
+        log(f"encdec: {name} {'FAILED' if name in failed else 'passed'} "
+            f"in {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"encdec: {failed} failed")
+    out["rows"] = {"flash_attention.whisper_enc": out["whisper"].pop("row"),
+                   "flash_attention.vision": out["vision"].pop("row")}
+    return out
+
+
 def phase_inputs(np):
     """The 16 matrices of the main paths plus dense-row-full, and the
     scl-array oracle of each (host numpy)."""
@@ -3414,7 +3671,8 @@ def main() -> int:
               ("serve", lambda: phase_serve(torch, np)),
               ("profile", lambda: phase_profile(torch, np, res["serve"])),
               ("moe", lambda: phase_moe(torch, np, res["serve"])),
-              ("families", lambda: phase_families(torch, np)))
+              ("families", lambda: phase_families(torch, np)),
+              ("encdec", lambda: phase_encdec(torch, np)))
     for label, fn in phases:
         t0 = time.perf_counter()
         try:
@@ -3433,7 +3691,7 @@ def main() -> int:
     name = res["device"]
     kernel_rows, floor = res["kernel"]
     rows = {**kernel_rows, **res["attention"], **res["moe"]["rows"],
-            **res["families"]["rows"]}
+            **res["families"]["rows"], **res["encdec"]["rows"]}
     # each kernel's launches on its own path's run
     counts = {k: v for k, v in res["spgemm"][0].items()
               if not k.startswith(("stream_", "flash_attention",
@@ -3447,6 +3705,12 @@ def main() -> int:
     counts["flash_attention.rg9b"] = fam["rg9b"]["counts"]["flash_attention"]
     counts["grouped_matmul.deepseek"] = \
         fam["deepseek"]["counts"]["grouped_matmul"]
+    encdec = res["encdec"]
+    counts["flash_attention.whisper"] = counts[
+        "flash_attention.whisper_enc"] = \
+        encdec["whisper"]["counts"]["flash_attention"]
+    counts["flash_attention.vision"] = \
+        encdec["vision"]["counts"]["flash_attention"]
     log("kernels: " + ", ".join(f"{k}={v}" for k, v in counts.items()))
     sources = {
         "chunk_sort": ("src/repro_torch/kernels/csrc/chunk_sort.cu",

@@ -44,8 +44,6 @@ from typing import Optional, Tuple
 #   cross_attn  self-attention + cross-attention + MLP
 #   rglru       RG-LRU recurrent block + MLP
 #   ssd         Mamba-2 SSD block (standalone, no MLP)
-# The port builds every kind but "cross_attn", which raises (it waits
-# for the encoder, ROADMAP queue 1 item 9.3).
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,12 +180,11 @@ class ModelConfig:
         return int(n)
 
 
-# the architectures whose every layer the port can build; the reference's
-# other two (whisper_small, llama_3_2_vision_11b) need cross attention and
-# the encoder
+# the reference's ten architectures, all of which the port builds
 ARCH_IDS = ["tinyllama_1_1b", "phi4_mini_3_8b", "qwen1_5_0_5b",
             "granite_3_2b", "recurrentgemma_9b", "arctic_480b",
-            "deepseek_v2_236b", "mamba2_780m"]
+            "deepseek_v2_236b", "mamba2_780m", "whisper_small",
+            "llama_3_2_vision_11b"]
 
 
 def norm_id(name: str) -> str:
@@ -197,10 +194,7 @@ def norm_id(name: str) -> str:
 def _module(name: str):
     arch = norm_id(name)
     if arch not in ARCH_IDS:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported yet (ROADMAP queue 1 item "
-            f"9.3: cross attention and the encoder wait); ported: "
-            f"{ARCH_IDS}")
+        raise ValueError(f"unknown architecture {name!r}; known: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

@@ -3,7 +3,11 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --requests 4 --prompt-len 512 --new-tokens 32 --max-seq 1024
 
-Random weights from a seeded generator (no checkpoint is loaded).  Runs
+Random weights from a seeded generator (no checkpoint is loaded).  A
+model with cross attention (whisper-small, llama-3.2-vision-11b) gets
+stub frontend embeddings: float32 standard normal (requests,
+num_frontend_tokens, d_model), drawn after the prompts from the same
+generator, as the reference's CLI draws them.  Runs
 on the card by default; ``--device cpu`` runs on the CPU (pair it with
 ``--smoke`` there).
 """
@@ -42,8 +46,13 @@ def main(argv=None):
                                         dtype=np.int32),
                     max_new_tokens=args.new_tokens)
             for _ in range(args.requests)]
+    enc = None
+    if cfg.num_frontend_tokens:
+        enc = rng.standard_normal(
+            (args.requests, cfg.num_frontend_tokens, cfg.d_model)
+        ).astype(np.float32)
     t0 = time.time()
-    reqs = eng.generate(reqs)
+    reqs = eng.generate(reqs, enc_inp=enc)
     dt = time.time() - t0
     total_tokens = sum(len(r.out) for r in reqs)
     for i, r in enumerate(reqs):

@@ -1,20 +1,24 @@
 """Attention: GQA (grouped-query, optional QKV bias, local windows) and
 MLA (DeepSeek-V2's multi-head latent attention).
 
-Port of ``repro.models.attention`` less cross attention (``kv_override``,
-ROADMAP queue 1 item 9.3).  The full-sequence GQA forward (prefill)
-runs one of two attentions, picked by ``cfg.attn_impl``:
+Port of ``repro.models.attention``.  The full-sequence GQA
+self-attention (prefill) runs one of two attentions, picked by
+``cfg.attn_impl``:
 
   ``"pallas"``  K6, the hand-written flash-attention kernel
                 (``kernels.flash_attention``; its plain version on CPU
-                tensors), causal or windowed;
+                tensors), causal, windowed or bidirectional;
   otherwise     :func:`blocked_attention`, the plain blocked
                 online-softmax attention in torch (memory O(S · block)),
                 with the reference's static causal block skip, bf16
                 probabilities and query offset.
 
-The MLA forward always runs :func:`blocked_attention` (the reference
-runs its kernel only for GQA): its scale is (nope + rope) ** -0.5 and
+Cross attention (``gqa_forward(..., kv_override=enc)``: queries from
+the decoder, keys and values from the encoder's states, no rope) always
+runs :func:`blocked_attention`, bidirectional, whatever
+``cfg.attn_impl`` says: the reference's cross path never reaches its
+kernel.  The MLA forward always runs :func:`blocked_attention` (the
+reference runs its kernel only for GQA): its scale is (nope + rope) ** -0.5 and
 its value head dim differs from the query/key one.  Decode attends the
 whole cache in plain torch, as the reference does (it has no kernel
 there); MLA decodes in the absorbed form, scores and context in the
@@ -127,7 +131,9 @@ def blocked_attention(q, k, v, *, causal=True, window=0, q_block=2048,
 
     q_offset: global position of q[0] minus position of k[0] (prefill: 0
     when Sq == Skv; decode chunks: cache_len).  Key padding is masked
-    only through the causal test, as in the reference."""
+    only through the causal test, as in the reference: with
+    ``causal=False`` and Skv no multiple of the key block, the padded
+    keys (zero keys and values) take part in the softmax with score 0."""
     B, Sq, H, hd = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
     dev = q.device
@@ -181,14 +187,25 @@ def blocked_attention(q, k, v, *, causal=True, window=0, q_block=2048,
 # GQA block forward
 # ---------------------------------------------------------------------------
 
-def gqa_forward(p: GQA, x, pos, cfg, *, causal=True, window=0):
+def gqa_forward(p: GQA, x, pos, cfg, *, causal=True, window=0,
+                kv_override=None):
     """Full-sequence (prefill) GQA self-attention, causal or not, over a
     ``window`` of keys when it is not 0.  x: (B, S, D); pos: (B, S)
-    positions.  Returns (out (B, S, D), k, v), k/v (B, S, KVH, hd) after
-    rope, for the prefill cache."""
+    positions.  With ``kv_override`` (B, Senc, D), the encoder's states,
+    it is cross attention instead: keys and values are projected from
+    ``kv_override``, nothing is roped, and every query attends every key
+    through :func:`blocked_attention`.  Returns (out (B, S, D), k, v),
+    k/v (B, Skv, KVH, hd) as attended (after rope), for the prefill
+    cache."""
     q = p.wq(x)
-    k = p.wk(x)
-    v = p.wv(x)
+    src = kv_override if kv_override is not None else x
+    k = p.wk(src)
+    v = p.wv(src)
+    if kv_override is not None:
+        out = blocked_attention(q, k, v, causal=False,
+                                q_block=cfg.attn_q_block,
+                                kv_block=cfg.attn_kv_block)
+        return torch.einsum("bshd,hdo->bso", out, p.wo.w.to(x.dtype)), k, v
     if cfg.pos_emb == "rope":
         q = rope(q, pos, cfg.rope_theta)
         k = rope(k, pos, cfg.rope_theta)

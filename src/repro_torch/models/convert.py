@@ -5,8 +5,10 @@ of numpy arrays (``jax.tree_util.tree_map(np.asarray, params)`` on the
 caller's side; nothing here imports JAX) and returns the port's
 :class:`~repro_torch.models.model.Model` with the same weights: each
 stacked group ``g{j}/s{k}`` is unstacked along its leading repeat dim
-into one block per layer, in the reference's execution order, and
-``embed/w``, ``norm/scale`` and ``lm_head/w`` are copied as they are.
+into one block per layer, in the reference's execution order, the
+encoder's stack ``enc_g/s0`` likewise into ``encoder.{i}``, and
+``embed/w``, ``norm/scale``, ``enc_norm/scale`` and ``lm_head/w`` are
+copied as they are.
 A block's subtree is carried path for path: the MoE FFN's
 (``ffn.router.w``, ``ffn.experts.{w1,w3,w2}``, ``ffn.dense_mlp.*``,
 ``ffn.shared.*``), MLA's (``mixer.w_dq``, ``q_norm``, ``w_uq``,
@@ -14,10 +16,12 @@ A block's subtree is carried path for path: the MoE FFN's
 (``mixer.gate_proj``, ``in_proj``, ``conv.w``, ``a_gate.{w,b}``,
 ``x_gate.{w,b}``, ``a_param``, ``out_proj``) and SSD's (``mixer.in_proj``,
 ``conv.w``, ``a_param``, ``dt_bias``, ``d_skip``, ``out_proj``,
-``norm.scale``).  Each array lands in its parameter's dtype: bfloat16
-arrays pass through float32 (exactly), and the float32 leaves stay
-float32 under a bfloat16 ``param_dtype``, since the port makes them
-float32 as the reference does.
+``norm.scale``), and a ``cross_attn`` block's ``normx.scale`` and
+``xattn.{wq,wk,wv,wo}`` beside its self-attention's.  Each array lands
+in its parameter's dtype: bfloat16 arrays pass through float32
+(exactly), and the float32 leaves stay float32 under a bfloat16
+``param_dtype``, since the port makes them float32 as the reference
+does.
 """
 from __future__ import annotations
 
@@ -51,6 +55,11 @@ def params_from_jax(tree, cfg, *, device="cpu") -> Model:
     another shape."""
     state = {"embed.w": tree["embed"]["w"], "norm.scale": tree["norm"]["scale"],
              "lm_head.w": tree["lm_head"]["w"]}
+    if cfg.encoder_layers:
+        state["enc_norm.scale"] = tree["enc_norm"]["scale"]
+        for key, arr in _flat(tree["enc_g"]["s0"]):
+            for i in range(cfg.encoder_layers):
+                state[f"encoder.{i}.{key}"] = arr[i]
     layer = 0
     for name, pattern, reps in _groups(cfg):
         for r in range(reps or 1):

@@ -1,17 +1,29 @@
 """Model assembly: init / forward / prefill / decode.
 
-Port of ``repro.models.model`` for decoder-only stacks of ported
-sublayers.  The reference's stacked parameter groups ``g{j}/s{k}``
-(repeat dim leading, run with ``lax.scan``) become one ``ModuleList`` of
-per-layer blocks, run in a Python loop in the same order (each group's
-repeats in turn, each repeat's pattern in turn); the leading
-``first_k_dense`` units come first.  Module paths mirror the reference's
-parameter paths:
+Port of ``repro.models.model``.  The reference's stacked parameter
+groups ``g{j}/s{k}`` (repeat dim leading, run with ``lax.scan``) become
+one ``ModuleList`` of per-layer blocks, run in a Python loop in the same
+order (each group's repeats in turn, each repeat's pattern in turn); the
+leading ``first_k_dense`` units come first.  Module paths mirror the
+reference's parameter paths:
 
   embed.w              (V, D)
+  encoder.{i}.…        the encoder's blocks (whisper; ``enc_g/s0``)
+  enc_norm.scale
   layers.{i}.…         one block per layer (models/transformer.py)
   norm.scale
   lm_head.w            (D, V)
+
+A model with ``cross_attn`` layers attends ``enc_inp`` (B, Senc, D), the
+stub frontend's embeddings: through the encoder (``cfg.encoder_layers``
+bidirectional ``attn`` blocks over the embeddings plus a sinusoid, then
+``enc_norm``) when the config has one, else as they are (the vision
+backbone's patch embeddings).  Called without ``enc_inp`` it raises
+``ValueError``, where the reference runs a second self-attention through
+the cross-attention weights in the forward and attends a zero cache in
+decode.  ``pos_emb="sinusoid"`` adds the sinusoid embedding of each
+position to the decoder's token embeddings, as it does to the
+encoder's.
 
 A block's FFN is the MoE block (``models/moe.py``) when ``cfg.moe`` and
 the layer is not one of the leading dense units; ``forward`` sums the
@@ -22,8 +34,7 @@ dict per layer, each kind's entries in their own dtypes
 (``transformer.sublayer_cache``: float32 recurrent state, int32 ring
 positions).  forward, prefill and decode run under
 ``torch.inference_mode()``.  The training
-loss (``loss_fn``, the chunked cross-entropy) and the whisper encoder
-wait for their slices.
+loss (``loss_fn``, the chunked cross-entropy) waits for its slice.
 """
 from __future__ import annotations
 
@@ -46,6 +57,18 @@ def _groups(cfg):
     return out
 
 
+def _sinusoid(pos, d, dtype):
+    """Sinusoid position embedding (..., d) of positions ``pos`` (...):
+    sin then cos of pos * 10000 ** (-i / (d // 2)), computed op for op as
+    the reference computes it, in float32, then cast to ``dtype``."""
+    half = d // 2
+    lg = torch.log(torch.tensor(10000.0, dtype=torch.float32))
+    freq = torch.exp(-lg.to(pos.device) * torch.arange(
+        half, dtype=torch.float32, device=pos.device) / half)
+    ang = pos[..., None].to(torch.float32) * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
 def layer_kinds(cfg):
     """[(kind, use_moe), ...], one per layer, in execution order."""
     out = []
@@ -56,22 +79,21 @@ def layer_kinds(cfg):
 
 
 class Model(nn.Module):
-    """A decoder-only model of ported sublayers (see module docstring)."""
+    """A model of ported sublayers (see module docstring)."""
 
     def __init__(self, cfg, *, generator: torch.Generator, device=None):
         super().__init__()
-        if cfg.encoder_layers:
-            raise NotImplementedError("the whisper encoder is not ported yet "
-                                      "(ROADMAP queue 1 item 9.3)")
-        if cfg.pos_emb != "rope":
-            raise NotImplementedError(f"pos_emb {cfg.pos_emb!r} is not "
-                                      f"ported yet (ROADMAP queue 1 item 9.3)")
         device = device or generator.device
         dt = getattr(torch, cfg.param_dtype)
         kw = dict(generator=generator, device=device)
         self.embed = Embed(cfg.vocab_size, cfg.d_model, dt, **kw)
         self.norm = RMSNorm(cfg.d_model, dt, device=device)
         self.lm_head = Dense(cfg.d_model, cfg.vocab_size, dt, **kw)
+        if cfg.encoder_layers:
+            self.encoder = nn.ModuleList(
+                tf.sublayer_init("attn", cfg, use_moe=False, **kw)
+                for _ in range(cfg.encoder_layers))
+            self.enc_norm = RMSNorm(cfg.d_model, dt, device=device)
         self.layers = nn.ModuleList(
             tf.sublayer_init(kind, cfg, use_moe=use_moe, **kw)
             for kind, use_moe in layer_kinds(cfg))
@@ -83,20 +105,46 @@ def init_params(cfg, generator: torch.Generator, device=None) -> Model:
     return Model(cfg, generator=generator, device=device)
 
 
+def _encode(params: Model, cfg, enc_inp):
+    """The whisper encoder over stub frame embeddings (B, Senc, D): cast
+    to the compute dtype, plus the sinusoid (in that dtype), the
+    bidirectional ``attn`` blocks, ``enc_norm``."""
+    x = enc_inp.to(getattr(torch, cfg.dtype))
+    B, S = x.shape[:2]
+    pos = torch.arange(S, device=x.device)[None].expand(B, S)
+    x = x + _sinusoid(pos, cfg.d_model, x.dtype)
+    for blk in params.encoder:
+        x, _, _ = tf.sublayer_apply(blk, "attn", x, pos, cfg, causal=False)
+    return rmsnorm(x, params.enc_norm.scale, cfg.norm_eps)
+
+
 @torch.inference_mode()
-def forward(params: Model, cfg, tokens, *, cache=None):
-    """Full-sequence forward.  tokens: (B, S) int.  Returns (logits
-    (B, S, V), aux, cache-or-None); with a zeroed ``cache`` each layer's
-    prefill state (K/V, ring, recurrent state) is written into it."""
+def forward(params: Model, cfg, tokens, *, enc_inp=None, cache=None):
+    """Full-sequence forward.  tokens: (B, S) int; ``enc_inp`` (B, Senc,
+    D): the frontend's embeddings, which a model with ``cross_attn``
+    layers needs.  Returns (logits (B, S, V), aux, cache-or-None); with a
+    zeroed ``cache`` each layer's prefill state (K/V, ring, recurrent
+    state, the encoder's K/V) is written into it."""
     cdt = getattr(torch, cfg.dtype)
     B, S = tokens.shape
     x = embed_lookup(params.embed, tokens, cdt)
     pos = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    if cfg.pos_emb == "sinusoid":
+        x = x + _sinusoid(pos, cfg.d_model, cdt)
+    enc = None
+    if enc_inp is not None:
+        enc = (_encode(params, cfg, enc_inp) if cfg.encoder_layers
+               else enc_inp.to(cdt))
+    elif cfg.encoder_layers or any(kind == "cross_attn"
+                                   for kind, _ in layer_kinds(cfg)):
+        raise ValueError(f"{cfg.name} attends the frontend's embeddings: "
+                         f"pass enc_inp (B, {cfg.num_frontend_tokens}, "
+                         f"{cfg.d_model})")
     aux_total = 0.0
     new_cache = [] if cache is not None else None
     for i, layer in enumerate(params.layers):
         x, aux, c = tf.sublayer_apply(
-            layer, layer.kind, x, pos, cfg,
+            layer, layer.kind, x, pos, cfg, enc=enc,
             cache=cache[i] if cache is not None else None)
         aux_total += aux
         if cache is not None:
@@ -109,24 +157,26 @@ def forward(params: Model, cfg, tokens, *, cache=None):
 # serving: cache shapes / prefill / decode
 # ---------------------------------------------------------------------------
 
-def cache_shapes(cfg, batch, smax):
-    """[{name: (shape, dtype)}, ...], one per layer."""
-    return [tf.sublayer_cache(kind, cfg, batch, smax)
+def cache_shapes(cfg, batch, smax, enc_len=0):
+    """[{name: (shape, dtype)}, ...], one per layer; ``enc_len`` encoder
+    positions in a ``cross_attn`` layer's."""
+    return [tf.sublayer_cache(kind, cfg, batch, smax, enc_len)
             for kind, _ in layer_kinds(cfg)]
 
 
 @torch.inference_mode()
-def init_cache(cfg, batch, smax, device=None):
+def init_cache(cfg, batch, smax, device=None, *, enc_len=0):
     return [{n: torch.zeros(shape, dtype=dt, device=device)
              for n, (shape, dt) in c.items()}
-            for c in cache_shapes(cfg, batch, smax)]
+            for c in cache_shapes(cfg, batch, smax, enc_len)]
 
 
 @torch.inference_mode()
-def prefill(params: Model, cfg, tokens, cache):
-    """Process the prompt; returns (last-token logits (B, V), populated
-    cache)."""
-    logits, _, cache = forward(params, cfg, tokens, cache=cache)
+def prefill(params: Model, cfg, tokens, cache, *, enc_inp=None):
+    """Process the prompt (and ``enc_inp``, see :func:`forward`); returns
+    (last-token logits (B, V), populated cache)."""
+    logits, _, cache = forward(params, cfg, tokens, enc_inp=enc_inp,
+                               cache=cache)
     return logits[:, -1], cache
 
 
@@ -134,7 +184,12 @@ def prefill(params: Model, cfg, tokens, cache):
 def decode_step(params: Model, cfg, token, cache, cache_len: int):
     """token: (B, 1) at position ``cache_len``.  Returns (logits (B, V),
     new_cache)."""
-    x = embed_lookup(params.embed, token, getattr(torch, cfg.dtype))
+    cdt = getattr(torch, cfg.dtype)
+    x = embed_lookup(params.embed, token, cdt)
+    if cfg.pos_emb == "sinusoid":
+        pos = torch.full(token.shape, cache_len, dtype=torch.int32,
+                         device=token.device)
+        x = x + _sinusoid(pos, cfg.d_model, cdt)
     new_cache = []
     for layer, c in zip(params.layers, cache):
         x, c, _ = tf.sublayer_decode(layer, layer.kind, x, c, cache_len, cfg)

@@ -1,12 +1,15 @@
 """Transformer sublayers: init, full-sequence apply, cache, decode.
 
-Port of ``repro.models.transformer`` for every kind but cross attention:
+Port of ``repro.models.transformer``:
 
   attn        pre-norm residual block of self-attention (GQA, or MLA when
               ``cfg.mla``) and an FFN: a SwiGLU MLP or, when ``cfg.moe``
               and the layer uses it, the MoE block (``models/moe.py``)
   local_attn  the same with sliding-window GQA over ``cfg.local_window``
               keys, decoded from a ring buffer of that many slots
+  cross_attn  the attn block with cross attention to the encoder's
+              states between self-attention and the FFN:
+              x + xattn(normx(x), enc)
   rglru       the RG-LRU recurrent block (``models/ssm.py``) and an FFN
   ssd         the Mamba-2 SSD block alone (no norm2, no FFN)
 
@@ -14,14 +17,13 @@ Cache entries per kind (compute dtype unless named):
 
   attn        k, v: (B, Smax, KVH, hd); MLA: c (B, Smax, kv_lora),
               kr (B, Smax, rope)
+  cross_attn  as attn, and the encoder's enc_k, enc_v: (B, Senc, KVH, hd)
   local_attn  k, v: (B, W, KVH, hd) ring, slot_pos (B, W) int32
   rglru       h (B, w) float32, conv (B, cw-1, w)
   ssd         h (B, H, P, N) float32, conv (B, cw-1, conv_ch)
 
-``cross_attn`` raises ``NotImplementedError``: it waits for the encoder
-(ROADMAP queue 1 item 9.3).  Functions take the block module ``p`` where
-the reference takes its parameter subtree, and return what the reference
-returns.
+Functions take the block module ``p`` where the reference takes its
+parameter subtree, and return what the reference returns.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.layers import MLP, RMSNorm, mlp, rmsnorm, rope
 
-KINDS = ("attn", "local_attn", "rglru", "ssd")
+KINDS = ("attn", "local_attn", "cross_attn", "rglru", "ssd")
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -44,13 +46,8 @@ def _cdtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def check_ported(kind, cfg) -> None:
-    """Raise ``NotImplementedError`` for cross attention, which the port
-    does not build yet, and ``ValueError`` for an unknown kind."""
-    if kind == "cross_attn":
-        raise NotImplementedError("layer kind 'cross_attn' is not ported "
-                                  "yet: cross attention and the encoder "
-                                  "(ROADMAP queue 1 item 9.3)")
+def check_kind(kind) -> None:
+    """Raise ``ValueError`` for an unknown layer kind."""
     if kind not in KINDS:
         raise ValueError(kind)
 
@@ -60,12 +57,13 @@ def check_ported(kind, cfg) -> None:
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """norm1 and the kind's mixer; but for ``ssd``, norm2 and an ffn
-    (SwiGLU MLP, or MoE when ``cfg.moe and use_moe``)."""
+    """norm1 and the kind's mixer; for ``cross_attn`` normx and xattn
+    (GQA) too; but for ``ssd``, norm2 and an ffn (SwiGLU MLP, or MoE when
+    ``cfg.moe and use_moe``)."""
 
     def __init__(self, kind, cfg, *, generator, device=None, use_moe=True):
         super().__init__()
-        check_ported(kind, cfg)
+        check_kind(kind)
         device = device or generator.device
         dt = _dtype(cfg)
         D = cfg.d_model
@@ -82,6 +80,9 @@ class Block(nn.Module):
             self.mixer = attn.mla_init(cfg, dt, **kw)
         else:
             self.mixer = attn.gqa_init(cfg, dt, **kw)
+        if kind == "cross_attn":
+            self.normx = RMSNorm(D, dt, device=device)
+            self.xattn = attn.gqa_init(cfg, dt, **kw)
         self.norm2 = RMSNorm(D, dt, device=device)
         self.ffn = (moe_mod.moe_init(cfg, dt, **kw) if cfg.moe and use_moe
                     else MLP(D, cfg.d_ff, dt, **kw))
@@ -105,11 +106,14 @@ def _with_ffn(p: Block, x, cfg):
     return x + y, aux
 
 
-def sublayer_apply(p: Block, kind, x, pos, cfg, *, cache=None):
-    """Full-sequence causal forward.  Returns (x, aux, cache): ``aux`` is
-    the MoE load-balance loss (0.0 for a dense FFN); ``cache`` is the
-    populated prefill cache when a (zeroed) cache is passed, else
-    None."""
+def sublayer_apply(p: Block, kind, x, pos, cfg, *, enc=None, causal=True,
+                   cache=None):
+    """Full-sequence forward, its self-attention causal unless ``causal``
+    is False (the encoder's).  ``enc`` (B, Senc, D): the encoder's
+    states, which a ``cross_attn`` layer attends.  Returns (x, aux,
+    cache): ``aux`` is the MoE load-balance loss (0.0 for a dense FFN);
+    ``cache`` is the populated prefill cache when a (zeroed) cache is
+    passed, else None."""
     h = rmsnorm(x, p.norm1.scale, cfg.norm_eps)
     if kind == "ssd":
         y, hstate, conv_tail = ssm.ssd_forward(p.mixer, h, cfg)
@@ -127,11 +131,24 @@ def sublayer_apply(p: Block, kind, x, pos, cfg, *, cache=None):
                          kr=_write_prefix(cache["kr"], kr))
     else:
         window = cfg.local_window if kind == "local_attn" else 0
-        y, k, v = attn.gqa_forward(p.mixer, h, pos, cfg, window=window)
+        y, k, v = attn.gqa_forward(p.mixer, h, pos, cfg, causal=causal,
+                                   window=window)
         if cache is not None:
             cache = (_ring_prefill(cache, k, v, pos, window) if window
                      else sublayer_prefill_cache(cache, k, v))
-    x, aux = _with_ffn(p, x + y, cfg)
+    x = x + y
+    if kind == "cross_attn":
+        hx = rmsnorm(x, p.normx.scale, cfg.norm_eps)
+        # without enc the reference attends hx itself, with rope, through
+        # xattn; the model refuses that case (model.forward)
+        yx, ek, ev = attn.gqa_forward(p.xattn, hx, pos, cfg, kv_override=enc)
+        if cache is not None and enc is not None:
+            # the entries are replaced, as the reference's are, whatever
+            # enc_len the cache was made with
+            dt = cache["enc_k"].dtype
+            cache = dict(cache, enc_k=ek.to(dt), enc_v=ev.to(dt))
+        x = x + yx
+    x, aux = _with_ffn(p, x, cfg)
     return x, aux, cache
 
 
@@ -139,20 +156,25 @@ def sublayer_apply(p: Block, kind, x, pos, cfg, *, cache=None):
 # cache construction
 # ---------------------------------------------------------------------------
 
-def sublayer_cache(kind, cfg, batch, smax):
-    """{name: (shape, dtype)} of one sublayer's cache."""
-    check_ported(kind, cfg)
+def sublayer_cache(kind, cfg, batch, smax, enc_len=0):
+    """{name: (shape, dtype)} of one sublayer's cache; a ``cross_attn``
+    layer's holds ``enc_len`` encoder positions."""
+    check_kind(kind)
     dt = _cdtype(cfg)
     D = cfg.d_model
-    if kind == "attn" and cfg.mla:
-        return {"c": ((batch, smax, cfg.kv_lora_rank), dt),
-                "kr": ((batch, smax, cfg.qk_rope_dim), dt)}
-    if kind in ("attn", "local_attn"):
-        W = cfg.local_window if kind == "local_attn" else smax
-        kv = ((batch, W, cfg.num_kv_heads, cfg.resolved_head_dim), dt)
-        c = {"k": kv, "v": kv}
+    KVH, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    if kind in ("attn", "cross_attn", "local_attn"):
+        if cfg.mla and kind != "local_attn":
+            c = {"c": ((batch, smax, cfg.kv_lora_rank), dt),
+                 "kr": ((batch, smax, cfg.qk_rope_dim), dt)}
+        else:
+            W = cfg.local_window if kind == "local_attn" else smax
+            c = {"k": ((batch, W, KVH, hd), dt),
+                 "v": ((batch, W, KVH, hd), dt)}
         if kind == "local_attn":
             c["slot_pos"] = ((batch, W), torch.int32)
+        if kind == "cross_attn":
+            c["enc_k"] = c["enc_v"] = ((batch, enc_len, KVH, hd), dt)
         return c
     if kind == "rglru":
         w = cfg.rnn_width or D
@@ -188,8 +210,31 @@ def sublayer_decode(p: Block, kind, x, cache, cache_len, cfg):
         y, ck, cv = attn.gqa_decode(p.mixer, h, cache["k"], cache["v"],
                                     cache_len, cfg)
         cache = dict(cache, k=ck, v=cv)
-    x, aux = _with_ffn(p, x + y, cfg)
+    x = x + y
+    if kind == "cross_attn":
+        hx = rmsnorm(x, p.normx.scale, cfg.norm_eps)
+        x = x + _cross_decode(p.xattn, hx, cache["enc_k"], cache["enc_v"],
+                              cfg)
+    x, aux = _with_ffn(p, x, cfg)
     return x, cache, aux
+
+
+def _cross_decode(p: attn.GQA, x, enc_k, enc_v, cfg):
+    """One token's cross attention to the encoder's cached K/V (B, Senc,
+    KVH, hd): no rope, float32 scores and softmax over every encoder
+    position, no mask."""
+    B = x.shape[0]
+    hd = cfg.resolved_head_dim
+    q = p.wq(x)  # (B, 1, H, hd)
+    KVH = enc_k.shape[2]
+    G = cfg.num_heads // KVH
+    qg = q.reshape(B, KVH, G, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(),
+                     enc_k.float()) * hd ** -0.5
+    pr = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", pr, enc_v.float())
+    out = out.reshape(B, 1, cfg.num_heads, hd).to(x.dtype)
+    return torch.einsum("bshd,hdo->bso", out, p.wo.w.to(x.dtype))
 
 
 def _local_ring_decode(p: attn.GQA, x, cache, cache_len: int, cfg):

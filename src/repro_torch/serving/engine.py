@@ -3,6 +3,8 @@
 Port of ``repro.serving.engine``.  ``generate`` pads every prompt on the
 left with token 0 to the longest prompt (the padded positions are
 attended, as in the reference), fills a shared KV cache with one prefill
+(which also takes ``enc_inp``, the frontend's embeddings, for a model
+with cross attention; decode reads their K/V from the cache)
 and decodes the batch together, greedy or top-k, reading each step's
 tokens to the host once.  The reference decodes once more after the
 last token and drops the result; the port stops after the last token,
@@ -51,9 +53,12 @@ class Engine:
             return sampler.greedy(logits)
         return sampler.topk_sample(logits, generator=self.generator)
 
-    def generate(self, requests: List[Request]) -> List[Request]:
+    def generate(self, requests: List[Request],
+                 enc_inp=None) -> List[Request]:
         """Static batching: pad all prompts to one length, decode
-        together.  Fills each request's ``out`` with its new tokens."""
+        together.  ``enc_inp`` (B, num_frontend_tokens, D), a numpy array
+        or tensor, goes to the engine's device and into the prefill.
+        Fills each request's ``out`` with its new tokens."""
         B = len(requests)
         if not 0 < B <= self.max_batch:
             raise ValueError(f"{B} requests for a batch of {self.max_batch}")
@@ -66,11 +71,14 @@ class Engine:
         for i, r in enumerate(requests):
             toks[i, plen - len(r.prompt):] = r.prompt  # left-pad
         cfg, params = self.cfg, self.params
-        cache = M.init_cache(cfg, B, self.max_seq, self.device)
+        cache = M.init_cache(cfg, B, self.max_seq, self.device,
+                             enc_len=cfg.num_frontend_tokens)
+        if enc_inp is not None:
+            enc_inp = torch.as_tensor(enc_inp).to(self.device)
         t0 = time.perf_counter()
         logits, cache = M.prefill(params, cfg,
                                   torch.from_numpy(toks).to(self.device),
-                                  cache)
+                                  cache, enc_inp=enc_inp)
         nxt = self._next(logits)
         host = nxt.cpu().numpy()  # the one host read per token
         self.stats = {"prefill_s": time.perf_counter() - t0, "decode_s": []}

@@ -778,14 +778,15 @@ def test_engine_cuda_matches_cpu(card, engine):
 
 
 # tests/test_kernels_attn.py's sweep, a ragged hd = 128 case, a windowed
-# bidirectional hd = 96 case, and TinyLlama's prefill shape
+# bidirectional hd = 96 case, TinyLlama's prefill shape, and Whisper's
+# bidirectional encoder (1,500 frames: 11 tiles of 128 rows and one of 92)
 ATTN = [(2, 64, 64, 4, 2, 16, True, 0), (1, 96, 96, 8, 1, 32, True, 32),
         (2, 48, 64, 4, 4, 16, True, 0), (1, 64, 64, 2, 2, 8, False, 0),
         (1, 128, 128, 4, 1, 64, True, 0), (2, 100, 300, 24, 8, 128, True, 0),
         (1, 200, 200, 6, 2, 96, False, 50), (4, 512, 512, 32, 4, 64, True, 0),
         (1, 300, 300, 4, 1, 256, True, 100), (2, 130, 200, 4, 2, 256, True, 0),
         (2, 70, 70, 3, 1, 200, False, 0), (1, 100, 120, 4, 2, 20, True, 0),
-        (2, 33, 33, 2, 2, 5, True, 7)]
+        (2, 33, 33, 2, 2, 5, True, 7), (1, 1500, 1500, 12, 12, 64, False, 0)]
 
 
 @pytest.mark.parametrize("B,Sq,Skv,H,KVH,hd,causal,window", ATTN)
@@ -996,6 +997,35 @@ def test_sort_tokens_by_key_cuda_branch(card, n):
     assert stream_sort.routes["block"] - block == int(n in (1024, 8192))
     _eq(want_p, got_p)
     _eq(want_k, got_k)
+
+
+def test_engine_launches_flash_attention_in_encoder_and_decoder(card):
+    """Whisper's smoke model on the card: one K6 launch per encoder layer
+    (bidirectional) and per decoder layer (causal) in the prefill, none
+    for cross attention or decode, nothing else launched; the greedy
+    tokens of the CPU (plain versions) in float32."""
+    cfg = dataclasses.replace(cb.get_smoke_config("whisper_small"),
+                              attn_impl="pallas", dtype="float32")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (30, 17)]
+    enc = rng.standard_normal((2, cfg.num_frontend_tokens, cfg.d_model)
+                              ).astype(np.float32)
+    outs = {}
+    for dev in ("cpu", card):
+        model = M.init_params(cfg, torch.Generator().manual_seed(0),
+                              device=dev)
+        eng = Engine(cfg, model, max_batch=2, max_seq=48, device=dev)
+        kb.reset_launch_counts()
+        reqs = eng.generate([Request(prompt=p, max_new_tokens=5)
+                             for p in prompts], enc_inp=enc)
+        counts = kb.launch_counts()
+        outs[str(dev)] = [r.out.tolist() for r in reqs]
+    n = cfg.encoder_layers + cfg.num_layers
+    assert counts["flash_attention"] == n == counts["flash_attention.fma"]
+    assert not {k: c for k, c in counts.items()
+                if c and not k.startswith("flash_attention")}
+    assert outs["cpu"] == outs[str(card)]
 
 
 def test_engine_launches_grouped_matmul_per_moe_layer(card):

@@ -1,16 +1,18 @@
 """The port's LLM path against the JAX reference, on the CPU.
 
-For the smoke configs of the eight ported architectures (the dense
+For the smoke configs of the reference's ten architectures (the dense
 TinyLlama, Qwen1.5, Granite-3 and Phi4-mini, the MoE Arctic, DeepSeek-V2
-with MLA, the hybrid RecurrentGemma with RG-LRU and local attention, and
-the SSM Mamba2): the configs themselves, the elementary layers,
+with MLA, the hybrid RecurrentGemma with RG-LRU and local attention, the
+SSM Mamba2, and Whisper and Llama-3.2-Vision with cross attention, the
+former behind its encoder): the configs themselves, the elementary layers,
 ``forward`` / ``prefill`` / ``decode_step`` with the reference's weights
 carried across by ``params_from_jax``, and the serving engine's greedy
 tokens.  In float32 the logits agree within 1e-4; with the bf16 default
 within 0.15, the bound ``tests/test_archs.py`` allows for bf16
 reorderings.  RecurrentGemma's prompt is longer than its local window
 (32), so the prefill's window and the decode ring both wrap; Mamba2's is
-no multiple of its SSD chunk (8).
+no multiple of its SSD chunk (8).  The cross-attention models take stub
+frontend embeddings (``_enc``), as ``tests/test_archs.py`` gives them.
 """
 import contextlib
 import dataclasses
@@ -29,7 +31,6 @@ from repro_torch.configs import base as tcb
 from repro_torch.launch import serve as tserve
 from repro_torch.models import layers as tlayers
 from repro_torch.models import model as TM
-from repro_torch.models import transformer as ttf
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serving import engine as TE
 from repro_torch.serving import sampler as tsampler
@@ -45,6 +46,15 @@ def _np(t):
     if isinstance(t, torch.Tensor):
         return t.float().numpy()
     return np.asarray(t, np.float32)
+
+
+def _enc(cfg, B, seed=5):
+    """Stub frontend embeddings (B, num_frontend_tokens, D) float32 for a
+    model with cross attention, else None."""
+    if not cfg.num_frontend_tokens:
+        return None
+    return np.random.default_rng(seed).standard_normal(
+        (B, cfg.num_frontend_tokens, cfg.d_model)).astype(np.float32)
 
 
 def _models(arch, seed=0, **overrides):
@@ -66,24 +76,6 @@ def test_config_matches_reference(arch):
         assert t.param_count() == j.param_count()
         assert t.resolved_head_dim == j.resolved_head_dim
     assert tcb.get_config(arch.replace("_", "-")) == tcb.get_config(arch)
-
-
-@pytest.mark.parametrize("arch", ["whisper_small", "llama_3_2_vision_11b"])
-def test_unported_architectures_raise(arch):
-    """Cross attention and the encoder (ROADMAP queue 1 item 9.3) raise;
-    MLA, local attention and the recurrent kinds build."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcb.get_config(arch)
-    cfg = tcb.get_smoke_config("tinyllama_1_1b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.init_params(dataclasses.replace(cfg, group_pattern=("cross_attn",)),
-                       torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.check_ported("cross_attn", cfg)
-    with pytest.raises(ValueError):
-        ttf.check_ported("conv", cfg)
-    for kind in ("attn", "local_attn", "rglru", "ssd"):
-        ttf.check_ported(kind, dataclasses.replace(cfg, mla=True))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -161,17 +153,25 @@ def _forward_prefill_decode(arch, dtype, attn_impl):
     B, S = 2, PROMPT.get(arch, 16)
     toks = np.random.default_rng(2).integers(0, jcfg.vocab_size, (B, S + 2))
 
+    enc = _enc(jcfg, B)
+    jenc = None if enc is None else jnp.asarray(enc)
+    tenc = None if enc is None else torch.from_numpy(enc)
+
     def close(got, want):
         assert tuple(got.shape) == want.shape
         assert np.abs(_np(got) - _np(want)).max() < tol
 
-    want, _, _ = JM.forward(jp, jcfg, jnp.asarray(toks, jnp.int32))
-    got, _, _ = TM.forward(model, tcfg, torch.from_numpy(toks))
+    want, _, _ = JM.forward(jp, jcfg, jnp.asarray(toks, jnp.int32),
+                            enc_inp=jenc)
+    got, _, _ = TM.forward(model, tcfg, torch.from_numpy(toks), enc_inp=tenc)
     close(got, want)
-    jc = JM.init_cache(jcfg, B, S + 8)
-    tc = TM.init_cache(tcfg, B, S + 8)
-    want, jc = JM.prefill(jp, jcfg, jnp.asarray(toks[:, :S], jnp.int32), jc)
-    got, tc = TM.prefill(model, tcfg, torch.from_numpy(toks[:, :S]), tc)
+    enc_len = jcfg.num_frontend_tokens
+    jc = JM.init_cache(jcfg, B, S + 8, enc_len=enc_len)
+    tc = TM.init_cache(tcfg, B, S + 8, enc_len=enc_len)
+    want, jc = JM.prefill(jp, jcfg, jnp.asarray(toks[:, :S], jnp.int32), jc,
+                          enc_inp=jenc)
+    got, tc = TM.prefill(model, tcfg, torch.from_numpy(toks[:, :S]), tc,
+                         enc_inp=tenc)
     close(got, want)
     for t in (S, S + 1):
         want, jc = JM.decode_step(jp, jcfg,
@@ -213,10 +213,12 @@ def test_engine_greedy_tokens_match_reference(arch, attn_impl):
     jcfg, tcfg, jp, model = _models(arch, dtype="float32",
                                     attn_impl=attn_impl)
     lengths, max_seq = ENGINE_REQUESTS.get(arch, (((5, 4), (9, 3)), 32))
+    enc = _enc(jcfg, len(lengths))
     want = JE.Engine(jcfg, jp, max_batch=2, max_seq=max_seq).generate(
-        _requests(JE, jcfg.vocab_size, lengths))
+        _requests(JE, jcfg.vocab_size, lengths),
+        enc_inp=None if enc is None else jnp.asarray(enc))
     eng = TE.Engine(tcfg, model, max_batch=2, max_seq=max_seq, device="cpu")
-    got = eng.generate(_requests(TE, tcfg.vocab_size, lengths))
+    got = eng.generate(_requests(TE, tcfg.vocab_size, lengths), enc_inp=enc)
     for g, w in zip(got, want):
         assert g.out.dtype == np.int32
         np.testing.assert_array_equal(g.out, w.out)
@@ -270,11 +272,13 @@ def test_serve_cli_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-236b", "recurrentgemma-9b",
-                                  "mamba2-780m"])
+                                  "mamba2-780m", "whisper-small",
+                                  "llama-3.2-vision-11b"])
 def test_serve_cli_new_families_on_cpu(arch, capsys):
-    """The three --arch ids of MLA, local attention and the recurrent
-    blocks through the serving CLI (smoke configs; RecurrentGemma's
-    prompt past its window of 32)."""
+    """The --arch ids of MLA, local attention, the recurrent blocks and
+    cross attention through the serving CLI (smoke configs;
+    RecurrentGemma's prompt past its window of 32; the cross-attention
+    models on the CLI's stub frontend embeddings)."""
     tserve.main(["--arch", arch, "--smoke", "--device", "cpu",
                  "--requests", "2", "--prompt-len", "36", "--new-tokens",
                  "3", "--max-seq", "48"])
