@@ -7,5 +7,8 @@ in ``repro_torch/kernels/csrc`` unless the caller passes
 ``device="cpu"``.  The LLM substrate's dense serving path is
 ``repro_torch.serving.engine.Engine(cfg, params).generate(requests)``,
 its prefill attention through the flash-attention kernel K6 when
-``cfg.attn_impl == "pallas"``.
+``cfg.attn_impl == "pallas"``.  Training is
+``repro_torch.launch.train.train`` (``launch/steps.py``'s step,
+``runtime/fault.py``'s resilient loop, ``checkpoint/ckpt.py``), the MoE
+expert products through K7 and its backward pass.
 """

@@ -10,18 +10,21 @@ tests); ``get_config`` resolves ids with dashes or underscores.
 What the fields mean in the port, where it differs from the reference:
 
 - ``attn_impl`` picks the full-sequence attention of a GQA layer (the
-  prefill, and training later): ``"xla"`` (the default) is the plain
+  prefill and training's forward): ``"xla"`` (the default) is the plain
   blocked online-softmax attention in torch
   (``models.attention.blocked_attention``, with ``attn_q_block``,
   ``attn_kv_block``, ``attn_block_skip`` and ``attn_p_bf16``);
   ``"pallas"`` is the hand-written flash-attention kernel K6
-  (``kernels.flash_attention``), its plain version on CPU tensors.  It
+  (``kernels.flash_attention``), its plain version on CPU tensors; K6
+  has no backward pass and raises under autograd, so a model trains with
+  ``"xla"``, as the reference's does.  It
   acts on ``attn`` and ``local_attn`` layers alike (the latter with
   ``local_window``); an MLA layer always takes the plain blocked
   attention, as the reference's does.
 - The sharding knobs do nothing on one card: ``layer_layout``, ``fsdp``
   and ``prefill_cache_seqshard`` are read by no code of the port.
-  ``remat`` acts only in training, which the port does not run yet.
+  ``remat`` acts only in training: ``"block"`` checkpoints each decoder
+  layer (``models.model.forward``).
 - ``scan_unroll`` does nothing: the port runs its layers in a Python
   loop, not a scan.
 - ``moe_dispatch`` picks nothing on one card: with no mesh every MoE
@@ -112,7 +115,7 @@ class ModelConfig:
     # decode cache update: one-hot multiply (baseline; touches the whole
     # cache) vs a write of the one slot
     decode_dus: bool = False
-    # chunked vocab head + cross-entropy (training; not ported yet)
+    # chunked vocab head + cross-entropy (training; models.model._chunked_ce)
     ce_chunk: int = 0
     # pin prefill KV writes to the cache's sharding; no effect on one card
     prefill_cache_seqshard: bool = False

@@ -20,6 +20,13 @@ is first copied into a zero-padded head dim.
 CPU; on CUDA tensors it launches the kernel (counting the launch in
 ``flash_attention.launches`` and its route in ``flash_attention.routes``)
 or raises.
+
+K6 has no backward pass: the reference's Pallas kernel has none either
+(``jax.grad`` through it fails), and the reference trains with
+``attn_impl="xla"``.  Called while autograd records on an input that
+requires a gradient, :func:`flash_attention` raises
+``NotImplementedError`` on every device, never returning a result that
+would carry no gradient.
 """
 from __future__ import annotations
 
@@ -61,7 +68,13 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
     bf16 also a base or stride TMA refuses) is copied.  An hd that is not
     a multiple of 8 is copied once into zero columns up to the next
     multiple of 8 (a zero column adds nothing to a score); the scale
-    comes from the true hd and the output is cut back to it."""
+    comes from the true hd and the output is cut back to it.  Raises
+    ``NotImplementedError`` under autograd (module docstring)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention (K6) has no backward pass: the reference's "
+            "Pallas kernel has no gradient either; train with "
+            "attn_impl=\"xla\" (the plain blocked attention)")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)

@@ -23,6 +23,24 @@ CPU; on CUDA tensors it launches the kernel (counting the launch in
 ``grouped_matmul.launches`` and its layout in ``grouped_matmul.routes``)
 or raises.  The sizes stay on the card: the kernel maps rows to groups
 itself, so a launch adds no host wait.
+
+Backward (:class:`GroupedMatmul`, the wrapper's route on CUDA tensors
+when autograd records; the reference differentiates its einsum products
+in XLA, outside any Pallas kernel).  For y = x · W per group in the
+counts layout:
+
+- dx = dy · Wᵀ per group: one more K7 launch in the counts layout, over
+  a contiguous transposed copy of W (E, F, D), counted under the route
+  ``"backward"``.  Rows past a group's kept count come out zero, their
+  true gradient: the forward never reads them.
+- dW[g] = x[g]ᵀ · dy[g] over the group's kept rows: ``torch.bmm`` over
+  the (E, cap, ·) views, dy's unkept rows masked to zero.
+- The sizes get no gradient.  The contiguous layout's backward raises
+  ``NotImplementedError``: no path trains through it.
+
+The Function takes its forward launch as an argument, so that its
+backward runs on the CPU over the plain version in the tests
+(:func:`plain_launch`).
 """
 from __future__ import annotations
 
@@ -61,9 +79,20 @@ def grouped_matmul(x, w, group_sizes, *, cap=None):
     group_sizes: (E,) integer sizes >= 0 on x's device, with sum <= T
     (contiguous layout) or, when ``cap`` (an int >= 1) is given, each
     group's kept rows at stride ``cap`` (counts layout).  D and F
-    multiples of 8.  Returns (T, F) in x's dtype."""
+    multiples of 8.  Returns (T, F) in x's dtype.  On CUDA tensors that
+    autograd records, the launch goes through :class:`GroupedMatmul`
+    and its backward pass."""
     if x.device.type == "cpu":
         return grouped_matmul_plain(x, w, group_sizes, cap=cap)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return GroupedMatmul.apply(x, w, group_sizes, cap, kernel_launch)
+    return kernel_launch(x, w, group_sizes, cap)
+
+
+def kernel_launch(x, w, group_sizes, cap, route=None):
+    """K7 on CUDA tensors: check the inputs, launch, and count the launch
+    under ``route`` (default: the layout, ``"contiguous"`` or
+    ``"counts"``).  Returns (T, F) in x's dtype."""
     if x.dim() != 2 or w.dim() != 3 or w.shape[1] != x.shape[1] \
             or group_sizes.shape != (w.shape[0],):
         raise ValueError(f"grouped_matmul takes x (T, D), w (E, D, F) and "
@@ -93,12 +122,56 @@ def grouped_matmul(x, w, group_sizes, *, cap=None):
     if T and F:
         launch(x, w, sizes, out, cap=cap)
         grouped_matmul.launches += 1
-        grouped_matmul.routes["contiguous" if cap is None else "counts"] += 1
+        grouped_matmul.routes[route or ("contiguous" if cap is None
+                                        else "counts")] += 1
     return out
 
 
 grouped_matmul.launches = 0
-grouped_matmul.routes = {"contiguous": 0, "counts": 0}
+grouped_matmul.routes = {"contiguous": 0, "counts": 0, "backward": 0}
+
+
+def plain_launch(x, w, group_sizes, cap, route=None):
+    """The plain version in :func:`kernel_launch`'s signature (``route``
+    unused): :class:`GroupedMatmul` over it runs on any device."""
+    return grouped_matmul_plain(x, w, group_sizes, cap=cap)
+
+
+class GroupedMatmul(torch.autograd.Function):
+    """K7 under autograd: ``GroupedMatmul.apply(x, w, group_sizes, cap,
+    fwd)`` computes ``fwd(x, w, group_sizes, cap)``; its backward is
+    described in the module docstring (``fwd`` with route
+    ``"backward"`` for dx, ``torch.bmm`` for dW)."""
+
+    @staticmethod
+    def forward(ctx, x, w, group_sizes, cap, fwd):
+        ctx.save_for_backward(x, w, group_sizes)
+        ctx.cap, ctx.fwd = cap, fwd
+        return fwd(x, w, group_sizes, cap)
+
+    @staticmethod
+    def backward(ctx, dy):
+        cap = ctx.cap
+        if cap is None:
+            raise NotImplementedError(
+                "grouped_matmul has a backward pass in the counts layout "
+                "(cap given) only; the contiguous layout's is not written")
+        x, w, group_sizes = ctx.saved_tensors
+        E, D, F = w.shape
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # the kernel's wrapper copies Wᵀ contiguous
+            dx = ctx.fwd(dy, w.transpose(1, 2), group_sizes, cap, "backward")
+        if ctx.needs_input_grad[1]:
+            # (E, cap, .) views of the buffer, cut or zero-padded to E cap
+            # rows (rows past T hold no kept row)
+            pad = max(E * cap - x.shape[0], 0)
+            xg = torch.nn.functional.pad(x[:E * cap], (0, 0, 0, pad))
+            dyg = torch.nn.functional.pad(dy[:E * cap], (0, 0, 0, pad))
+            kept = torch.arange(cap, device=dy.device) < group_sizes[:, None]
+            dyg = dyg.view(E, cap, F) * kept[..., None].to(dy.dtype)
+            dw = torch.bmm(xg.view(E, cap, D).transpose(1, 2), dyg)
+        return dx, dw, None, None, None
 
 
 def launch(x, w, sizes, out, *, cap=None) -> None:

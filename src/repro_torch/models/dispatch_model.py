@@ -228,8 +228,13 @@ class DispatchModel:
 
         The target matrix is ragged (each sweep only timed the combos
         healthy at the time), so the loss masks unobserved cells.  The
-        fit runs in float32 on ``device``: the card unless the caller
-        names another (``device="cpu"``); without a card it raises."""
+        fit runs in float64 on ``device``: the card unless the caller
+        names another (``device="cpu"``); without a card it raises.  In
+        float32 (the reference's), rounding that differs between devices
+        is magnified by Adam's normalised step along the directions the
+        samples leave flat, and a fit on the card and one on the CPU from
+        the same samples can disagree near a tie; in float64 they agree
+        to rounding."""
         dev = resolve_device(device)
         samples = [s for s in samples
                    if s.get("timings") and s.get("features")]
@@ -250,14 +255,15 @@ class DispatchModel:
                 M[i, cidx[c]] = 1.0
         col_n = np.maximum(M.sum(0), 1.0)
         b0 = (Y * M).sum(0) / col_n   # start at per-candidate mean log-t
-        params = {"w": torch.zeros((C, d), dtype=torch.float32, device=dev),
-                  "bias": torch.tensor(b0, dtype=torch.float32, device=dev)}
+        params = {"w": torch.zeros((C, d), dtype=torch.float64, device=dev),
+                  "bias": torch.tensor(b0, dtype=torch.float64, device=dev)}
         cfg = adamw.AdamWConfig(lr=lr, weight_decay=weight_decay,
-                                clip_norm=1.0,
+                                clip_norm=1.0, state_dtype="float64",
+                                compute_dtype="float64",
                                 warmup_steps=max(1, steps // 20),
                                 decay_steps=steps)
         opt = adamw.init_state(cfg, params)
-        Zt, Yt, Mt = (torch.tensor(a, dtype=torch.float32, device=dev)
+        Zt, Yt, Mt = (torch.tensor(a, dtype=torch.float64, device=dev)
                       for a in (Z, Y, M))
         loss = torch.zeros(())
         for _ in range(max(1, steps)):

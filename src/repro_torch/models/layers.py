@@ -7,7 +7,8 @@ bias ``b``; a norm's gain is ``scale``; the embedding table ``w`` is
 ``(V, D)``), so a module's ``state_dict`` keys are the reference's
 parameter paths joined with dots.  Initialisers draw from an explicit
 ``torch.Generator`` on the generator's device and store the result on
-``device`` in ``dtype``.  The reference's sharding constraints have no
+``device`` in ``dtype``; every parameter is trainable (serving runs
+under ``torch.inference_mode()``).  The reference's sharding constraints have no
 counterpart on one card and are dropped.
 """
 from __future__ import annotations
@@ -27,8 +28,7 @@ def normal(shape, scale: float, dtype, *, generator: torch.Generator,
     (default: the generator's device)."""
     w = torch.randn(tuple(shape), generator=generator,
                     device=generator.device, dtype=torch.float32) * scale
-    return nn.Parameter(w.to(device=device or generator.device, dtype=dtype),
-                        requires_grad=False)
+    return nn.Parameter(w.to(device=device or generator.device, dtype=dtype))
 
 
 def dense(x, w, b=None):
@@ -53,8 +53,8 @@ class Dense(nn.Module):
         self.w = normal((in_dim, *out_shape), scale, dtype,
                         generator=generator, device=device)
         self.b = (nn.Parameter(torch.zeros(tuple(out_shape), dtype=dtype,
-                                           device=self.w.device),
-                               requires_grad=False) if bias else None)
+                                           device=self.w.device))
+                  if bias else None)
 
     def forward(self, x):
         return dense(x, self.w, self.b)
@@ -71,8 +71,7 @@ def rmsnorm(x, scale, eps: float = 1e-5):
 class RMSNorm(nn.Module):
     def __init__(self, dim: int, dtype, *, device=None):
         super().__init__()
-        self.scale = nn.Parameter(torch.ones(dim, dtype=dtype, device=device),
-                                  requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
 
 
 def rope(x, positions, theta: float = 10000.0):
@@ -147,3 +146,19 @@ def embed_lookup(p: Embed, ids, compute_dtype):
 def logits_head(p: Dense, x):
     """x: (B, S, D) -> (B, S, V)."""
     return p(x)
+
+
+def cross_entropy(logits, labels, *, ignore_id: int = -1):
+    """Mean cross-entropy over the labels that are not ``ignore_id``, in
+    float32: logits (B, S, V), labels (B, S) integer.  The label's logit
+    is taken by a masked reduction over the vocab, as the reference takes
+    it (a gather there would all-gather vocab-sharded logits); a mask of
+    no label gives 0."""
+    logits = logits.float()
+    m = logits.amax(dim=-1, keepdim=True)
+    lse = m[..., 0] + torch.log(torch.sum(torch.exp(logits - m), dim=-1))
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    hit = vocab == labels.clamp(min=0)[..., None]
+    ll = torch.sum(torch.where(hit, logits, 0.0), dim=-1)
+    mask = (labels != ignore_id).float()
+    return torch.sum((lse - ll) * mask) / torch.clamp(mask.sum(), min=1.0)

@@ -32,18 +32,31 @@ layers of every group run in order, a tail group (RecurrentGemma's
 trailing recurrent pair) after the body.  The cache is a list with one
 dict per layer, each kind's entries in their own dtypes
 (``transformer.sublayer_cache``: float32 recurrent state, int32 ring
-positions).  forward, prefill and decode run under
-``torch.inference_mode()``.  The training
-loss (``loss_fn``, the chunked cross-entropy) waits for its slice.
+positions).  prefill, decode_step and init_cache run under
+``torch.inference_mode()``; ``forward`` runs under whatever mode its
+caller set, so that ``loss_fn`` trains through it.
+
+Training: ``loss_fn`` is the reference's, cross-entropy (chunked over
+the sequence when ``cfg.ce_chunk``, each chunk's head and loss
+recomputed in the backward) plus ``AUX_LOSS_COEF`` times the MoE aux
+loss.  ``cfg.remat == "block"`` wraps each decoder layer in one
+``torch.utils.checkpoint`` (non-reentrant), where the reference wraps
+each scanned unit in ``jax.checkpoint``: the backward recomputes a
+layer's forward from its input.  A model trains with
+``attn_impl="xla"``: K6 has no backward pass and raises under autograd
+(``kernels/flash_attention.py``).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import transformer as tf
-from repro_torch.models.layers import (Dense, Embed, RMSNorm, embed_lookup,
-                                       logits_head, rmsnorm)
+from repro_torch.models.layers import (Dense, Embed, RMSNorm, cross_entropy,
+                                       embed_lookup, logits_head, rmsnorm)
+
+AUX_LOSS_COEF = 0.01
 
 
 def _groups(cfg):
@@ -118,13 +131,16 @@ def _encode(params: Model, cfg, enc_inp):
     return rmsnorm(x, params.enc_norm.scale, cfg.norm_eps)
 
 
-@torch.inference_mode()
-def forward(params: Model, cfg, tokens, *, enc_inp=None, cache=None):
+def forward(params: Model, cfg, tokens, *, enc_inp=None, cache=None,
+            return_hidden=False):
     """Full-sequence forward.  tokens: (B, S) int; ``enc_inp`` (B, Senc,
     D): the frontend's embeddings, which a model with ``cross_attn``
-    layers needs.  Returns (logits (B, S, V), aux, cache-or-None); with a
-    zeroed ``cache`` each layer's prefill state (K/V, ring, recurrent
-    state, the encoder's K/V) is written into it."""
+    layers needs.  Returns (logits (B, S, V), aux, cache-or-None), or
+    the final normed hidden states (B, S, D) in place of the logits with
+    ``return_hidden``; with a zeroed ``cache`` each layer's prefill
+    state (K/V, ring, recurrent state, the encoder's K/V) is written
+    into it.  Under ``cfg.remat == "block"`` with autograd recording and
+    no cache, each decoder layer runs in one ``torch.utils.checkpoint``."""
     cdt = getattr(torch, cfg.dtype)
     B, S = tokens.shape
     x = embed_lookup(params.embed, tokens, cdt)
@@ -142,15 +158,73 @@ def forward(params: Model, cfg, tokens, *, enc_inp=None, cache=None):
                          f"{cfg.d_model})")
     aux_total = 0.0
     new_cache = [] if cache is not None else None
+    remat = (cfg.remat == "block" and cache is None
+             and torch.is_grad_enabled())
     for i, layer in enumerate(params.layers):
-        x, aux, c = tf.sublayer_apply(
-            layer, layer.kind, x, pos, cfg, enc=enc,
-            cache=cache[i] if cache is not None else None)
+        if remat:
+            x, aux = checkpoint(_layer, layer, x, pos, cfg, enc,
+                                use_reentrant=False)
+        else:
+            x, aux, c = tf.sublayer_apply(
+                layer, layer.kind, x, pos, cfg, enc=enc,
+                cache=cache[i] if cache is not None else None)
+            if cache is not None:
+                new_cache.append(c)
         aux_total += aux
-        if cache is not None:
-            new_cache.append(c)
     x = rmsnorm(x, params.norm.scale, cfg.norm_eps)
+    if return_hidden:
+        return x, aux_total, new_cache
     return logits_head(params.lm_head, x), aux_total, new_cache
+
+
+def _layer(layer, x, pos, cfg, enc):
+    """One decoder layer without a cache: (x, aux), the unit that
+    ``remat="block"`` checkpoints."""
+    x, aux, _ = tf.sublayer_apply(layer, layer.kind, x, pos, cfg, enc=enc)
+    return x, aux
+
+
+def _chunked_ce(params: Model, cfg, x, labels):
+    """Vocab head + cross-entropy in sequence chunks of ``cfg.ce_chunk``:
+    the (B, C, V) logits of one chunk (and their float32 softmax temps)
+    exist at a time, and the backward recomputes each chunk's logits
+    (``torch.utils.checkpoint``) instead of saving them.  Each chunk's
+    mean is weighted back by its label count, then the sum divided by the
+    total count, in the reference's order."""
+    B, S, D = x.shape
+    C = min(cfg.ce_chunk, S)
+    if S % C:
+        raise ValueError(f"sequence {S} is no multiple of ce_chunk {C}")
+
+    def one(x_blk, l_blk):
+        n = (l_blk != -1).float().sum()
+        ce = cross_entropy(logits_head(params.lm_head, x_blk), l_blk)
+        return ce * torch.clamp(n, min=1.0), n
+
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(S // C):
+        s, n = checkpoint(one, x[:, c * C:(c + 1) * C],
+                          labels[:, c * C:(c + 1) * C], use_reentrant=False)
+        tot, cnt = tot + s, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(params: Model, cfg, batch):
+    """batch: {"tokens": (B, S), "labels": (B, S)} integer tensors (plus
+    "enc_inp" (B, Senc, D) for a model with cross attention).  Returns
+    (loss + AUX_LOSS_COEF * aux, {"ce": loss, "aux": aux}), float32
+    scalars."""
+    if cfg.ce_chunk:
+        x, aux, _ = forward(params, cfg, batch["tokens"],
+                            enc_inp=batch.get("enc_inp"), return_hidden=True)
+        loss = _chunked_ce(params, cfg, x, batch["labels"])
+    else:
+        logits, aux, _ = forward(params, cfg, batch["tokens"],
+                                 enc_inp=batch.get("enc_inp"))
+        loss = cross_entropy(logits, batch["labels"])
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+    return loss + AUX_LOSS_COEF * aux, {"ce": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

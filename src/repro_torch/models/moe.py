@@ -44,7 +44,7 @@ def _expert_normal(shape, scale, dtype, *, generator, device=None):
         w[e] = torch.randn(shape[1:], generator=generator,
                            device=generator.device,
                            dtype=torch.float32) * scale
-    return nn.Parameter(w, requires_grad=False)
+    return nn.Parameter(w)
 
 
 class Experts(nn.Module):
@@ -86,13 +86,16 @@ def _router(p: MoE, x, cfg):
     return ids.to(torch.int32), torch.softmax(w, dim=-1), logits
 
 
-def _expert_ffn(we: Experts, xe, counts, *, gmm=grouped_matmul):
+def _expert_ffn(we: Experts, xe, counts, *, gmm=None):
     """xe: (E, C, D) with expert e's kept rows first, ``counts`` (E,)
     int32 of them -> (E, C, D): the SwiGLU of each expert over its kept
     rows, zeros in the rest; each product one grouped matmul in the
-    counts layout (group stride C).  ``gmm`` is K7's wrapper;
+    counts layout (group stride C).  ``gmm`` is K7's wrapper (this
+    module's ``grouped_matmul``, looked up at the call);
     ``kernels.grouped_matmul.grouped_matmul_plain`` gives the same block
-    through the plain version (the card's checks)."""
+    through the plain version (the card's checks).  Under autograd K7's
+    wrapper takes its backward pass (``kernels.grouped_matmul``)."""
+    gmm = gmm or grouped_matmul
     E, C, D = xe.shape
     xt = xe.reshape(E * C, D)
     h = F.silu(gmm(xt, we.w1.to(xe.dtype), counts, cap=C))
@@ -116,7 +119,7 @@ def _aux_loss(logits, ids, cfg):
     return E * torch.sum(hot.mean(0) * probs.mean(0))
 
 
-def moe_block(p: MoE, x, cfg, *, gmm=grouped_matmul):
+def moe_block(p: MoE, x, cfg, *, gmm=None):
     """x: (B, S, D) -> (out (B, S, D), aux_loss float32 scalar).  The
     parts add in the reference's order: dense MLP, shared experts,
     routed experts.  On one card the routed part always takes the einsum
@@ -154,7 +157,7 @@ def _assign(p: MoE, xt, cfg):
     return ids, w, logits, cap, pos, pos < cap
 
 
-def _einsum_moe(p: MoE, x, cfg, *, gmm=grouped_matmul):
+def _einsum_moe(p: MoE, x, cfg, *, gmm=None):
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.top_k
     xt = x.reshape(-1, D)

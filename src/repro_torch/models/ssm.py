@@ -28,7 +28,7 @@ def _f32(value, shape, device):
     """A float32 parameter filled with ``value``, whatever the model's
     parameter dtype."""
     return nn.Parameter(torch.full(shape, value, dtype=torch.float32,
-                                   device=device), requires_grad=False)
+                                   device=device))
 
 
 def softplus(x):

@@ -28,6 +28,8 @@ class AdamWConfig:
     weight_decay: float = 0.1
     clip_norm: float = 1.0
     state_dtype: str = "float32"
+    # the moments' and the update's arithmetic (the reference's float32)
+    compute_dtype: str = "float32"
     # schedule
     warmup_steps: int = 100
     decay_steps: int = 10_000
@@ -57,15 +59,15 @@ def init_state(cfg: AdamWConfig, params: dict) -> dict:
             "m": zeros(), "v": zeros()}
 
 
-def global_norm(tensors: dict) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+def global_norm(tensors: dict, dtype=torch.float32) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(x.to(dtype)))
                           for x in tensors.values()))
 
 
-def clip_by_global_norm(grads: dict, max_norm: float):
-    norm = global_norm(grads)
+def clip_by_global_norm(grads: dict, max_norm: float, dtype=torch.float32):
+    norm = global_norm(grads, dtype)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return {k: (g.to(torch.float32) * scale).to(g.dtype)
+    return {k: (g.to(dtype) * scale).to(g.dtype)
             for k, g in grads.items()}, norm
 
 
@@ -79,7 +81,8 @@ def _decay_mask(name: str) -> bool:
 def apply_updates(cfg: AdamWConfig, params: dict, opt_state: dict,
                   grads: dict):
     """One AdamW step. Returns (params, opt_state, metrics)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    cdt = getattr(torch, cfg.compute_dtype)
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, cdt)
     step = opt_state["step"] + 1
     lr = schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
@@ -91,14 +94,13 @@ def apply_updates(cfg: AdamWConfig, params: dict, opt_state: dict,
     sdt = getattr(torch, cfg.state_dtype)
     new_p, new_m, new_v = {}, {}, {}
     for name, p in params.items():
-        g32 = grads[name].to(torch.float32)
-        m32 = b1 * opt_state["m"][name].to(torch.float32) + (1 - b1) * g32
-        v32 = b2 * opt_state["v"][name].to(torch.float32) + \
-            (1 - b2) * g32 * g32
+        g32 = grads[name].to(cdt)
+        m32 = b1 * opt_state["m"][name].to(cdt) + (1 - b1) * g32
+        v32 = b2 * opt_state["v"][name].to(cdt) + (1 - b2) * g32 * g32
         u = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
         if _decay_mask(name):
-            u = u + cfg.weight_decay * p.to(torch.float32)
-        new_p[name] = (p.to(torch.float32) - lr * u).to(p.dtype)
+            u = u + cfg.weight_decay * p.to(cdt)
+        new_p[name] = (p.to(cdt) - lr * u).to(p.dtype)
         new_m[name], new_v[name] = m32.to(sdt), v32.to(sdt)
     return new_p, {"step": step, "m": new_m, "v": new_v}, \
         {"grad_norm": gnorm, "lr": lr}

@@ -3,8 +3,8 @@
 Port of ``repro.runtime.elastic``'s ``remesh_lanes``, the one function
 of that module the SpGEMM serving path uses.  Its other two functions,
 ``remesh`` (the largest (data, model) mesh for the devices left) and
-``reshard_restore`` (a checkpoint restored onto a resized mesh), belong
-to training and are ported with it.
+``reshard_restore`` (a checkpoint restored onto a resized mesh), need a
+mesh and wait for the port's sharding slice.
 """
 from __future__ import annotations
 

@@ -11,7 +11,8 @@ last token and drops the result; the port stops after the last token,
 with the same tokens.
 
 The engine runs on the card unless ``device`` names another; a CUDA
-device without a card raises.  After each ``generate`` the host-clock
+device without a card raises.  ``generate`` runs under
+``torch.inference_mode()``.  After each ``generate`` the host-clock
 times of the prefill (through its first token's host read) and of each
 decode step are in ``Engine.stats``.
 """
@@ -53,6 +54,7 @@ class Engine:
             return sampler.greedy(logits)
         return sampler.topk_sample(logits, generator=self.generator)
 
+    @torch.inference_mode()
     def generate(self, requests: List[Request],
                  enc_inp=None) -> List[Request]:
         """Static batching: pad all prompts to one length, decode

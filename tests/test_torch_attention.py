@@ -51,7 +51,7 @@ def _qkv(B, Sq, Skv, H, KVH, hd, seed=0):
 
 def _np(t):
     if isinstance(t, torch.Tensor):
-        return t.float().numpy()
+        return t.detach().float().numpy()
     return np.asarray(t, np.float32)
 
 
@@ -301,8 +301,9 @@ def test_gqa_forward_matches_reference(arch, attn_impl):
     x = rng.standard_normal((B, S, jcfg.d_model)).astype(np.float32)
     pos = np.broadcast_to(np.arange(S) + 3, (B, S)).astype(np.int32)
     want = jattn.gqa_forward(jmix, jnp.asarray(x), jnp.asarray(pos), jcfg)
-    got, k, v = tattn.gqa_forward(tmix, torch.from_numpy(x),
-                                  torch.from_numpy(pos), tcfg)
+    with torch.no_grad():  # K6 (attn_impl "pallas") has no backward pass
+        got, k, v = tattn.gqa_forward(tmix, torch.from_numpy(x),
+                                      torch.from_numpy(pos), tcfg)
     np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=1e-5)
     hd, KVH = jcfg.resolved_head_dim, jcfg.num_kv_heads
     assert tuple(k.shape) == tuple(v.shape) == (B, S, KVH, hd)

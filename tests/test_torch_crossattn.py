@@ -50,7 +50,7 @@ CROSS = ["whisper_small", "llama_3_2_vision_11b"]
 
 def _np(t):
     if isinstance(t, torch.Tensor):
-        return t.float().numpy()
+        return t.detach().float().numpy()
     return np.asarray(t, np.float32)
 
 

@@ -22,7 +22,10 @@ matmul must agree with its plain version within 1e-4 of the output's
 largest magnitude in float32 and one bf16 rounding (plus that 1e-4) in
 bf16, in both of its layouts, write exact zeros in every row no group
 keeps, and launch three times per MoE layer per forward pass, in the
-counts layout.  The sharded batched path on one card equals
+counts layout, and under autograd run its backward pass (the dx launch
+over W transposed on the route ``backward``, dW by ``torch.bmm``) with
+plain autograd's gradients; K6 raises under autograd.  The sharded
+batched path on one card equals
 ``execute_batched`` (CSR and the six counters); the SpGEMM service's
 flush threads launch on the caller's stream, a kernel launch error raises
 out of ``drain``, and its ladder degrades and isolates on the card only.
@@ -965,6 +968,76 @@ def test_grouped_matmul_counts_layout(card, T, E, cap, D, F, counts, dtype):
             assert float(diff.max()) <= 1e-4 * top
         else:
             assert bool((diff <= 2 ** -7 * ref.abs() + 1e-4 * top).all())
+
+
+@pytest.mark.parametrize("T,E,cap,D,F,counts", GMM_COUNTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_matmul_backward(card, T, E, cap, D, F, counts, dtype):
+    """K7 under autograd in the counts layout: the forward and the dx
+    launch (route ``backward``, over W transposed) each once, dx and dW
+    against plain autograd through the plain version on the same card
+    inputs (noise in the unkept rows of x and dy), dx exactly zero on the
+    unkept rows."""
+    rng = np.random.default_rng(5)
+    if counts is None:
+        counts = np.zeros(E, np.int32)
+        counts[rng.choice(E, 8, replace=False)] = rng.integers(1, cap + 1, 8)
+        counts = counts.tolist()
+    x, w, dy = _on(card, rng.standard_normal((T, D)).astype(np.float32),
+                   rng.standard_normal((E, D, F)).astype(np.float32),
+                   rng.standard_normal((T, F)).astype(np.float32))
+    x, w, dy = x.to(dtype), w.to(dtype), dy.to(dtype)
+    (gs,) = _on(card, np.array(counts, np.int32))
+    kept = torch.zeros(T, dtype=torch.bool)
+    for g, n in enumerate(counts):
+        kept[g * cap:min(g * cap + min(n, cap), T)] = True
+    kept = kept.to(card)
+    grads = []
+    for fn in (grouped_matmul, grouped_matmul_plain):
+        xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+        before = dict(grouped_matmul.routes)
+        fn(xa, wa, gs, cap=cap).backward(dy)
+        torch.cuda.synchronize()
+        routes = {r: n - before[r] for r, n in grouped_matmul.routes.items()}
+        assert routes == ({"contiguous": 0, "counts": 1, "backward": 1}
+                          if fn is grouped_matmul else
+                          {"contiguous": 0, "counts": 0, "backward": 0})
+        grads.append((xa.grad, wa.grad))
+    (dx, dw), (dx_p, dw_p) = grads
+    assert bool((dx[~kept] == 0).all())
+    for got, want in ((dx, dx_p), (dw, dw_p)):
+        assert got.dtype == dtype and got.shape == want.shape
+        diff = (got.float() - want.float()).abs()
+        top = float(want.float().abs().max())
+        if dtype == torch.float32:
+            assert float(diff.max()) <= 1e-4 * top
+        else:  # one bf16 rounding; the float32 sums run in other orders
+            assert bool((diff <= 2 ** -7 * want.float().abs()
+                         + 1e-4 * top).all())
+
+
+def test_grouped_matmul_contiguous_backward_raises(card):
+    x = torch.randn((16, 8), device=card, requires_grad=True)
+    w = torch.randn((2, 8, 8), device=card, requires_grad=True)
+    y = grouped_matmul(x, w, torch.tensor([8, 8], dtype=torch.int32,
+                                          device=card))
+    with pytest.raises(NotImplementedError, match="counts layout"):
+        y.sum().backward()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_raises_under_autograd(card, dtype):
+    """K6 has no backward pass: under autograd it raises and launches
+    nothing; under no_grad the same call launches."""
+    q, k, v = (torch.randn(s, device=card, dtype=dtype, requires_grad=True)
+               for s in ((2, 64, 8, 64), (2, 64, 2, 64), (2, 64, 2, 64)))
+    before = flash_attention.launches
+    with pytest.raises(NotImplementedError, match='attn_impl="xla"'):
+        flash_attention(q, k, v)
+    assert flash_attention.launches == before
+    with torch.no_grad():
+        flash_attention(q, k, v)
+    assert flash_attention.launches == before + 1
 
 
 def test_grouped_matmul_rejects_unsupported(card):

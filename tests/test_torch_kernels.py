@@ -919,7 +919,7 @@ def test_launch_counts_reset():
                            "stream_merge.pointer", "flash_attention",
                            "flash_attention.wgmma", "flash_attention.fma",
                            "grouped_matmul", "grouped_matmul.contiguous",
-                           "grouped_matmul.counts"}
+                           "grouped_matmul.counts", "grouped_matmul.backward"}
     assert not any(counts.values())
 
 

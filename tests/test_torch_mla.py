@@ -39,7 +39,7 @@ BF16_ULP = 2.0 ** -7   # one bf16 rounding, relative
 
 def _np(t):
     if isinstance(t, torch.Tensor):
-        return t.float().numpy()
+        return t.detach().float().numpy()
     return np.asarray(t, np.float32)
 
 

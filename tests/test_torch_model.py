@@ -44,7 +44,7 @@ PROMPT = {"recurrentgemma_9b": 40, "mamba2_780m": 13}
 
 def _np(t):
     if isinstance(t, torch.Tensor):
-        return t.float().numpy()
+        return t.detach().float().numpy()
     return np.asarray(t, np.float32)
 
 
@@ -163,7 +163,9 @@ def _forward_prefill_decode(arch, dtype, attn_impl):
 
     want, _, _ = JM.forward(jp, jcfg, jnp.asarray(toks, jnp.int32),
                             enc_inp=jenc)
-    got, _, _ = TM.forward(model, tcfg, torch.from_numpy(toks), enc_inp=tenc)
+    with torch.no_grad():  # K6 (attn_impl "pallas") has no backward pass
+        got, _, _ = TM.forward(model, tcfg, torch.from_numpy(toks),
+                               enc_inp=tenc)
     close(got, want)
     enc_len = jcfg.num_frontend_tokens
     jc = JM.init_cache(jcfg, B, S + 8, enc_len=enc_len)

@@ -52,7 +52,7 @@ RAGGED = [(37, 5, 24, 40, [3, 0, 17, 1, 9]), (80, 3, 64, 136, [70, 5, 0]),
 
 def _np(t):
     if isinstance(t, torch.Tensor):
-        return t.float().numpy()
+        return t.detach().float().numpy()
     return np.asarray(t, np.float32)
 
 

@@ -35,7 +35,7 @@ F32_LEAVES = ("a_param", "dt_bias", "d_skip")
 
 def _np(t):
     if isinstance(t, torch.Tensor):
-        return t.float().numpy()
+        return t.detach().float().numpy()
     return np.asarray(t, np.float32)
 
 
