@@ -215,9 +215,10 @@ drives the port's main path on one card:
            gradients nonzero, float32 loss and gradients within 1e-4 of
            the plain run's, bf16 within BF16_SPREAD of the plain bf16
            run's distance from float32; K7's dx launch at that routing
-           against its plain version, with its time, bound, the plain
-           version's, torch.bmm's, the transposed copy of W1 and
-           torch.bmm's dW
+           against its plain version on W1 as stored (read in place as
+           W1^T: no transposed copy), with its time, bound, the plain
+           version's, torch.bmm's and torch.bmm's dW; the float32 K7
+           run's peak memory
   kernels  every ported kernel and its launches on its path's run, on
            the service path's (``service_launches``) and in the pool's
            workers (``pool_launches``)
@@ -2854,9 +2855,11 @@ def _k7_counts_row(torch, np, k7, name, x, w, cap, counts):
     """K7 in the counts layout on (T, D) rows of noise, group g keeping
     its first counts[g] of cap rows: the unkept rows come out exactly
     zero, the result agrees with the plain version and with the
-    contiguous launch on the kept rows packed together.  Returns the
-    kernel table's row; its bound counts the kept rows of x, the weights
-    of the experts that keep rows, and all of the output."""
+    contiguous launch on the kept rows packed together.  ``w`` may be
+    the transposed view of a contiguous tensor (the backward's W^T), read
+    in place.  Returns the kernel table's row; its bound counts the kept
+    rows of x, the weights of the experts that keep rows, and all of the
+    output."""
     (T, D), (E, _, F) = x.shape, w.shape
     dev = x.device
     kept = torch.zeros(T, dtype=torch.bool)
@@ -2879,9 +2882,11 @@ def _k7_counts_row(torch, np, k7, name, x, w, cap, counts):
     b, by = bound_ms(2 * (n_kept * D + n_experts * D * F + T * F) + 4 * E,
                      2 * n_kept * D * F, BF16_OPS_PER_S)
     out = torch.empty_like(got)
+    storage, k_major = k7.b_storage(w)  # W^T's view: W as stored
     return dict(
         max_abs_err=err, packed_err=packed_err,
-        ms=time_ms(torch, lambda: k7.launch(x, w, gs, out, cap=cap), reps=10),
+        ms=time_ms(torch, lambda: k7.launch(x, storage, gs, out, cap=cap,
+                                            k_major=k_major), reps=10),
         wrapper_ms=time_ms(torch, lambda: k7.grouped_matmul(x, w, gs, cap=cap),
                            reps=10),
         plain_ms=time_ms(torch, lambda: k7.grouped_matmul_plain(
@@ -2891,10 +2896,11 @@ def _k7_counts_row(torch, np, k7, name, x, w, cap, counts):
               f"keep {n_kept} rows, bf16")
 
 
-def _ptxas_summary(build, name):
+def _ptxas_summary(build, name, strict=False):
     """One line per kernel of ``csrc/<name>.cu`` from the build's ``-Xptxas
     -v`` log: its (mangled) entry name, registers and spills; then any
-    advisory of ptxas that it serialised wgmma (C75xx)."""
+    advisory of ptxas that it serialised wgmma (C75xx).  ``strict``: a
+    spill or an advisory fails the run."""
     import re
 
     text = (build.LIBS.build_dir / f"{name}.log").read_text()
@@ -2904,9 +2910,14 @@ def _ptxas_summary(build, name):
         spill = re.search(r"(\d+) bytes spill stores", entry)
         log(f"moe: ptxas {name}: {fn} {regs.group(1) if regs else '?'} "
             f"registers, {spill.group(1) if spill else '?'} bytes spilled")
+        if strict and (spill is None or int(spill.group(1))):
+            raise AssertionError(f"ptxas: {fn} spills")
     advice = [line.strip() for line in text.splitlines() if "(C75" in line]
     log(f"moe: ptxas {name}: {len(advice)} wgmma advisories"
         + "".join(f"\n  {line}" for line in advice))
+    if strict and advice:
+        raise AssertionError(f"ptxas serialised wgmma in {name}: "
+                             + "; ".join(advice))
 
 
 def _moe_block_check(torch, cfg, ffn, x, label):
@@ -2952,8 +2963,8 @@ def phase_moe(torch, np, serve):
     from repro_torch.models import model as M
     from repro_torch.serving.engine import Engine, Request
 
-    for name in ("grouped_matmul", "flash_attention"):
-        _ptxas_summary(_build, name)
+    _ptxas_summary(_build, "grouped_matmul", strict=True)
+    _ptxas_summary(_build, "flash_attention")
     serve.pop("generate", None)  # TinyLlama's engine and model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3902,8 +3913,10 @@ def _train_deepseek(torch, np):
     float32 and in bf16.  K7 launches 9 times (3 forward, 3 recomputed, 3
     dx), nothing else; float32 within TRAIN_REL_TOL of the plain run,
     bf16 within BF16_SPREAD of the plain bf16 run's distance from the
-    float32 one.  Then K7's dx launch at this routing's counts, timed
-    beside the transposed copy, torch.bmm's dW and torch.bmm's dx."""
+    float32 one; the float32 K7 run's peak memory beside the plain
+    run's and beside the memory in use as its dx launches start.  Then K7's dx launch at this routing's counts on W1 as stored
+    (no transposed copy on the path), timed beside torch.bmm's dW and
+    torch.bmm's dx."""
     import dataclasses
     from unittest import mock
 
@@ -3919,6 +3932,14 @@ def _train_deepseek(torch, np):
                            f"layers)", phase="train")
     names = [n for n, _ in params.named_parameters()]
     batch = _train_batch(torch, cfg, DEEPSEEK_TRAIN_B, DEEPSEEK_TRAIN_S)
+    peaks, at_dx = {}, {}  # GiB, by (dtype, plain) and by dtype
+    launch = k7.kernel_launch
+
+    def recording(x, w, sizes, cap, route=None):
+        if route == "backward":  # memory in use as a dx launch starts
+            at_dx.setdefault(x.dtype, []).append(
+                torch.cuda.memory_allocated() / 2**30)
+        return launch(x, w, sizes, cap, route)
 
     def run(dtype, plain):
         c = dataclasses.replace(cfg, dtype=dtype)
@@ -3927,16 +3948,17 @@ def _train_deepseek(torch, np):
         torch.cuda.reset_peak_memory_stats()
         kb.reset_launch_counts()
         t0 = time.perf_counter()
-        with mock.patch.object(moe, "grouped_matmul", gmm):
+        with mock.patch.object(moe, "grouped_matmul", gmm), \
+                mock.patch.object(k7, "kernel_launch", recording):
             loss, met = M.loss_fn(params, c, batch)
             grads = torch.autograd.grad(loss, list(params.parameters()))
         torch.cuda.synchronize()
         counts = {k: n for k, n in kb.launch_counts().items() if n}
+        peaks[dtype, plain] = torch.cuda.max_memory_allocated() / 2**30
         log(f"train: deepseek {dtype} {'plain' if plain else 'K7'}: loss "
             f"{float(loss)} (ce {float(met['ce'])}, aux {float(met['aux'])})"
             f" forward and backward in {time.perf_counter() - t0:.2f} s, "
-            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-            f"launched {counts}")
+            f"peak {peaks[dtype, plain]:.2f} GiB, launched {counts}")
         return loss.detach(), grads, counts
 
     want = {"grouped_matmul": 9, "grouped_matmul.counts": 6,
@@ -3982,10 +4004,18 @@ def _train_deepseek(torch, np):
         f"gradients {f32[1]} (tolerance {TRAIN_REL_TOL}); bf16 K7 "
         f"{b16[0]} / {b16[1]} vs plain bf16 {b16p[0]} / {b16p[1]} from "
         f"float32 (factor {BF16_SPREAD})")
+    w1_gib = params.layers[1].ffn.experts.w1.numel() * 4 / 2**30
+    dx_gib = max(at_dx[torch.float32])
+    log(f"train: deepseek float32 K7 run's peak {peaks['float32', False]:.2f}"
+        f" GiB (plain run {peaks['float32', True]:.2f} GiB); in use as its "
+        f"{len(at_dx[torch.float32])} dx launches start: up to {dx_gib:.2f} "
+        f"GiB, so a transposed copy of W1 ({w1_gib:.2f} GiB) there would "
+        f"reach {dx_gib + w1_gib:.2f} GiB; the launches read W1 in place")
     del ref
 
     # K7's dx launch at the prefill's w1 product: dy (E cap, F) noise, the
-    # kept counts of a routing of this batch's shape, W1 transposed
+    # kept counts of a routing of this batch's shape, W1 as stored read as
+    # W1^T in place
     ffn = params.layers[1].ffn
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     T = DEEPSEEK_TRAIN_B * DEEPSEEK_TRAIN_S
@@ -3996,7 +4026,10 @@ def _train_deepseek(torch, np):
     counts = torch.zeros(E, dtype=torch.int64, device="cuda")
     counts.scatter_add_(0, ids.reshape(-1).long(), keep.long())
     w = ffn.experts.w1.detach().to(torch.bfloat16)
-    wt = w.transpose(1, 2).contiguous()
+    wt = w.transpose(1, 2)  # a view: the kernel reads W1 as it lies
+    storage, k_major = k7.b_storage(wt)
+    if not k_major or storage.data_ptr() != w.data_ptr():
+        raise AssertionError("K7's dx launch would copy W1^T")
     dy = torch.randn((E * cap, F), generator=gen,
                      device="cuda").to(torch.bfloat16)
     x = torch.randn((E * cap, D), generator=gen,
@@ -4004,9 +4037,7 @@ def _train_deepseek(torch, np):
     r = _k7_counts_row(torch, np, k7, "backward dx", dy, wt, cap,
                        counts.cpu().numpy())
     r["library_ms"] = time_ms(torch, lambda: torch.bmm(
-        dy.view(E, cap, F), w.transpose(1, 2)), reps=10)
-    r["copy_ms"] = time_ms(torch, lambda: w.transpose(1, 2).contiguous(),
-                           reps=10)
+        dy.view(E, cap, F), wt), reps=10)
     r["dw_ms"] = time_ms(torch, lambda: torch.bmm(
         x.view(E, cap, D).transpose(1, 2), dy.view(E, cap, F)), reps=10)
     log(f"train: K7 grouped_matmul.backward (dx = dy W1^T) {r['shape']} "
@@ -4015,10 +4046,13 @@ def _train_deepseek(torch, np):
         f"{r['ms']:.4f} wrapper_ms {r['wrapper_ms']:.4f} plain_ms "
         f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.5f} ({r['bound_by']})"
         f" library_ms {r['library_ms']:.4f} (torch.bmm over dy and W1's "
-        f"transposed view); transposed copy of W1 {r['copy_ms']:.4f} ms "
-        f"({w.numel() * 2 / 1e9:.2f} GB); dW = x^T dy by torch.bmm "
-        f"{r['dw_ms']:.4f} ms")
-    return dict(row=r, counts=k7_counts, gates=out)
+        f"transposed view); transposed copy of W1: none on the path (the "
+        f"launch reads W1's {w.numel() * 2 / 1e9:.2f} GB as stored, "
+        f"K-major); dW = x^T dy by torch.bmm {r['dw_ms']:.4f} ms")
+    return dict(row=r, counts=k7_counts, gates=out,
+                peak_gib={f"{d} {'plain' if p else 'K7'}": v
+                          for (d, p), v in peaks.items()},
+                float32_at_dx_gib=dx_gib)
 
 
 def phase_train(torch, np):
@@ -4175,7 +4209,7 @@ def main() -> int:
                       "bound_by": r["bound_by"],
                       "library_ms": r["library_ms"],
                       **{x: r[x] for x in ("tflops", "fp32_ms", "payload_ms",
-                                           "device_ms", "copy_ms", "dw_ms")
+                                           "device_ms", "dw_ms")
                          if x in r}})
     print(f"launch_floor_ms {floor}")
     print(json.dumps({"kernels": table}))

@@ -66,7 +66,7 @@ SIGNATURES = {
                                    + [ctypes.c_float, _I, _I, _P], _I),
     },
     "grouped_matmul": {
-        "zipper_grouped_matmul": ([_P] * 4 + [_I] * 8 + [_P], _I),
+        "zipper_grouped_matmul": ([_P] * 4 + [_I] * 9 + [_P], _I),
     },
 }
 

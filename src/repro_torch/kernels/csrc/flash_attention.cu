@@ -10,7 +10,8 @@
 // masked scores are set to the finite -1e30, and the online softmax
 // (running max m, running sum l, accumulator acc) is float32; o is
 // rounded to q's dtype once.  Its plain version is
-// kernels/ref.py::flash_attention_ref.
+// kernels/ref.py::flash_attention_ref.  The mbarrier, TMA and wgmma
+// helpers are csrc/hopper.cuh's, shared with K7.
 //
 // Bound.  At TinyLlama's prefill (B = 4, S = 512, H = 32, KVH = 4,
 // hd = 64, bf16, causal) the inputs and output are ~19 MB (5.6 us at
@@ -76,6 +77,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -288,6 +291,18 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 // ---------------------------------------------------------------------------
 namespace wgmma_route {
 
+using hopper::desc_sw128;
+using hopper::fence_regs;
+using hopper::mbar_arrive;
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::smem_u32;
+using hopper::tma_load;
+using hopper::wgmma_commit;
+using hopper::wgmma_fence;
+using hopper::wgmma_wait;
+
 constexpr int kBQ = 128;       // query rows per CTA, 64 per consumer
 constexpr int kThreads = 384;  // producer + 2 consumer warpgroups
 constexpr int kConsumers = 256;
@@ -311,73 +326,6 @@ struct Smem {
   static constexpr int kBar = kV + kStages * kTileBytes;  // q_full, full[], empty[]
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// box (64 columns, rows, 1 head, 1 batch) at (c0, row, head, batch)
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int row,
-                                         int head, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(row),
-      "r"(head), "r"(batch)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor of 128-byte-swizzled rows: start address,
-// leading offset 1 (unused: a K-major operand is swizzled, and an MN-major
-// one here spans one 64-value atom), 1,024 bytes between 8-row groups.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Pins accumulator registers in program order around wgmma: the compiler
-// must not move their reads or writes across a fence, commit or wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
 
 // D (64 x 32) (+)= A (64 x 16, shared) * B (32 x 16, shared)^T, both K-major
 __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
@@ -478,10 +426,6 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
 template <int N, int M>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[3][N][M]) {
 #pragma unroll
@@ -800,50 +744,16 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime: the library does not link
-// libcuda itself
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // (hd, S, heads, B) bf16 at `ptr` with element strides st, boxes of
 // (64, rows, 1, 1), 128-byte swizzle, zeros past every edge
 bool make_map(CUtensorMap* map, const void* ptr, int hd, int S, int heads,
               int B, Strides st, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)S,
                               (cuuint64_t)heads, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.h * 2,
                                  (cuuint64_t)st.b * 2};
   const cuuint32_t box[4] = {(cuuint32_t)kAtom, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return hopper::make_map_bf16(map, ptr, dims, strides, box);
 }
 
 template <int HD, int BK, int ST>

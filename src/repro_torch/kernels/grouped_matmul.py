@@ -29,10 +29,12 @@ when autograd records; the reference differentiates its einsum products
 in XLA, outside any Pallas kernel).  For y = x · W per group in the
 counts layout:
 
-- dx = dy · Wᵀ per group: one more K7 launch in the counts layout, over
-  a contiguous transposed copy of W (E, F, D), counted under the route
-  ``"backward"``.  Rows past a group's kept count come out zero, their
-  true gradient: the forward never reads them.
+- dx = dy · Wᵀ per group: one more K7 launch in the counts layout on
+  ``w.transpose(1, 2)``, counted under the route ``"backward"``.  The
+  wrapper sees from the strides that the view's storage is W itself and
+  passes it as it lies (K-major for this product, :func:`b_storage`): no
+  (E, F, D) copy of W is made.  Rows past a group's kept count come out
+  zero, their true gradient: the forward never reads them.
 - dW[g] = x[g]ᵀ · dy[g] over the group's kept rows: ``torch.bmm`` over
   the (E, cap, ·) views, dy's unkept rows masked to zero.
 - The sizes get no gradient.  The contiguous layout's backward raises
@@ -55,13 +57,16 @@ grouped_matmul_plain = grouped_matmul_ref
 MAX_GRID_ROWS = 65535
 
 
-def row_tile(T: int, E: int) -> int:
-    """The kernel's row tile: the smallest of 16, 32 and 64 that holds the
-    mean group size (T / E; in the counts layout T = E cap, so the group
-    stride), so that one tile covers a capacity-padded group of up to 64
-    rows and its expert's weights are read once per launch."""
+def row_tile(T: int, E: int, dtype=torch.bfloat16) -> int:
+    """The kernel's row tile at a mean group size of ceil(T / E) (in the
+    counts layout T = E cap, so the group stride): the smallest that holds
+    it of 64, 128, 192 and 256 (bf16: the wgmma route's tiles are 64-row
+    blocks) or of 16, 32 and 64 (float32), so that one tile covers a
+    group of up to 256 (float32: 64) rows and its expert's weights are
+    read once per launch."""
     mean = -(-T // max(E, 1))
-    return next((bm for bm in (16, 32) if mean <= bm), 64)
+    tiles = (64, 128, 192, 256) if dtype == torch.bfloat16 else (16, 32, 64)
+    return next((bm for bm in tiles if mean <= bm), tiles[-1])
 
 
 def grid_rows(T: int, E: int, bm: int, cap: int | None = None) -> int:
@@ -112,19 +117,38 @@ def kernel_launch(x, w, group_sizes, cap, route=None):
             raise ValueError(f"inputs on {x.device} and {t.device}")
     if cap is not None and (not isinstance(cap, int) or cap < 1):
         raise ValueError(f"group stride cap = {cap!r} is not an int >= 1")
-    bm = row_tile(T, E) if cap is None else row_tile(E * cap, E)
+    bm = row_tile(T if cap is None else E * cap, E, x.dtype)
     if grid_rows(T, E, bm, cap) > MAX_GRID_ROWS:
         raise ValueError(f"T = {T} rows in {E} groups exceed the grid's "
                          f"{MAX_GRID_ROWS} row tiles")
-    x, w = x.contiguous(), w.contiguous()
+    ws, k_major = b_storage(w)
+    x, ws = _aligned(x.contiguous()), _aligned(ws)
     sizes = group_sizes.to(torch.int32).contiguous()
     out = torch.empty((T, F), dtype=x.dtype, device=x.device)
     if T and F:
-        launch(x, w, sizes, out, cap=cap)
+        launch(x, ws, sizes, out, cap=cap, k_major=k_major)
         grouped_matmul.launches += 1
         grouped_matmul.routes[route or ("contiguous" if cap is None
                                         else "counts")] += 1
     return out
+
+
+def b_storage(w):
+    """The weights (E, K, N) as the kernel reads them: ``(storage,
+    k_major)``.  A transposed view of a contiguous (E, N, K) tensor (the
+    backward's ``w.transpose(1, 2)``) is passed as that tensor, in place,
+    with ``k_major`` True; any other strides are made contiguous (E, K,
+    N)."""
+    if not w.is_contiguous() and w.transpose(1, 2).is_contiguous():
+        return w.transpose(1, 2), True
+    return w.contiguous(), False
+
+
+def _aligned(t):
+    """``t``, or a copy of it when its base is not 16-byte aligned: TMA
+    and cp.async read 16 bytes at a time from there.  A fresh tensor, and
+    a row slice of one (D and F are multiples of 8), is never copied."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 grouped_matmul.launches = 0
@@ -160,7 +184,7 @@ class GroupedMatmul(torch.autograd.Function):
         E, D, F = w.shape
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            # the kernel's wrapper copies Wᵀ contiguous
+            # the kernel reads W's storage as it lies (b_storage): no copy
             dx = ctx.fwd(dy, w.transpose(1, 2), group_sizes, cap, "backward")
         if ctx.needs_input_grad[1]:
             # (E, cap, .) views of the buffer, cut or zero-padded to E cap
@@ -174,16 +198,18 @@ class GroupedMatmul(torch.autograd.Function):
         return dx, dw, None, None, None
 
 
-def launch(x, w, sizes, out, *, cap=None) -> None:
-    """Launch K7 on checked, contiguous CUDA tensors (``out`` allocated by
-    the caller) on the current stream, in the counts layout when ``cap``
-    is given; raise on a launch error."""
+def launch(x, w, sizes, out, *, cap=None, k_major=False) -> None:
+    """Launch K7 on checked, contiguous, 16-byte-aligned CUDA tensors
+    (``out`` allocated by the caller) on the current stream, in the
+    counts layout when ``cap`` is given; ``w`` is the weights' storage,
+    (E, K, N), or (E, N, K) when ``k_major`` (:func:`b_storage`).  Raise
+    on a launch error."""
     lib = _build.LIBS.get("grouped_matmul")
-    T, D = x.shape
-    E, _, F = w.shape
-    bm = row_tile(T, E) if cap is None else row_tile(E * cap, E)
+    T, K = x.shape
+    E, N = w.shape[0], out.shape[1]
+    bm = row_tile(T if cap is None else E * cap, E, x.dtype)
     err = lib.zipper_grouped_matmul(
         x.data_ptr(), w.data_ptr(), sizes.data_ptr(), out.data_ptr(),
-        int(x.dtype == torch.bfloat16), T, D, F, E, cap or 0, bm,
-        grid_rows(T, E, bm, cap), stream_of(x))
+        int(x.dtype == torch.bfloat16), int(k_major), T, K, N, E, cap or 0,
+        bm, grid_rows(T, E, bm, cap), stream_of(x))
     _build.check(lib, err, "grouped_matmul")

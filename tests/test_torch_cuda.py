@@ -49,6 +49,7 @@ from repro_torch.kernels.fused_bucket import (accumulators, fused_bucket,
                                               fused_bucket_plain,
                                               fused_expand_bucket,
                                               fused_expand_bucket_plain)
+from repro_torch.kernels import grouped_matmul as k7
 from repro_torch.kernels.grouped_matmul import (grouped_matmul,
                                                 grouped_matmul_plain)
 from repro_torch.kernels.merge_partitions import (merge_partitions,
@@ -892,12 +893,14 @@ def test_engine_launches_flash_attention_once_per_layer(card):
 # tests/test_kernels_attn.py's sweep (T = 64), then ragged sizes (no
 # multiples of 8, empty groups, rows past the last group, a group of more
 # than 64 rows, F not a multiple of the 128-column tile), a single empty
-# group, and no groups at all
+# group, no groups at all, and groups longer than 64 rows at D and F no
+# multiples of 64 (a group of 260 rows over two 256-row tiles)
 GMM = [(64, 4, 16, 32, [8, 16, 0, 24]), (64, 3, 8, 8, [8, 8, 8]),
        (64, 5, 32, 16, [0, 0, 40, 8, 0]), (64, 2, 64, 128, [32, 0]),
        (37, 5, 24, 40, [3, 0, 17, 1, 9]), (300, 3, 64, 136, [170, 5, 0]),
        (21, 4, 16, 8, [5, 6, 7, 3]), (10, 1, 8, 16, [0]),
-       (9, 0, 8, 24, []), (1024, 40, 256, 264, [8] * 40)]
+       (9, 0, 8, 24, []), (1024, 40, 256, 264, [8] * 40),
+       (600, 3, 72, 200, [260, 90, 250])]
 
 
 @pytest.mark.parametrize("T,E,D,F,sizes", GMM)
@@ -925,10 +928,16 @@ def test_grouped_matmul_kernel(card, T, E, D, F, sizes, dtype):
 
 # (T, E, cap, D, F, counts): Arctic's decode stride with 8 kept experts,
 # empty groups, counts past cap, rows past E cap, T short of E cap, a
-# stride of more than one 64-row tile
+# stride of more than one 64-row tile; the bf16 route's 128-, 192- and
+# 256-row tiles (caps 96, 160, 256) at D and F no multiples of 64 (TMA's
+# zero fill past them), and cap 300 over two tiles a group
 GMM_COUNTS = [(1024, 128, 8, 64, 72, None), (40, 4, 8, 16, 32, [3, 0, 8, 5]),
               (30, 3, 10, 8, 24, [10, 1, 0]), (13, 2, 4, 16, 8, [7, 2]),
-              (20, 2, 12, 16, 8, [12, 6]), (300, 3, 90, 64, 136, [90, 70, 1])]
+              (20, 2, 12, 16, 8, [12, 6]), (300, 3, 90, 64, 136, [90, 70, 1]),
+              (300, 3, 96, 72, 200, [96, 70, 0]),
+              (480, 3, 160, 136, 88, [160, 1, 100]),
+              (520, 2, 256, 40, 264, [256, 200]),
+              (600, 2, 300, 64, 136, [300, 257])]
 
 
 @pytest.mark.parametrize("T,E,cap,D,F,counts", GMM_COUNTS)
@@ -977,7 +986,8 @@ def test_grouped_matmul_backward(card, T, E, cap, D, F, counts, dtype):
     launch (route ``backward``, over W transposed) each once, dx and dW
     against plain autograd through the plain version on the same card
     inputs (noise in the unkept rows of x and dy), dx exactly zero on the
-    unkept rows."""
+    unkept rows.  The dx launch reads W in place: alone, it allocates dx
+    and nothing else (a transposed copy of W would add W's bytes)."""
     rng = np.random.default_rng(5)
     if counts is None:
         counts = np.zeros(E, np.int32)
@@ -1014,6 +1024,14 @@ def test_grouped_matmul_backward(card, T, E, cap, D, F, counts, dtype):
         else:  # one bf16 rounding; the float32 sums run in other orders
             assert bool((diff <= 2 ** -7 * want.float().abs()
                          + 1e-4 * top).all())
+    torch.cuda.synchronize(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    base = torch.cuda.memory_allocated(card)
+    dx_alone = k7.kernel_launch(dy, w.transpose(1, 2), gs, cap, "backward")
+    torch.cuda.synchronize(card)
+    grew = torch.cuda.max_memory_allocated(card) - base
+    assert grew <= -(-dx_alone.numel() * dx_alone.element_size() // 512) * 512
+    assert torch.equal(dx_alone, dx)
 
 
 def test_grouped_matmul_contiguous_backward_raises(card):

@@ -12,7 +12,9 @@ layout over the padded buffer) against the reference's
 ``params_from_jax``, for Arctic's smoke config (dense residual MLP) and
 DeepSeek-V2's smoke MoE settings (a shared expert, a leading dense
 layer), with and without dropped tokens; and the serving CLI on
-Arctic's smoke config.  Inputs
+Arctic's smoke config.  K7's launch rules, which are pure Python, run
+here too: the row tile and the grid, and which weight storage the
+wrapper hands the kernel (a stub launch records it).  Inputs
 come from a seeded numpy generator and go to both packages.
 """
 import dataclasses
@@ -31,6 +33,7 @@ from repro.kernels.ref import grouped_matmul_ref as jax_grouped_matmul_ref
 from repro.models import model as JM
 from repro.models import moe as jmoe
 from repro_torch.configs import base as tcb
+from repro_torch.kernels import grouped_matmul as k7
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.grouped_matmul import (grid_rows, grouped_matmul,
                                                 row_tile)
@@ -116,23 +119,121 @@ def test_grouped_matmul_plain_ragged_sizes(T, E, D, F, sizes, dtype):
     assert not _np(got)[gs.sum():].any()
 
 
-def test_grouped_matmul_row_tile():
-    # Arctic's decode (cap 8) and prefill (cap 40) groups, one tile each
-    assert row_tile(1024, 128) == 16 and row_tile(5120, 128) == 64
-    assert row_tile(64, 4) == 16 and row_tile(96, 3) == 32
-    assert row_tile(10, 0) == 16 and row_tile(700, 2) == 64
+# (T, E, dtype, row tile): bf16 tiles of 64-256 rows, one per group of up
+# to 256 (Arctic's decode cap 8 and prefill cap 40, DeepSeek-V2's cap 96,
+# caps 160 and 256, cap 300 over two tiles); float32 keeps 16-64
+ROW_TILES = [(1024, 128, "bfloat16", 64), (5120, 128, "bfloat16", 64),
+             (160 * 96, 160, "bfloat16", 128), (4 * 160, 4, "bfloat16", 192),
+             (2 * 256, 2, "bfloat16", 256), (3 * 300, 3, "bfloat16", 256),
+             (10, 0, "bfloat16", 64), (1024, 128, "float32", 16),
+             (5120, 128, "float32", 64), (64, 4, "float32", 16),
+             (96, 3, "float32", 32), (10, 0, "float32", 16),
+             (700, 2, "float32", 64), (160 * 96, 160, "float32", 64)]
 
 
-def test_grouped_matmul_grid_rows():
+@pytest.mark.parametrize("T,E,dtype,bm", ROW_TILES)
+def test_grouped_matmul_row_tile(T, E, dtype, bm):
+    assert row_tile(T, E, DTYPES[dtype][0]) == bm
+
+
+# (T, E, bm, cap, row tiles of the launch)
+GRID_ROWS = [
     # contiguous: ceil(T / bm) + E + 1, an upper bound of the groups' tiles
-    assert grid_rows(1024, 128, 16) == 64 + 128 + 1
-    assert grid_rows(37, 5, 16) == 3 + 5 + 1
+    (1024, 128, 64, None, 16 + 128 + 1), (37, 5, 64, None, 1 + 5 + 1),
+    (1024, 128, 16, None, 64 + 128 + 1), (37, 5, 16, None, 3 + 5 + 1),
     # counts: ceil(cap / bm) tiles per group, then the rows past E cap
-    assert grid_rows(1024, 128, 16, cap=8) == 128          # Arctic decode
-    assert grid_rows(5120, 128, 64, cap=40) == 128         # Arctic prefill
-    assert grid_rows(100, 2, 16, cap=40) == 2 * 3 + 2      # 20 rows past
-    assert grid_rows(60, 2, 64, cap=40) == 2               # T < E cap
-    assert grid_rows(9, 0, 16, cap=8) == 1
+    (1024, 128, 64, 8, 128),              # Arctic decode
+    (5120, 128, 64, 40, 128),             # Arctic prefill
+    (160 * 96, 160, 128, 96, 160),        # DeepSeek-V2's prefill, cap 96
+    (4 * 160, 4, 192, 160, 4), (2 * 256, 2, 256, 256, 2),
+    (3 * 300, 3, 256, 300, 3 * 2),        # cap 300: two tiles a group
+    (100, 2, 64, 40, 2 + 1),              # 20 rows past E cap
+    (100, 2, 16, 40, 2 * 3 + 2),          # float32's tile
+    (60, 2, 64, 40, 2),                   # T < E cap
+    (9, 0, 64, 8, 1)]
+
+
+@pytest.mark.parametrize("T,E,bm,cap,rows", GRID_ROWS)
+def test_grouped_matmul_grid_rows(T, E, bm, cap, rows):
+    assert grid_rows(T, E, bm, cap) == rows
+
+
+def _recorded_launch(monkeypatch):
+    """Stub K7's launch (pure Python from here on, so it runs on the
+    CPU): record the storage and layout flag each launch is given.  The
+    launch counters are restored afterwards."""
+    seen = []
+
+    def launch(x, w, sizes, out, *, cap=None, k_major=False):
+        seen.append((x, w, k_major))
+
+    monkeypatch.setattr(k7, "launch", launch)
+    gm = k7.grouped_matmul
+    monkeypatch.setattr(gm, "launches", gm.launches)
+    monkeypatch.setattr(gm, "routes", dict(gm.routes))
+    return seen
+
+
+def _weights(E, K, N, how, dtype):
+    """(w (E, K, N), the tensor whose storage w is a view of) for a stride
+    pattern ``how``."""
+    if how == "contiguous":
+        w = torch.randn(E, K, N).to(dtype)
+        return w, w
+    if how == "transposed":        # the backward's w.transpose(1, 2)
+        base = torch.randn(E, N, K).to(dtype)
+        return base.transpose(1, 2), base
+    if how == "permuted":          # (K, E, N) storage
+        base = torch.randn(K, E, N).to(dtype)
+        return base.transpose(0, 1), base
+    if how == "column slice":      # the first N of 2 N columns
+        base = torch.randn(E, K, 2 * N).to(dtype)
+        return base[:, :, :N], base
+    # a transposed view of a tensor that is not contiguous itself
+    base = torch.randn(E, N, 2 * K).to(dtype)
+    return base[:, :, :K].transpose(1, 2), base
+
+
+@pytest.mark.parametrize("how", ["contiguous", "transposed", "permuted",
+                                 "column slice", "transposed slice"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_matmul_weight_layout(monkeypatch, how, dtype):
+    """The wrapper hands the kernel W as it lies when it is contiguous or
+    the transposed view of a contiguous (E, N, K) tensor (the backward's
+    dx = dy W^T: same storage, K-major flag set, no copy); any other
+    strides are made contiguous (E, K, N)."""
+    seen = _recorded_launch(monkeypatch)
+    E, K, N, T, cap = 3, 16, 24, 12, 4
+    w, base = _weights(E, K, N, how, DTYPES[dtype][0])
+    x = torch.randn(T, K).to(w.dtype)
+    out = k7.kernel_launch(x, w, torch.tensor([4, 2, 0]), cap)
+    assert out.shape == (T, N) and len(seen) == 1
+    _, ws, k_major = seen[0]
+    assert ws.is_contiguous()
+    if how in ("contiguous", "transposed"):
+        assert ws.data_ptr() == base.data_ptr()
+        assert k_major == (how == "transposed")
+        assert ws.shape == ((E, N, K) if k_major else (E, K, N))
+    else:
+        assert not k_major and ws.shape == (E, K, N)
+        assert ws.data_ptr() != base.data_ptr()
+        assert torch.equal(ws, w)
+
+
+def test_grouped_matmul_unaligned_inputs_are_copied(monkeypatch):
+    """A base TMA cannot read (not 16-byte aligned) is copied; an aligned
+    row slice is read in place."""
+    seen = _recorded_launch(monkeypatch)
+    flat = torch.randn(12 * 16 + 2).to(torch.bfloat16)
+    x = flat[2:].view(12, 16)      # 4 bytes past an aligned base
+    assert x.data_ptr() % 16
+    rows = torch.randn(20, 16).to(torch.bfloat16)[8:]
+    w = torch.randn(2, 16, 8).to(torch.bfloat16)
+    for xi, in_place in ((x, False), (rows, True)):
+        k7.kernel_launch(xi, w, torch.tensor([6, 6]), None)
+        got = seen[-1][0]
+        assert got.data_ptr() % 16 == 0 and torch.equal(got, xi)
+        assert (got.data_ptr() == xi.data_ptr()) == in_place
 
 
 # (T, E, cap, D, F, counts): kept rows per group at stride cap; empty

@@ -307,7 +307,7 @@ def test_grouped_matmul_backward_matches_plain_autograd(dtype, extra):
     calls = []
 
     def fwd(x, w, sizes, cap, route=None):
-        calls.append(route)
+        calls.append((route, w))
         return k7.plain_launch(x, w, sizes, cap, route)
 
     grads = []
@@ -318,7 +318,13 @@ def test_grouped_matmul_backward_matches_plain_autograd(dtype, extra):
              else k7.grouped_matmul_plain(xa, wa, counts, cap=cap))
         y.backward(dy)
         grads.append((y.detach(), xa.grad, wa.grad))
-    assert calls == [None, "backward"]
+        if how == "function":
+            w_fwd, w_dx = calls[0][1], calls[1][1]
+    assert [route for route, _ in calls] == [None, "backward"]
+    # the dx call gets W's own storage, read in place as W^T (K-major)
+    assert w_dx.data_ptr() == w_fwd.data_ptr()
+    storage, k_major = k7.b_storage(w_dx)
+    assert k_major and storage.data_ptr() == w_fwd.data_ptr()
     (y, dx, dw), (y_p, dx_p, dw_p) = grads
     assert torch.equal(y, y_p)
     tol = dict(rtol=1e-6, atol=1e-5) if dtype == torch.float32 else \
@@ -334,7 +340,7 @@ def test_grouped_matmul_backward_matches_plain_autograd(dtype, extra):
     calls.clear()
     k7.GroupedMatmul.apply(x, w.clone().requires_grad_(), counts, cap,
                            fwd).backward(dy)
-    assert calls == [None]
+    assert [route for route, _ in calls] == [None]
 
 
 def test_grouped_matmul_contiguous_backward_raises():
