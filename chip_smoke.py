@@ -3739,13 +3739,16 @@ def _train_tinyllama(torch, np):
     tokens through ``train`` with no checkpoint; then one more step
     profiled.  Its main path launches none of the seven kernels."""
     from repro_torch.configs import base as cb
+    from repro_torch.distributed import sharding as shd
     from repro_torch.kernels import backend as kb
     from repro_torch.launch import steps as st
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.train import train
     from repro_torch.optim import adamw
     from repro_torch.runtime.fault import FaultConfig
 
     cfg = cb.get_config("tinyllama-1.1b")
+    mesh = make_host_mesh()  # the trainer's: (1, 1) on one card
     opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=2,
                                 decay_steps=TRAIN_STEPS,
                                 state_dtype=cfg.opt_state_dtype)
@@ -3754,7 +3757,7 @@ def _train_tinyllama(torch, np):
     t0 = time.perf_counter()
     state, hist = train(cfg, opt_cfg, FaultConfig(ckpt_dir=None),
                         num_steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
-                        seq_len=TRAIN_SEQ, seed=SEED, log_every=1)
+                        seq_len=TRAIN_SEQ, mesh=mesh, seed=SEED, log_every=1)
     wall = time.perf_counter() - t0
     counts = {k: n for k, n in kb.launch_counts().items() if n}
     if counts:
@@ -3789,8 +3792,9 @@ def _train_tinyllama(torch, np):
     log(f"train: peak_gib {peak:.2f}")
     step_fn = st.make_train_step(cfg, opt_cfg)
     batch = _train_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS)
-    prof = _profiled(torch, f"{cfg.name} train step ({TRAIN_BATCH} x "
-                     f"{TRAIN_SEQ} tokens)", lambda: step_fn(state, batch))
+    with shd.use_mesh(mesh):
+        prof = _profiled(torch, f"{cfg.name} train step ({TRAIN_BATCH} x "
+                         f"{TRAIN_SEQ} tokens)", lambda: step_fn(state, batch))
     if prof:  # the step's device time by kind of kernel
         kinds = {}
         for key, (n, ms) in prof["kernels"].items():
@@ -3804,15 +3808,29 @@ def _train_tinyllama(torch, np):
             f"{k} {ms:.1f} ({n} launches)"
             for k, (n, ms) in sorted(kinds.items(), key=lambda t: -t[1][1])))
     named = dict(state["params"].named_parameters())
-    grads = {k: torch.randn_like(p) for k, p in named.items()}
+    grads = {k: shd.distribute(torch.randn(p.shape, device="cuda"),
+                               p.placements, mesh)
+             for k, p in named.items()}
     adamw_ms = time_ms(torch, lambda: adamw.apply_updates(
         opt_cfg, {k: p.detach() for k, p in named.items()}, state["opt"],
         grads), reps=3, warmup=1)
+    # the same update over the same tensors' local blocks (plain tensors):
+    # what the DTensors add, in one run
+    opt_local = {"step": shd.local(state["opt"]["step"]),
+                 **{n: {k: shd.local(t) for k, t in state["opt"][n].items()}
+                    for n in ("m", "v")}}
+    adamw_plain_ms = time_ms(torch, lambda: adamw.apply_updates(
+        opt_cfg, {k: shd.local(p.detach()) for k, p in named.items()},
+        opt_local, {k: shd.local(g) for k, g in grads.items()}),
+        reps=3, warmup=1)
     log(f"train: adamw_ms {adamw_ms:.3f} (apply_updates over {n_params:,} "
-        f"float32 weights and moments)")
+        f"float32 weights and moments, DTensors on the (1, 1) mesh); "
+        f"adamw_plain_ms {adamw_plain_ms:.3f} (the same over their local "
+        f"tensors)")
     return dict(step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
                 model_flop_share=mfu, with_recompute=hfu, peak_gib=peak,
-                adamw_ms=adamw_ms, launches=prof and prof["launches"],
+                adamw_ms=adamw_ms, adamw_plain_ms=adamw_plain_ms,
+                launches=prof and prof["launches"],
                 idle=prof and 1 - prof["busy"] / prof["wall"])
 
 
@@ -4078,6 +4096,229 @@ def phase_train(torch, np):
     return out
 
 
+MESH_DEEPSEEK_B, MESH_DEEPSEEK_S = 4, 512    # the served prefill's shape
+MESH_TRAIN_B, MESH_TRAIN_S = 2, 512
+MESH_DECODE_STEPS = 8
+MESH_REL_TOL = 1e-4         # float32: the mesh path vs the path without one
+
+
+def _mesh_deepseek(torch, np, mesh):
+    """DeepSeek-V2 at full width, 2 of 60 layers, float32: one forward
+    and backward of MESH_DEEPSEEK_B x MESH_DEEPSEEK_S tokens without a
+    mesh (the einsum dispatch), then the same on ``mesh`` (the zipper
+    dispatch, ``_shardmap_moe``: the all_to_all exchanges and the kept
+    rows moved first, K7 on the rank's experts).  Logits and gradients
+    within MESH_REL_TOL; K7 launches 9 times on either (3 forward, 3
+    recomputed, 3 dx)."""
+    import dataclasses
+
+    from repro_torch.configs import base as cb
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import backend as kb
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(cb.get_config("deepseek-v2-236b"),
+                              num_layers=DEEPSEEK_LAYERS, dtype="float32")
+    params = _family_model(torch, cfg, f"{cfg.name} ({DEEPSEEK_LAYERS} of 60 "
+                           f"layers, float32 compute)", phase="mesh")
+    names = [n for n, _ in params.named_parameters()]
+    batch = _train_batch(torch, cfg, MESH_DEEPSEEK_B, MESH_DEEPSEEK_S)
+
+    def run(label):
+        torch.cuda.synchronize()
+        kb.reset_launch_counts()
+        shd.reset_collective_counts()
+        t0 = time.perf_counter()
+        loss, met = M.loss_fn(params, cfg, batch)
+        grads = torch.autograd.grad(loss / shd.world_size(),
+                                    list(params.parameters()))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {k: n for k, n in kb.launch_counts().items() if n}
+        coll = shd.collective_counts()
+        with torch.no_grad():
+            logits = M.forward(params, cfg, batch["tokens"])[0]
+        if shd.is_dtensor(logits):
+            logits = logits.full_tensor()
+        grads = [g.full_tensor() if shd.is_dtensor(g) else g for g in grads]
+        loss = loss.detach()
+        log(f"mesh: deepseek {label}: loss {float(loss)} (ce "
+            f"{float(met['ce'])}, aux {float(met['aux'])}), forward and "
+            f"backward in {secs:.2f} s; launched {counts}; collectives "
+            f"{coll}")
+        return loss, logits, grads, counts, coll
+
+    ref_loss, ref_logits, ref, ref_counts, _ = run("without a mesh (einsum)")
+    ref_loss, ref_logits = ref_loss.cpu(), ref_logits.cpu()
+    ref = [g.cpu() for g in ref]
+    with shd.use_mesh(mesh):
+        shd.shard_model(params, cfg.fsdp)
+        loss, logits, grads, counts, coll = run(
+            f"on the {tuple(mesh.shape)} mesh (zipper, _shardmap_moe)")
+    want = {"grouped_matmul": 9, "grouped_matmul.counts": 6,
+            "grouped_matmul.backward": 3}
+    if counts != want or ref_counts != want:
+        raise AssertionError(f"deepseek: K7 launched {counts} on the mesh, "
+                             f"{ref_counts} without, want {want}")
+    if not coll.get("all_to_all"):
+        raise AssertionError(f"deepseek: no all_to_all on the mesh: {coll}")
+    loss_err = _rel_err(torch, loss.cpu(), ref_loss)
+    logit_err = _rel_err(torch, logits.cpu(), ref_logits)
+    grad_err, worst = _grads_rel_err(torch, names, grads, ref)
+    log(f"mesh: deepseek gates: loss {loss_err}, logits {logit_err}, "
+        f"gradients {grad_err} ({worst}) relative, tolerance {MESH_REL_TOL}")
+    if not max(loss_err, logit_err, grad_err) <= MESH_REL_TOL:
+        raise AssertionError(f"deepseek on the mesh: loss {loss_err}, logits"
+                             f" {logit_err}, gradients {grad_err} ({worst})")
+    return dict(counts=counts, collectives=coll, loss_err=loss_err,
+                logit_err=logit_err, grad_err=grad_err)
+
+
+def _mesh_tinyllama(torch, np):
+    """TinyLlama-1.1B whole, float32: saved with no mesh, restored by
+    ``elastic.reshard_restore`` onto ``elastic.remesh(1)``; one train step
+    of MESH_TRAIN_B x MESH_TRAIN_S tokens there and one without a mesh
+    from the same weights (loss and weights within MESH_REL_TOL); then a
+    prefill and MESH_DECODE_STEPS decode steps with the caches placed by
+    ``cache_shardings`` beside the same without a mesh (float32 logits
+    within CPU_LOGIT_TOL)."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import base as cb
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps as st
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import elastic
+
+    cfg = dataclasses.replace(cb.get_config("tinyllama-1.1b"),
+                              dtype="float32")
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=2, decay_steps=10)
+    plain = _family_model(torch, cfg, f"{cfg.name} (float32 compute)",
+                          phase="mesh")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt.save(tmp, 0, {k: p.detach() for k, p in
+                           plain.named_parameters()})
+        t_save = time.perf_counter() - t0
+        mesh = elastic.remesh(1)
+        sharded = M.init_params(cfg, torch.Generator(device="cuda")
+                                .manual_seed(SEED + 1))
+        t0 = time.perf_counter()
+        sharded = elastic.reshard_restore(tmp, sharded, mesh, fsdp=cfg.fsdp)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+    with shd.use_mesh(mesh):
+        want = shd.param_shardings(sharded, cfg.fsdp)
+    wrong = [n for n, p in sharded.named_parameters()
+             if tuple(p.placements) != want[n].placements]
+    if wrong:
+        raise AssertionError(f"reshard_restore: placements of {wrong[:4]}")
+    log(f"mesh: tinyllama: {cfg.num_layers} layers saved with no mesh in "
+        f"{t_save:.1f} s, restored onto {mesh} (elastic.remesh(1)) in "
+        f"{t_restore:.1f} s, every parameter on its rule's placements")
+    batch = _train_batch(torch, cfg, MESH_TRAIN_B, MESH_TRAIN_S)
+    step = st.make_train_step(cfg, opt_cfg)
+    res = {}
+    for label, model, m in (("without a mesh", plain, None),
+                            ("on the mesh", sharded, mesh)):
+        with shd.use_mesh(m):
+            state = {"params": model, "opt": adamw.init_state(
+                opt_cfg, dict(model.named_parameters()))}
+            shd.reset_collective_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            loss = float(met["loss"])
+            secs = time.perf_counter() - t0
+        res[label] = loss
+        log(f"mesh: tinyllama train step {label}: loss {loss}, grad_norm "
+            f"{float(met['grad_norm'])}, {secs:.2f} s; collectives "
+            f"{shd.collective_counts()}")
+    loss_err = abs(res["on the mesh"] - res["without a mesh"]) / abs(
+        res["without a mesh"])
+    w_err, worst = max(
+        ((_rel_err(torch, ps.detach().full_tensor(), pp), n) for
+         (n, pp), ps in zip(plain.named_parameters(), sharded.parameters())),
+        key=lambda t: t[0])
+    log(f"mesh: tinyllama train gates: loss {loss_err}, weights {w_err} "
+        f"({worst}) relative, tolerance {MESH_REL_TOL}")
+    if not (loss_err <= MESH_REL_TOL and w_err <= MESH_REL_TOL):
+        raise AssertionError(f"train step on the mesh: loss {loss_err}, "
+                             f"weights {w_err} ({worst})")
+
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        MESH_TRAIN_B, MESH_TRAIN_S))).cuda()
+    smax = MESH_TRAIN_S + MESH_DECODE_STEPS
+    errs = []
+    with shd.use_mesh(mesh):
+        cache = st.place_cache(M.init_cache(cfg, MESH_TRAIN_B, smax, "cuda"))
+    cache_p = M.init_cache(cfg, MESH_TRAIN_B, smax, "cuda")
+    shd.reset_collective_counts()
+    t0 = time.perf_counter()
+    with shd.use_mesh(mesh):
+        lg, cache = M.prefill(sharded, cfg, toks, cache)
+    lg_p, cache_p = M.prefill(plain, cfg, toks, cache_p)
+    errs.append(float((lg.full_tensor() - lg_p).abs().max()))
+    for i in range(MESH_DECODE_STEPS):
+        nxt = lg_p.argmax(-1)[:, None]
+        with shd.use_mesh(mesh):
+            lg, cache = M.decode_step(sharded, cfg, nxt, cache,
+                                      MESH_TRAIN_S + i)
+        lg_p, cache_p = M.decode_step(plain, cfg, nxt, cache_p,
+                                      MESH_TRAIN_S + i)
+        errs.append(float((lg.full_tensor() - lg_p).abs().max()))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    with shd.use_mesh(mesh):
+        placed = st.cache_shardings(cache)
+    if any(tuple(t.placements) != placed[i][n].placements
+           for i, c in enumerate(cache) for n, t in c.items()):
+        raise AssertionError("decode: a cache left its placement")
+    log(f"mesh: tinyllama prefill {MESH_TRAIN_B} x {MESH_TRAIN_S} + "
+        f"{MESH_DECODE_STEPS} decode steps, caches on {placed[0]['k']}: "
+        f"float32 logits vs without a mesh, largest abs diff per step "
+        f"{errs} (tolerance {CPU_LOGIT_TOL}); both paths {secs:.2f} s; "
+        f"collectives {shd.collective_counts()}")
+    if not max(errs) <= CPU_LOGIT_TOL:
+        raise AssertionError(f"decode on the mesh: logits {max(errs)} apart")
+    return dict(loss_err=loss_err, weight_err=w_err, decode_err=max(errs),
+                save_s=t_save, restore_s=t_restore)
+
+
+def phase_mesh(torch, np):
+    """The sharded model paths on one card: the (1, 1) mesh of a
+    one-process NCCL group (every collective issued), DeepSeek-V2's
+    zipper dispatch over the all_to_all and TinyLlama-1.1B's
+    reshard-on-restore, train step and sharded decode, each against the
+    same without a mesh.  Returns the metrics and K7's launches."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+
+    backend = init_distributed()
+    mesh = make_host_mesh()
+    log(f"mesh: {mesh}, backend {backend} (default group), world size "
+        f"{dist.get_world_size()}, model axis group "
+        f"{dist.get_backend(mesh.get_group('model'))} | {smi()}")
+    out = {}
+    for name, fn in (("deepseek", lambda: _mesh_deepseek(torch, np, mesh)),
+                     ("tinyllama", lambda: _mesh_tinyllama(torch, np))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        log(f"mesh: {name} passed in {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_inputs(np):
     """The 16 matrices of the main paths plus dense-row-full, and the
     scl-array oracle of each (host numpy)."""
@@ -4125,7 +4366,8 @@ def main() -> int:
               ("moe", lambda: phase_moe(torch, np, res["serve"])),
               ("families", lambda: phase_families(torch, np)),
               ("encdec", lambda: phase_encdec(torch, np)),
-              ("train", lambda: phase_train(torch, np)))
+              ("train", lambda: phase_train(torch, np)),
+              ("mesh", lambda: phase_mesh(torch, np)))
     # the serving phases run as the engine does, with autograd off
     serving = ("serve", "profile", "moe", "families", "encdec")
     for label, fn in phases:
@@ -4141,6 +4383,9 @@ def main() -> int:
                 break  # the later phases need what these make
             continue
         log(f"{label}: passed in {time.perf_counter() - t0:.1f} s")
+    import torch.distributed as dist
+    if dist.is_initialized():  # the trainer's and phase mesh's group
+        dist.destroy_process_group()
     if failed:
         log(f"chip_smoke: FAILED phases {failed}")
         return 1
@@ -4171,6 +4416,9 @@ def main() -> int:
     counts["grouped_matmul.backward"] = \
         res["train"]["deepseek"]["counts"]["grouped_matmul.backward"]
     log("kernels: " + ", ".join(f"{k}={v}" for k, v in counts.items()))
+    mesh = res["mesh"]["deepseek"]["counts"]  # K7 under _shardmap_moe
+    log("kernels: mesh path (DeepSeek-V2 on the (1, 1) mesh) " + ", ".join(
+        f"{k}={v}" for k, v in mesh.items()))
     sources = {
         "chunk_sort": ("src/repro_torch/kernels/csrc/chunk_sort.cu",
                        "src/repro/kernels/chunk_sort.py:91"),
@@ -4203,6 +4451,7 @@ def main() -> int:
                       "service_launches": service.get(
                           key, service.get(kernel, 0)),
                       "pool_launches": pool.get(key, pool.get(kernel, 0)),
+                      "mesh_launches": mesh.get(key, mesh.get(kernel, 0)),
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "wrapper_ms": r["wrapper_ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -10,5 +10,7 @@ its prefill attention through the flash-attention kernel K6 when
 ``cfg.attn_impl == "pallas"``.  Training is
 ``repro_torch.launch.train.train`` (``launch/steps.py``'s step,
 ``runtime/fault.py``'s resilient loop, ``checkpoint/ckpt.py``), the MoE
-expert products through K7 and its backward pass.
+expert products through K7 and its backward pass, always under a mesh
+(``launch/mesh.py``, ``distributed/sharding.py``: one process per
+device, the MoE block's zipper dispatch over an all_to_all).
 """

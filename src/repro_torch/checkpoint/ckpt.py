@@ -10,8 +10,17 @@ so a torn write is never taken for a checkpoint.  bfloat16 leaves are
 stored as their uint16 bits (npz has no bfloat16).
 
 ``restore`` matches leaves by path, not by order, and places them on
-the caller's ``device``; the reference's resharding onto a new mesh
-waits for the sharding slice.
+the caller's ``device``, or with ``shardings`` on the current mesh
+(reshard-on-restore: every rank reads the same file and keeps its block
+of each array, cut on the host, so the saving mesh is irrelevant and no
+card holds a whole array).
+
+In a group of several processes ``save`` and ``restore`` are
+collectives that every rank calls: ``save`` gathers each DTensor to
+rank 0 alone, rank 0 writes, and every rank learns whether the step was
+committed (a failed write raises on every rank, so the ranks go on
+alike); ``restore`` of the latest step takes rank 0's latest step on
+every rank.
 """
 from __future__ import annotations
 
@@ -23,6 +32,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.distributed import sharding as shd
 
 
 def _flatten(tree, prefix=""):
@@ -37,9 +49,16 @@ def _flatten(tree, prefix=""):
     return out
 
 
-def _to_host(t: torch.Tensor) -> tuple[np.ndarray, str]:
-    """(a numpy copy that npz can hold, the tensor's dtype name)."""
-    t = t.detach().to("cpu", copy=True)
+def _to_host(t: torch.Tensor, root: bool):
+    """(a numpy copy that npz can hold, the tensor's dtype name) on the
+    writing rank (``root``), None elsewhere; a DTensor is gathered to
+    rank 0 first (a collective)."""
+    t = t.detach()
+    if shd.is_dtensor(t):
+        t = shd.gather_to_root(t)
+    if not root:
+        return None
+    t = t.to("cpu", copy=True)
     dtype = str(t.dtype).removeprefix("torch.")
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), dtype
@@ -52,11 +71,14 @@ def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3,
     the newest ``keep`` steps.  The device-to-host copy happens before
     this returns (training may change the tensors after); with
     ``blocking=False`` the disk write runs on a thread, which is
-    returned."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    returned.  In a group of several processes rank 0 writes and the
+    save blocks whatever ``blocking`` says: every rank returns None once
+    the step is committed, or raises if rank 0's write failed."""
     flat = _flatten(tree)
     paths = [p for p, _ in flat]
-    host = [_to_host(t) for _, t in flat]
+    group = dist.is_initialized() and dist.get_world_size() > 1
+    root = not group or dist.get_rank() == 0
+    host = [_to_host(t, root) for _, t in flat]
 
     def commit():
         tmp = os.path.join(ckpt_dir, f".tmp_step_{step}")
@@ -73,6 +95,23 @@ def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3,
         os.rename(tmp, final)
         _gc(ckpt_dir, keep)
 
+    if group:
+        failed, err = None, None
+        if root:
+            try:
+                os.makedirs(ckpt_dir, exist_ok=True)
+                commit()
+            except Exception as e:  # every rank must hear of it
+                failed, err = f"{type(e).__name__}: {e}", e
+        status = [failed]
+        dist.broadcast_object_list(status, src=0)
+        if err is not None:
+            raise err
+        if status[0] is not None:
+            raise RuntimeError(f"checkpoint step {step} was not saved: "
+                               f"rank 0 failed ({status[0]})")
+        return None
+    os.makedirs(ckpt_dir, exist_ok=True)
     if blocking:
         commit()
         return None
@@ -96,16 +135,28 @@ def all_steps(ckpt_dir: str) -> list[int]:
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
+    """The newest committed step in ``ckpt_dir``, or None; in a group of
+    several processes rank 0's, on every rank (a collective)."""
     steps = all_steps(ckpt_dir)
-    return max(steps) if steps else None
+    s = max(steps) if steps else None
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        got = [s]
+        dist.broadcast_object_list(got, src=0)
+        s = got[0]
+    return s
 
 
 def restore(ckpt_dir: str, target_tree: Any, *, step: Optional[int] = None,
-            device=None) -> Any:
+            device=None, shardings: Any = None) -> Any:
     """A new nested dict of the structure of ``target_tree`` holding step
-    ``step`` (default: the latest) on ``device`` (default: the CPU).  The
-    checkpoint is the source of shapes and dtypes; its paths must be the
-    target's.  Reads every array before returning any."""
+    ``step`` (default: the latest) on ``device`` (default: the CPU, or
+    with ``shardings`` the current mesh's device).  ``shardings``: a
+    nested dict of the same structure whose leaves are
+    ``distributed.sharding.Sharding`` (or DTensor placements); each
+    array becomes a DTensor on the current mesh with its leaf's
+    placements.  The checkpoint is the source of shapes and dtypes; its
+    paths must be the target's.  Reads every array before returning
+    any."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
@@ -124,8 +175,18 @@ def restore(ckpt_dir: str, target_tree: Any, *, step: Optional[int] = None,
                          f"leaves that are not the target's {len(want)}: "
                          f"{sorted(set(want) ^ set(arrays))[:4]}")
 
+    if shardings is not None:
+        mesh = shd.get_mesh()
+        device = device or mesh.device_type
+        plc = {p: getattr(sh, "placements", sh) for p, sh in
+               _flatten(shardings)}
+
+    def leaf(path):
+        if shardings is not None:  # cut on the host, the block moved
+            return shd.distribute(arrays[path], plc[path], device=device)
+        return arrays[path].to(device or "cpu")
+
     def build(tree, prefix=""):
         return {k: build(v, f"{prefix}{k}/") if isinstance(v, dict)
-                else arrays[prefix + k].to(device or "cpu")
-                for k, v in tree.items()}
+                else leaf(prefix + k) for k, v in tree.items()}
     return build(target_tree)

@@ -21,16 +21,21 @@ What the fields mean in the port, where it differs from the reference:
   acts on ``attn`` and ``local_attn`` layers alike (the latter with
   ``local_window``); an MLA layer always takes the plain blocked
   attention, as the reference's does.
-- The sharding knobs do nothing on one card: ``layer_layout``, ``fsdp``
-  and ``prefill_cache_seqshard`` are read by no code of the port.
-  ``remat`` acts only in training: ``"block"`` checkpoints each decoder
-  layer (``models.model.forward``).
+- ``fsdp`` acts on a mesh (``distributed/sharding.py``): it adds the
+  data axis to the parameters' placements (gathered on use).
+  ``layer_layout`` and ``prefill_cache_seqshard`` are read by no code of
+  the port: they pick the reference's activation constraint specs, and
+  on a mesh the port runs each rank's block as a plain tensor, which has
+  no layout to pin.  ``remat`` acts only in training: ``"block"``
+  checkpoints each decoder layer (``models.model.forward``).
 - ``scan_unroll`` does nothing: the port runs its layers in a Python
   loop, not a scan.
-- ``moe_dispatch`` picks nothing on one card: with no mesh every MoE
-  block takes the capacity-padded einsum dispatch
-  (``models.moe._einsum_moe``), as the reference does without a mesh;
-  its expert products run through K7 (``kernels.grouped_matmul``).
+- ``moe_dispatch`` picks the MoE block's path on a mesh: "zipper" (the
+  default) the sort + all_to_all dispatch (``models.moe._shardmap_moe``),
+  "einsum" the capacity-padded einsum dispatch over the global batch;
+  with no mesh every MoE block takes the einsum dispatch, as the
+  reference does.  Either runs its expert products through K7
+  (``kernels.grouped_matmul``).
 - ``dtype`` is the compute dtype of activations and of the KV cache;
   ``param_dtype`` the dtype parameters are stored in (each matmul casts
   its weight to the activation dtype, as the reference does).
@@ -99,15 +104,15 @@ class ModelConfig:
     param_dtype: str = "float32"
     opt_state_dtype: str = "float32"
     remat: str = "none"            # none | block (training only)
-    fsdp: bool = False             # no effect on one card
+    fsdp: bool = False             # parameters also over the data axis
     # --- attention impl: xla (plain blocked attention) | pallas (K6) ---
     attn_impl: str = "xla"
     attn_q_block: int = 2048
     attn_kv_block: int = 1024
     # causal-block skipping in the blocked attention (halves its FLOPs)
     attn_block_skip: bool = False
-    # intra-layer layout of the reference's mesh ("tp" | "sp"); no effect
-    # on one card
+    # intra-layer layout of the reference's mesh ("tp" | "sp"); read by
+    # no code of the port
     layer_layout: str = "tp"
     # carry softmax probabilities in bf16 between the two matmuls of the
     # blocked attention (flash-attention-2 numerics)
@@ -117,7 +122,8 @@ class ModelConfig:
     decode_dus: bool = False
     # chunked vocab head + cross-entropy (training; models.model._chunked_ce)
     ce_chunk: int = 0
-    # pin prefill KV writes to the cache's sharding; no effect on one card
+    # pin prefill KV writes to the cache's sharding in the reference; read
+    # by no code of the port
     prefill_cache_seqshard: bool = False
     # fully unroll layer scans in the reference; no effect in the port
     scan_unroll: bool = False

@@ -1,2 +1,3 @@
-"""Distributed layer of the port: lane-sharded batched SpGEMM
+"""Distributed layer of the port: the sharding rules and the SPMD
+runtime of the model paths (``sharding``), lane-sharded batched SpGEMM
 (``spgemm_shard``)."""

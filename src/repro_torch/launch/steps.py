@@ -13,13 +13,27 @@ The train state is ``{"params": Model, "opt": {"step", "m", "v"}}``
 ``train_step`` writes the updated weights into the model in place (the
 reference's functional step returns new arrays; holding one copy of the
 weights is what lets TinyLlama-1.1B train with float32 moments on one
-card) and returns the state with the new moments.  The input specs and
-shardings of the reference's meshes wait for the sharding slice.
+card) and returns the state with the new moments.
+
+Under a mesh (``distributed.sharding.use_mesh``) the state's parameters
+and moments are DTensors placed by ``state_shardings``; the step runs
+the model as each rank's SPMD program (``distributed/sharding.py``) and
+backpropagates the replicated global loss divided by the world size, so
+the collectives' backward passes sum each gradient over the ranks.
+``batch_shardings``, ``cache_shardings`` and ``state_shardings`` give
+the reference's specs (``Sharding(spec, placements)``) for the port's
+trees: its cache is a list with one dict per layer, where the reference
+stacks a group's layers along a leading dim, so a cache spec here is the
+reference's without that dim's leading None.  The input specs of the
+dry run (``train_state_shapes``, ``input_specs``) are not ported yet.
 """
 from __future__ import annotations
 
+import re
+
 import torch
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
 
@@ -36,8 +50,10 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig):
 
     def grads_of(params, names, batch):
         loss, met = M.loss_fn(params, cfg, batch)
-        grads = torch.autograd.grad(loss, [p for _, p in names],
-                                    allow_unused=True)
+        # every rank holds the same global loss: each backpropagates its
+        # share, and the collectives' backward passes sum the shares
+        grads = torch.autograd.grad(loss / shd.world_size(),
+                                    [p for _, p in names], allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for (_, p), g in zip(names, grads)]
         return loss.detach(), {k: v.detach() for k, v in met.items()}, grads
@@ -45,6 +61,10 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig):
     def train_step(state, batch):
         params, opt = state["params"], state["opt"]
         names = list(params.named_parameters())
+        if shd.get_mesh() is not None:
+            # micro-batches split the global batch, as the reference's do
+            batch = {k: v.full_tensor() if shd.is_dtensor(v) else v
+                     for k, v in batch.items()}
         if accum == 1:
             loss, met, grads = grads_of(params, names, batch)
         else:
@@ -53,10 +73,10 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig):
                 raise ValueError(f"batch {B} does not split into "
                                  f"{accum} micro-batches")
             m = B // accum
-            grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device) for _, p in names]
+            grads = [torch.zeros_like(p, dtype=torch.float32)
+                     for _, p in names]
             loss = torch.zeros((), dtype=torch.float32,
-                               device=grads[0].device)
+                               device=names[0][1].device)
             for i in range(accum):
                 mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
                 l, _, g = grads_of(params, names, mb)
@@ -69,8 +89,8 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig):
             opt_cfg, {k: p.detach() for k, p in names}, opt,
             {k: g for (k, _), g in zip(names, grads)})
         with torch.no_grad():
-            for k, p in names:
-                p.copy_(new_p[k])
+            for k, p in names:  # shard to shard: no DTensor dispatch
+                shd.local(p).copy_(shd.local(new_p[k]))
         return {"params": params, "opt": new_opt}, {"loss": loss, **met, **om}
 
     return train_step
@@ -79,8 +99,16 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig):
 def init_train_state(cfg, opt_cfg: adamw.AdamWConfig,
                      generator: torch.Generator, device=None) -> dict:
     """A fresh model (weights drawn from ``generator``, stored on
-    ``device``, default the generator's) and zero AdamW moments."""
-    params = M.init_params(cfg, generator, device=device)
+    ``device``, default the generator's) and zero AdamW moments; under a
+    mesh the parameters are placed by the rules (every rank draws the
+    same weights, staged on the host, and moves its shard to ``device``:
+    no card holds a whole model) and each moment takes its parameter's
+    placement."""
+    if shd.get_mesh() is None:
+        params = M.init_params(cfg, generator, device=device)
+    else:
+        params = shd.shard_model(M.init_params(cfg, generator, device="cpu"),
+                                 cfg.fsdp, device=device or generator.device)
     return {"params": params,
             "opt": adamw.init_state(opt_cfg, dict(params.named_parameters()))}
 
@@ -95,3 +123,70 @@ def make_decode_step(cfg):
     def decode_step(params, token, cache, cache_len):
         return M.decode_step(params, cfg, token, cache, cache_len)
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# shardings
+# ---------------------------------------------------------------------------
+
+def _shape(leaf):
+    """A leaf's shape: a tensor's, or the first entry of a (shape,
+    dtype) pair (``model.cache_shapes``)."""
+    return tuple(leaf.shape if hasattr(leaf, "shape") else leaf[0])
+
+
+def batch_shardings(batch: dict) -> dict:
+    """{key: Sharding} of a batch dict (None stays None): the leading
+    dim over the batch axes when it divides, the rest replicated."""
+    return {k: None if v is None else shd.sharding(shd._batch_spec(_shape(v)))
+            for k, v in batch.items()}
+
+
+_CACHE_RULES = [
+    (r"/(k|v|c|kr|enc_k|enc_v)$", 1),   # sequence dim -> model
+    (r"/slot_pos$", 1),
+    (r"/h$", 1),                         # state width/head dim -> model
+    (r"/conv$", 2),                      # channel dim -> model
+]
+
+
+def cache_shardings(cache_tree) -> list:
+    """[{name: Sharding}, ...] for a cache (a list with one dict per
+    layer of tensors or (shape, dtype) pairs): the batch dim over the
+    batch axes and the rule's dim over the model axis, each where it
+    divides."""
+    ba = shd.batch_axes() or None
+    msize = shd.model_axis_size()
+    dsize = shd.data_axis_size()
+
+    def one(path, leaf):
+        shape = _shape(leaf)
+        spec = [None] * len(shape)
+        if ba is not None and shape[0] % dsize == 0:
+            spec[0] = ba
+        for pat, dim in _CACHE_RULES:
+            if re.search(pat, path):
+                if dim < len(shape) and shape[dim] % msize == 0:
+                    spec[dim] = "model"
+                break
+        return shd.sharding(spec)
+
+    return [{name: one(f"/{i}/{name}", leaf) for name, leaf in c.items()}
+            for i, c in enumerate(cache_tree)]
+
+
+def place_cache(cache: list) -> list:
+    """The cache's tensors as DTensors placed by :func:`cache_shardings`
+    (each rank keeps its block of the same global tensors)."""
+    shs = cache_shardings(cache)
+    return [{n: shd.distribute(t, sh[n].placements) for n, t in c.items()}
+            for c, sh in zip(cache, shs)]
+
+
+def state_shardings(cfg, params) -> dict:
+    """The train state's shardings: each parameter's by the rules, the
+    step replicated, each moment its parameter's."""
+    p_sh = shd.param_shardings(params, cfg.fsdp)
+    return {"params": p_sh,
+            "opt": {"step": shd.sharding(()), "m": dict(p_sh),
+                    "v": dict(p_sh)}}

@@ -1,11 +1,17 @@
-"""Training launcher: data, the resilient loop, checkpoints.
+"""Training launcher: mesh, data, the resilient loop, checkpoints.
 
-Port of ``repro.launch.train`` on one device.  Runs on the card unless
-``--device cpu`` is given (a CUDA request without a card raises; there
-is no fallback to the CPU).  Usage:
+Port of ``repro.launch.train``.  Runs on the card unless ``--device
+cpu`` is given (a CUDA request without a card raises; there is no
+fallback to the CPU), always under a mesh, as the reference does: the
+caller's, else ``launch.mesh.make_host_mesh`` over the process group
+(one process: the (1, 1) mesh; under ``torchrun`` one process per
+card).  Usage:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
       --steps 100 --batch 8 --seq 2048 --ckpt-dir /path/to/ckpt
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch tinyllama-1.1b --steps 100 --batch 8 --seq 2048
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
       --smoke --device cpu --steps 40 --batch 8 --seq 64
@@ -20,30 +26,45 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs import base as cb
 from repro_torch.data.pipeline import PrefetchLoader, TokenDataset
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.launch import steps as st
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.optim import adamw
 from repro_torch.runtime.fault import FaultConfig, run_resilient
 
 
 def train(cfg, opt_cfg, fcfg: FaultConfig, *, num_steps: int,
-          global_batch: int, seq_len: int, device=None, seed: int = 0,
-          preempt_hook=None, log_every: int = 10):
+          global_batch: int, seq_len: int, device=None, mesh=None,
+          seed: int = 0, preempt_hook=None, log_every: int = 10):
     """Train ``cfg`` from fresh weights for ``num_steps`` steps of
     ``global_batch`` x ``seq_len`` tokens on ``device`` (default: the
-    card), resuming from ``fcfg.ckpt_dir``'s latest checkpoint if it has
+    card) under ``mesh`` (default: the host mesh), resuming from ``fcfg.ckpt_dir``'s latest checkpoint if it has
     one and checkpointing every ``fcfg.ckpt_every`` steps and after the
     last (none when ``fcfg.ckpt_dir`` is None).  Returns (state,
     history): ``run_resilient``'s history plus ``save_s`` and
     ``restore_s``, the host seconds of each checkpoint save (the
     device-to-host copy, and the disk write unless ``fcfg.async_save``)
     and restore; each step's metrics hold ``step_s``, its host seconds
-    through the read of its loss."""
+    through the read of its loss.  The state comes back placed on the
+    mesh (DTensor parameters and moments)."""
     device = resolve_device(device)
+    if mesh is None:
+        mesh = make_host_mesh(device=device)
+    with shd.use_mesh(mesh):
+        return _train(cfg, opt_cfg, fcfg, num_steps=num_steps,
+                      global_batch=global_batch, seq_len=seq_len,
+                      device=device, seed=seed, preempt_hook=preempt_hook,
+                      log_every=log_every)
+
+
+def _train(cfg, opt_cfg, fcfg, *, num_steps, global_batch, seq_len, device,
+           seed, preempt_hook, log_every):
     step_fn = st.make_train_step(cfg, opt_cfg)
     state = st.init_train_state(
         cfg, opt_cfg, torch.Generator(device=device).manual_seed(seed))
@@ -80,7 +101,8 @@ def train(cfg, opt_cfg, fcfg: FaultConfig, *, num_steps: int,
         if s is None:
             return None
         t0 = time.perf_counter()
-        got = ckpt.restore(fcfg.ckpt_dir, tree(state), step=s, device=device)
+        got = ckpt.restore(fcfg.ckpt_dir, tree(state), step=s,
+                           shardings=st.state_shardings(cfg, params))
         with torch.no_grad():
             for name, p in params.named_parameters():
                 p.copy_(got["params"][name])
@@ -101,7 +123,7 @@ def train(cfg, opt_cfg, fcfg: FaultConfig, *, num_steps: int,
         return state, metrics
 
     def on_step(step, metrics):
-        if step % log_every == 0:
+        if step % log_every == 0 and dist.get_rank() == 0:
             print(f"step {step:5d}  loss {metrics['loss']:.4f}  "
                   f"gnorm {metrics['grad_norm']:.2f}  "
                   f"{metrics['step_s'] * 1e3:.0f} ms", flush=True)
@@ -142,8 +164,9 @@ def main(argv=None):
                     global_batch=args.batch, seq_len=args.seq,
                     device=args.device)
     losses = [h["loss"] for h in hist["steps"]]
-    print(f"done: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
-          f"({hist['saves']} saves, {hist['restarts']} restarts)")
+    if dist.get_rank() == 0:
+        print(f"done: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+              f"({hist['saves']} saves, {hist['restarts']} restarts)")
 
 
 if __name__ == "__main__":

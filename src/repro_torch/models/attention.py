@@ -23,12 +23,21 @@ its value head dim differs from the query/key one.  Decode attends the
 whole cache in plain torch, as the reference does (it has no kernel
 there); MLA decodes in the absorbed form, scores and context in the
 compressed space.
+
+On a mesh (``distributed/sharding.py``) decode reads its cache in
+local form: a cache DTensor's sequence (or ring-slot) dim is split
+over the model axis, so each rank scores the positions of its block,
+writes the new token's entry only where that position lies in its
+block, and the softmax is combined across the axis (the max and the
+sums all-reduced: flash-decoding's partial softmax, which the reference
+leaves to GSPMD).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import Dense, RMSNorm, normal, rmsnorm, rope
 
@@ -220,6 +229,37 @@ def gqa_forward(p: GQA, x, pos, cfg, *, causal=True, window=0,
     return torch.einsum("bshd,hdo->bso", out, p.wo.w.to(x.dtype)), k, v
 
 
+def seq_block(c):
+    """A cache tensor in local form: (its local tensor, the position of
+    the block's first entry along dim 1, whether dim 1 is split over the
+    model axis, and a function that wraps a new local tensor in the
+    cache's placement).  A plain tensor is its own whole block."""
+    if not shd.is_dtensor(c):
+        return c, 0, False, lambda t: t
+    from torch.distributed.tensor import DTensor
+
+    dim, off, _ = shd.model_shard(c)
+    if dim not in (None, 1):
+        raise ValueError(f"a cache split over the model axis along dim "
+                         f"{dim}: attention reads dim 1 split only")
+    return (c.to_local(), off, dim is not None,
+            lambda t: DTensor.from_local(t, c.device_mesh, c.placements,
+                                         run_check=False))
+
+
+def attend(s, av, split: bool):
+    """softmax(s) over the last dim, then ``av`` of the probabilities: s
+    float32 scores of one block of positions (masked ones NEG_INF).
+    When ``split`` the positions are split over the model axis: the
+    block's max, exponent sums and ``av`` are combined over the axis."""
+    if not split:
+        return av(torch.softmax(s, dim=-1))
+    m = shd.all_reduce_max(s.amax(dim=-1, keepdim=True), ("model",))
+    e = torch.exp(s - m)
+    den = shd.all_reduce(e.sum(dim=-1, keepdim=True), ("model",))
+    return shd.all_reduce(av(e), ("model",)) / den
+
+
 def gqa_decode(p: GQA, x, cache_k, cache_v, cache_len: int, cfg, *,
                window=0):
     """One-token decode.  x: (B, 1, D); cache_k/v: (B, Smax, KVH, hd);
@@ -237,30 +277,35 @@ def gqa_decode(p: GQA, x, cache_k, cache_v, cache_len: int, cfg, *,
     if cfg.pos_emb == "rope":
         k_new = rope(k_new, pos, cfg.rope_theta)
     v_new = p.wv(x)
-    Smax = cache_k.shape[1]
+    ba = shd.batch_axes() or None
+    cache_k = shd.constrain(cache_k, ba, "model", None, None)
+    cache_v = shd.constrain(cache_v, ba, "model", None, None)
+    (ck, off, split, wrap), (cv, _, _, _) = seq_block(cache_k), seq_block(
+        cache_v)
+    Sl = ck.shape[1]  # this block's positions: off, ..., off + Sl - 1
     if cfg.decode_dus:
-        cache_k[:, cache_len:cache_len + 1] = k_new.to(cache_k.dtype)
-        cache_v[:, cache_len:cache_len + 1] = v_new.to(cache_v.dtype)
+        if off <= cache_len < off + Sl:
+            ck[:, cache_len - off:cache_len - off + 1] = k_new.to(ck.dtype)
+            cv[:, cache_len - off:cache_len - off + 1] = v_new.to(cv.dtype)
     else:
-        onehot = (torch.arange(Smax, device=x.device) == cache_len
-                  ).to(cache_k.dtype)[None, :, None, None]
-        cache_k = cache_k * (1 - onehot) + k_new.to(cache_k.dtype) * onehot
-        cache_v = cache_v * (1 - onehot) + v_new.to(cache_v.dtype) * onehot
-    KVH = cache_k.shape[2]
+        onehot = (torch.arange(off, off + Sl, device=x.device) == cache_len
+                  ).to(ck.dtype)[None, :, None, None]
+        ck = ck * (1 - onehot) + k_new.to(ck.dtype) * onehot
+        cv = cv * (1 - onehot) + v_new.to(cv.dtype) * onehot
+    KVH = ck.shape[2]
     G = cfg.num_heads // KVH
     qg = q.reshape(B, KVH, G, hd)
-    s = torch.einsum("bkgd,bskd->bkgs", qg.float(),
-                     cache_k.float()) * hd ** -0.5
-    kpos = torch.arange(Smax, device=x.device)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(), ck.float()) * hd ** -0.5
+    kpos = torch.arange(off, off + Sl, device=x.device)
     valid = kpos <= cache_len
     if window:
         valid &= kpos > cache_len - window
     s = torch.where(valid, s, NEG_INF)
-    pbs = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", pbs, cache_v.float())
+    out = attend(s, lambda pr: torch.einsum("bkgs,bskd->bkgd", pr,
+                                            cv.float()), split)
     out = out.reshape(B, 1, cfg.num_heads, hd).to(x.dtype)
     y = torch.einsum("bshd,hdo->bso", out, p.wo.w.to(x.dtype))
-    return y, cache_k, cache_v
+    return y, wrap(ck), wrap(cv)
 
 
 # ---------------------------------------------------------------------------
@@ -316,24 +361,30 @@ def mla_decode(p: MLA, x, cache_c, cache_kr, cache_len: int, cfg):
     pos = torch.full((B, 1), cache_len, dtype=torch.int32, device=x.device)
     q_nope, q_rope = (t[:, 0] for t in _mla_q(p, x, pos, cfg))  # (B, H, .)
     c_new, kr_new = _mla_kv(p, x, pos, cfg)                     # (B, 1, .)
-    Smax = cache_c.shape[1]
+    ba = shd.batch_axes() or None
+    cache_c = shd.constrain(cache_c, ba, "model", None)
+    cache_kr = shd.constrain(cache_kr, ba, "model", None)
+    (cc, off, split, wrap), (ckr, _, _, _) = seq_block(cache_c), seq_block(
+        cache_kr)
+    Sl = cc.shape[1]
     if cfg.decode_dus:
-        cache_c[:, cache_len:cache_len + 1] = c_new.to(cache_c.dtype)
-        cache_kr[:, cache_len:cache_len + 1] = kr_new.to(cache_kr.dtype)
+        if off <= cache_len < off + Sl:
+            cc[:, cache_len - off:cache_len - off + 1] = c_new.to(cc.dtype)
+            ckr[:, cache_len - off:cache_len - off + 1] = kr_new.to(ckr.dtype)
     else:
-        onehot = (torch.arange(Smax, device=x.device) == cache_len
-                  ).to(cache_c.dtype)[None, :, None]
-        cache_c = cache_c * (1 - onehot) + c_new * onehot
-        cache_kr = cache_kr * (1 - onehot) + kr_new * onehot
+        onehot = (torch.arange(off, off + Sl, device=x.device) == cache_len
+                  ).to(cc.dtype)[None, :, None]
+        cc = cc * (1 - onehot) + c_new * onehot
+        ckr = ckr * (1 - onehot) + kr_new * onehot
     # absorb w_uk into q: q' = q_nope @ w_uk^T -> (B, H, kv_lora)
     qc = torch.einsum("bhn,rhn->bhr", q_nope, p.w_uk.w.to(x.dtype))
-    s = torch.einsum("bhr,bsr->bhs", qc.float(), cache_c.float())
-    s = s + torch.einsum("bhe,bse->bhs", q_rope.float(), cache_kr.float())
+    s = torch.einsum("bhr,bsr->bhs", qc.float(), cc.float())
+    s = s + torch.einsum("bhe,bse->bhs", q_rope.float(), ckr.float())
     s = s * (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
-    valid = torch.arange(Smax, device=x.device) <= cache_len
+    valid = torch.arange(off, off + Sl, device=x.device) <= cache_len
     s = torch.where(valid, s, NEG_INF)
-    pr = torch.softmax(s, dim=-1)
-    ctx = torch.einsum("bhs,bsr->bhr", pr, cache_c.float())
+    ctx = attend(s, lambda pr: torch.einsum("bhs,bsr->bhr", pr, cc.float()),
+                 split)
     v = torch.einsum("bhr,rhv->bhv", ctx.to(x.dtype), p.w_uv.w.to(x.dtype))
     y = torch.einsum("bhv,hvo->bo", v, p.wo.w.to(x.dtype))
-    return y[:, None], cache_c, cache_kr
+    return y[:, None], wrap(cc), wrap(ckr)

@@ -8,8 +8,10 @@ bias ``b``; a norm's gain is ``scale``; the embedding table ``w`` is
 parameter paths joined with dots.  Initialisers draw from an explicit
 ``torch.Generator`` on the generator's device and store the result on
 ``device`` in ``dtype``; every parameter is trainable (serving runs
-under ``torch.inference_mode()``).  The reference's sharding constraints have no
-counterpart on one card and are dropped.
+under ``torch.inference_mode()``).  The reference's activation sharding
+constraints have no counterpart: on a mesh the port runs each rank's
+block as a plain tensor (``distributed/sharding.py``), which has no
+layout to pin.
 """
 from __future__ import annotations
 

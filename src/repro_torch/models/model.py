@@ -45,6 +45,16 @@ each scanned unit in ``jax.checkpoint``: the backward recomputes a
 layer's forward from its input.  A model trains with
 ``attn_impl="xla"``: K6 has no backward pass and raises under autograd
 (``kernels/flash_attention.py``).
+
+On a mesh (``distributed/sharding.py``; parameters placed by
+``sharding.shard_model``) the functions take the batch inputs as the
+global batch (a plain tensor, the same on every rank) or as DTensors,
+run each rank's block of it (``sharding.local_batch``), read each
+layer's weights gathered on use, and return the logits as a DTensor
+placed by the batch rule; ``loss_fn``'s loss is the global batch's,
+the same on every rank.  ``prefill`` and ``decode_step`` take the cache
+as DTensors placed by ``launch.steps.cache_shardings`` (a plain cache is
+placed so first) and return it so.
 """
 from __future__ import annotations
 
@@ -52,6 +62,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (Dense, Embed, RMSNorm, cross_entropy,
                                        embed_lookup, logits_head, rmsnorm)
@@ -127,12 +138,38 @@ def _encode(params: Model, cfg, enc_inp):
     pos = torch.arange(S, device=x.device)[None].expand(B, S)
     x = x + _sinusoid(pos, cfg.d_model, x.dtype)
     for blk in params.encoder:
-        x, _, _ = tf.sublayer_apply(blk, "attn", x, pos, cfg, causal=False)
-    return rmsnorm(x, params.enc_norm.scale, cfg.norm_eps)
+        with shd.gathered(blk):
+            x, _, _ = tf.sublayer_apply(blk, "attn", x, pos, cfg,
+                                        causal=False)
+    with shd.gathered(params.enc_norm):
+        return rmsnorm(x, params.enc_norm.scale, cfg.norm_eps)
 
 
 def forward(params: Model, cfg, tokens, *, enc_inp=None, cache=None,
             return_hidden=False):
+    """The model over ``tokens`` (see :func:`_forward`); on a mesh the
+    batch inputs are the global batch or DTensors, and the logits (or
+    hidden states) come back as a DTensor of the global batch."""
+    B = tokens.shape[0]
+    rows = cache is None  # without a cache the model axis splits rows too
+    out, aux, cache = _forward(params, cfg, shd.local_batch(tokens, rows),
+                               enc_inp=shd.local_batch(enc_inp, rows),
+                               cache=_placed(cache),
+                               return_hidden=return_hidden)
+    return shd.from_local_batch(out, B), aux, cache
+
+
+def _placed(cache):
+    """On a mesh, a plain cache placed by the cache rules."""
+    if cache is None or shd.get_mesh() is None or all(
+            shd.is_dtensor(t) for c in cache for t in c.values()):
+        return cache
+    from repro_torch.launch.steps import place_cache
+    return place_cache(cache)
+
+
+def _forward(params: Model, cfg, tokens, *, enc_inp=None, cache=None,
+             return_hidden=False):
     """Full-sequence forward.  tokens: (B, S) int; ``enc_inp`` (B, Senc,
     D): the frontend's embeddings, which a model with ``cross_attn``
     layers needs.  Returns (logits (B, S, V), aux, cache-or-None), or
@@ -143,7 +180,8 @@ def forward(params: Model, cfg, tokens, *, enc_inp=None, cache=None,
     no cache, each decoder layer runs in one ``torch.utils.checkpoint``."""
     cdt = getattr(torch, cfg.dtype)
     B, S = tokens.shape
-    x = embed_lookup(params.embed, tokens, cdt)
+    with shd.gathered(params.embed):
+        x = embed_lookup(params.embed, tokens, cdt)
     pos = torch.arange(S, device=tokens.device)[None].expand(B, S)
     if cfg.pos_emb == "sinusoid":
         x = x + _sinusoid(pos, cfg.d_model, cdt)
@@ -165,22 +203,27 @@ def forward(params: Model, cfg, tokens, *, enc_inp=None, cache=None,
             x, aux = checkpoint(_layer, layer, x, pos, cfg, enc,
                                 use_reentrant=False)
         else:
-            x, aux, c = tf.sublayer_apply(
-                layer, layer.kind, x, pos, cfg, enc=enc,
-                cache=cache[i] if cache is not None else None)
+            with shd.gathered(layer):
+                x, aux, c = tf.sublayer_apply(
+                    layer, layer.kind, x, pos, cfg, enc=enc,
+                    cache=cache[i] if cache is not None else None)
             if cache is not None:
                 new_cache.append(c)
         aux_total += aux
-    x = rmsnorm(x, params.norm.scale, cfg.norm_eps)
-    if return_hidden:
-        return x, aux_total, new_cache
-    return logits_head(params.lm_head, x), aux_total, new_cache
+    with shd.gathered(params.norm, params.lm_head):
+        x = rmsnorm(x, params.norm.scale, cfg.norm_eps)
+        if return_hidden:
+            return x, aux_total, new_cache
+        return logits_head(params.lm_head, x), aux_total, new_cache
 
 
 def _layer(layer, x, pos, cfg, enc):
     """One decoder layer without a cache: (x, aux), the unit that
-    ``remat="block"`` checkpoints."""
-    x, aux, _ = tf.sublayer_apply(layer, layer.kind, x, pos, cfg, enc=enc)
+    ``remat="block"`` checkpoints (its weights gathered again in the
+    recompute)."""
+    with shd.gathered(layer):
+        x, aux, _ = tf.sublayer_apply(layer, layer.kind, x, pos, cfg,
+                                      enc=enc)
     return x, aux
 
 
@@ -198,7 +241,8 @@ def _chunked_ce(params: Model, cfg, x, labels):
 
     def one(x_blk, l_blk):
         n = (l_blk != -1).float().sum()
-        ce = cross_entropy(logits_head(params.lm_head, x_blk), l_blk)
+        with shd.gathered(params.lm_head):
+            ce = cross_entropy(logits_head(params.lm_head, x_blk), l_blk)
         return ce * torch.clamp(n, min=1.0), n
 
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -207,6 +251,17 @@ def _chunked_ce(params: Model, cfg, x, labels):
         s, n = checkpoint(one, x[:, c * C:(c + 1) * C],
                           labels[:, c * C:(c + 1) * C], use_reentrant=False)
         tot, cnt = tot + s, cnt + n
+    return _batch_mean(tot, cnt)
+
+
+def _batch_mean(tot, cnt):
+    """tot / cnt over the global batch: on a mesh both are all-reduced
+    over every axis first (ranks that hold the same rows add the same
+    sums to both, which leaves the ratio and its gradient as they are)."""
+    mesh = shd.get_mesh()
+    if mesh is not None:
+        tot = shd.all_reduce(tot, mesh.mesh_dim_names)
+        cnt = shd.all_reduce(cnt, mesh.mesh_dim_names)
     return tot / torch.clamp(cnt, min=1.0)
 
 
@@ -214,15 +269,20 @@ def loss_fn(params: Model, cfg, batch):
     """batch: {"tokens": (B, S), "labels": (B, S)} integer tensors (plus
     "enc_inp" (B, Senc, D) for a model with cross attention).  Returns
     (loss + AUX_LOSS_COEF * aux, {"ce": loss, "aux": aux}), float32
-    scalars."""
+    scalars (on a mesh: the global batch's, on every rank)."""
+    tokens, labels = (shd.local_batch(batch[k], over_model=True)
+                      for k in ("tokens", "labels"))
+    enc_inp = shd.local_batch(batch.get("enc_inp"), over_model=True)
     if cfg.ce_chunk:
-        x, aux, _ = forward(params, cfg, batch["tokens"],
-                            enc_inp=batch.get("enc_inp"), return_hidden=True)
-        loss = _chunked_ce(params, cfg, x, batch["labels"])
+        x, aux, _ = _forward(params, cfg, tokens, enc_inp=enc_inp,
+                             return_hidden=True)
+        loss = _chunked_ce(params, cfg, x, labels)
     else:
-        logits, aux, _ = forward(params, cfg, batch["tokens"],
-                                 enc_inp=batch.get("enc_inp"))
-        loss = cross_entropy(logits, batch["labels"])
+        logits, aux, _ = _forward(params, cfg, tokens, enc_inp=enc_inp)
+        loss = cross_entropy(logits, labels)
+        if shd.get_mesh() is not None:
+            n = (labels != -1).float().sum()
+            loss = _batch_mean(loss * torch.clamp(n, min=1.0), n)
     aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
     return loss + AUX_LOSS_COEF * aux, {"ce": loss, "aux": aux}
 
@@ -249,9 +309,10 @@ def init_cache(cfg, batch, smax, device=None, *, enc_len=0):
 def prefill(params: Model, cfg, tokens, cache, *, enc_inp=None):
     """Process the prompt (and ``enc_inp``, see :func:`forward`); returns
     (last-token logits (B, V), populated cache)."""
-    logits, _, cache = forward(params, cfg, tokens, enc_inp=enc_inp,
-                               cache=cache)
-    return logits[:, -1], cache
+    logits, _, cache = _forward(params, cfg, shd.local_batch(tokens),
+                                enc_inp=shd.local_batch(enc_inp),
+                                cache=_placed(cache))
+    return shd.from_local_batch(logits[:, -1], tokens.shape[0]), cache
 
 
 @torch.inference_mode()
@@ -259,14 +320,21 @@ def decode_step(params: Model, cfg, token, cache, cache_len: int):
     """token: (B, 1) at position ``cache_len``.  Returns (logits (B, V),
     new_cache)."""
     cdt = getattr(torch, cfg.dtype)
-    x = embed_lookup(params.embed, token, cdt)
+    B = token.shape[0]
+    token, cache = shd.local_batch(token), _placed(cache)
+    with shd.gathered(params.embed):
+        x = embed_lookup(params.embed, token, cdt)
     if cfg.pos_emb == "sinusoid":
         pos = torch.full(token.shape, cache_len, dtype=torch.int32,
                          device=token.device)
         x = x + _sinusoid(pos, cfg.d_model, cdt)
     new_cache = []
     for layer, c in zip(params.layers, cache):
-        x, c, _ = tf.sublayer_decode(layer, layer.kind, x, c, cache_len, cfg)
+        with shd.gathered(layer):
+            x, c, _ = tf.sublayer_decode(layer, layer.kind, x, c, cache_len,
+                                         cfg)
         new_cache.append(c)
-    x = rmsnorm(x, params.norm.scale, cfg.norm_eps)
-    return logits_head(params.lm_head, x)[:, -1], new_cache
+    with shd.gathered(params.norm, params.lm_head):
+        x = rmsnorm(x, params.norm.scale, cfg.norm_eps)
+        logits = logits_head(params.lm_head, x)[:, -1]
+    return shd.from_local_batch(logits, B), new_cache

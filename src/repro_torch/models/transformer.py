@@ -24,12 +24,20 @@ Cache entries per kind (compute dtype unless named):
 
 Functions take the block module ``p`` where the reference takes its
 parameter subtree, and return what the reference returns.
+
+On a mesh (``distributed/sharding.py``) a cache of DTensors
+(``launch.steps.cache_shardings``) is read and written in local form:
+each rank writes the prompt positions (or ring slots) of its block of
+the sequence dim, and the recurrent blocks' state, split over the model
+axis along its width, is all-gathered for the step and cut back to the
+rank's block after it.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
@@ -146,7 +154,8 @@ def sublayer_apply(p: Block, kind, x, pos, cfg, *, enc=None, causal=True,
             # the entries are replaced, as the reference's are, whatever
             # enc_len the cache was made with
             dt = cache["enc_k"].dtype
-            cache = dict(cache, enc_k=ek.to(dt), enc_v=ev.to(dt))
+            cache = dict(cache, enc_k=shd.to_cache(ek.to(dt), cache["enc_k"]),
+                         enc_v=shd.to_cache(ev.to(dt), cache["enc_v"]))
         x = x + yx
     x, aux = _with_ffn(p, x, cfg)
     return x, aux, cache
@@ -196,8 +205,10 @@ def sublayer_decode(p: Block, kind, x, cache, cache_len, cfg):
     h = rmsnorm(x, p.norm1.scale, cfg.norm_eps)
     if kind in ("rglru", "ssd"):
         step = ssm.rglru_decode if kind == "rglru" else ssm.ssd_decode
-        y, hs, conv = step(p.mixer, h, cache["h"], cache["conv"], cfg)
-        cache = dict(cache, h=hs, conv=conv)
+        y, hs, conv = step(p.mixer, h, shd.from_cache(cache["h"]),
+                           shd.from_cache(cache["conv"]), cfg)
+        cache = dict(cache, h=shd.to_cache(hs, cache["h"]),
+                     conv=shd.to_cache(conv, cache["conv"]))
         if kind == "ssd":
             return x + y, cache, 0.0
     elif kind == "local_attn":
@@ -226,13 +237,14 @@ def _cross_decode(p: attn.GQA, x, enc_k, enc_v, cfg):
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     q = p.wq(x)  # (B, 1, H, hd)
-    KVH = enc_k.shape[2]
+    (ek, _, split, _), (ev, _, _, _) = (attn.seq_block(enc_k),
+                                        attn.seq_block(enc_v))
+    KVH = ek.shape[2]
     G = cfg.num_heads // KVH
     qg = q.reshape(B, KVH, G, hd)
-    s = torch.einsum("bkgd,bskd->bkgs", qg.float(),
-                     enc_k.float()) * hd ** -0.5
-    pr = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", pr, enc_v.float())
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(), ek.float()) * hd ** -0.5
+    out = attn.attend(s, lambda pr: torch.einsum("bkgs,bskd->bkgd", pr,
+                                                 ev.float()), split)
     out = out.reshape(B, 1, cfg.num_heads, hd).to(x.dtype)
     return torch.einsum("bshd,hdo->bso", out, p.wo.w.to(x.dtype))
 
@@ -250,24 +262,28 @@ def _local_ring_decode(p: attn.GQA, x, cache, cache_len: int, cfg):
     q = rope(p.wq(x), pos, cfg.rope_theta)
     k_new = rope(p.wk(x), pos, cfg.rope_theta)
     v_new = p.wv(x)
-    hot = torch.arange(W, device=dev) == cache_len % W
-    dt = cache["k"].dtype
+    (ck, off, split, wrap), (cv, _, _, wv), (sp, _, _, ws) = (
+        attn.seq_block(cache["k"]), attn.seq_block(cache["v"]),
+        attn.seq_block(cache["slot_pos"]))
+    Wl = ck.shape[1]  # this block's slots: off, ..., off + Wl - 1
+    hot = torch.arange(off, off + Wl, device=dev) == cache_len % W
+    dt = ck.dtype
     onehot = hot.to(dt)[None, :, None, None]
-    ck = cache["k"] * (1 - onehot) + k_new.to(dt) * onehot
-    cv = cache["v"] * (1 - onehot) + v_new.to(dt) * onehot
+    ck = ck * (1 - onehot) + k_new.to(dt) * onehot
+    cv = cv * (1 - onehot) + v_new.to(dt) * onehot
     ihot = hot.to(torch.int32)[None]
-    spos = cache["slot_pos"] * (1 - ihot) + cache_len * ihot
+    spos = sp * (1 - ihot) + cache_len * ihot
     valid = (spos <= cache_len) & (spos > cache_len - W)
     KVH = ck.shape[2]
     G = cfg.num_heads // KVH
     qg = q.reshape(B, KVH, G, hd)
     s = torch.einsum("bkgd,bskd->bkgs", qg.float(), ck.float()) * hd ** -0.5
     s = torch.where(valid[:, None, None], s, attn.NEG_INF)
-    pr = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", pr, cv.float())
+    out = attn.attend(s, lambda pr: torch.einsum("bkgs,bskd->bkgd", pr,
+                                                 cv.float()), split)
     out = out.reshape(B, 1, cfg.num_heads, hd).to(x.dtype)
     y = torch.einsum("bshd,hdo->bso", out, p.wo.w.to(x.dtype))
-    return y, dict(cache, k=ck, v=cv, slot_pos=spos)
+    return y, dict(cache, k=wrap(ck), v=wv(cv), slot_pos=ws(spos))
 
 
 # ---------------------------------------------------------------------------
@@ -286,27 +302,38 @@ def sublayer_prefill_cache(cache, k, v):
 def _ring_prefill(cache, k, v, pos, W):
     """A local-attention ring after the prompt, in place: the last
     min(W, S) positions' K/V in their slots (position % W), their
-    positions in ``slot_pos``, -10**9 (never in a window) elsewhere."""
+    positions in ``slot_pos``, -10**9 (never in a window) elsewhere.  A
+    rank of a mesh writes the slots of its block."""
     S = k.shape[1]
     take = min(W, S)
     p_last = pos[0, S - take:]
     slots = p_last % W
+    blocks = {n: attn.seq_block(cache[n]) for n in ("k", "v", "slot_pos")}
+    local, off, _, _ = blocks["k"]
+    mine = (slots >= off) & (slots < off + local.shape[1])
     for name, val in (("k", k), ("v", v)):
-        cache[name].zero_()
-        cache[name][:, slots] = val[:, S - take:].to(cache[name].dtype)
-    cache["slot_pos"].fill_(-10**9)
-    cache["slot_pos"][:, slots] = p_last.to(torch.int32)
+        buf = blocks[name][0]
+        buf.zero_()
+        buf[:, slots[mine] - off] = val[:, S - take:][:, mine].to(buf.dtype)
+    sp = blocks["slot_pos"][0]
+    sp.fill_(-10**9)
+    sp[:, slots[mine] - off] = p_last[mine].to(torch.int32)
     return cache
 
 
 def _recurrent_cache(cache, hstate, conv_tail):
     """A recurrent block's cache after the prompt: its final state and
     the last cw - 1 inputs of its conv."""
-    return dict(cache, h=hstate,
-                conv=conv_tail.to(cache["conv"].dtype))
+    return dict(cache, h=shd.to_cache(hstate, cache["h"]),
+                conv=shd.to_cache(conv_tail.to(cache["conv"].dtype),
+                                  cache["conv"]))
 
 
 def _write_prefix(buf, val):
-    """Write ``val`` into the first positions of ``buf``, in place."""
-    buf[:, :val.shape[1]] = val.to(buf.dtype)
+    """Write ``val`` into the first positions of ``buf``, in place; a
+    rank of a mesh writes the positions of its block."""
+    local, off, split, _ = attn.seq_block(buf)
+    n = (max(0, min(val.shape[1] - off, local.shape[1])) if split
+         else val.shape[1])
+    local[:, :n] = val[:, off:off + n].to(local.dtype)
     return buf

@@ -10,6 +10,12 @@ differs from it in three ways: its decay is ``p * (1 - lr * wd)``
 before the step, its clip divides by ``norm + 1e-6``, and it has no
 per-name mask.  Functional: ``apply_updates`` returns new tensors and
 never modifies its inputs.
+
+On a mesh the parameters, gradients and moments are DTensors of the
+same placements.  Every op of the update is elementwise, so it runs on
+each rank's local shards and is exact; only the global norm crosses
+ranks: each rank adds the squares of the shards it owns
+(``sharding.owns``), and the sum is all-reduced once per mesh axis.
 """
 from __future__ import annotations
 
@@ -17,6 +23,8 @@ import dataclasses
 import math
 
 import torch
+
+from repro_torch.distributed import sharding as shd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,22 +60,32 @@ def init_state(cfg: AdamWConfig, params: dict) -> dict:
     dt = getattr(torch, cfg.state_dtype)
     dev = next(iter(params.values())).device
 
-    def zeros():
-        return {k: torch.zeros(p.shape, dtype=dt, device=p.device)
+    def zeros():  # each moment in its parameter's layout (a DTensor's too)
+        return {k: torch.zeros_like(p, dtype=dt, requires_grad=False)
                 for k, p in params.items()}
     return {"step": torch.zeros((), dtype=torch.int32, device=dev),
             "m": zeros(), "v": zeros()}
 
 
 def global_norm(tensors: dict, dtype=torch.float32) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(dtype)))
-                          for x in tensors.values()))
+    """The 2-norm of all of ``tensors`` together (DTensors: over every
+    rank, see the module docstring), a plain scalar."""
+    plain = [x for x in tensors.values() if not shd.is_dtensor(x)]
+    shards = [x for x in tensors.values() if shd.is_dtensor(x)]
+    sq = sum(torch.sum(torch.square(x.to(dtype))) for x in plain)
+    if shards:
+        own = [x.to_local() for x in shards if shd.owns(x)]
+        part = torch.zeros((), dtype=dtype, device=shards[0].device)
+        for x in own:
+            part = part + torch.sum(torch.square(x.to(dtype)))
+        sq = sq + shd.mesh_sum_(part, shards[0].device_mesh)
+    return torch.sqrt(sq)
 
 
 def clip_by_global_norm(grads: dict, max_norm: float, dtype=torch.float32):
     norm = global_norm(grads, dtype)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return {k: (g.to(dtype) * scale).to(g.dtype)
+    return {k: shd.like((shd.local(g).to(dtype) * scale).to(g.dtype), g)
             for k, g in grads.items()}, norm
 
 
@@ -78,12 +96,13 @@ def _decay_mask(name: str) -> bool:
     return not any(t in name for t in _NO_DECAY)
 
 
+@torch.no_grad()
 def apply_updates(cfg: AdamWConfig, params: dict, opt_state: dict,
                   grads: dict):
     """One AdamW step. Returns (params, opt_state, metrics)."""
     cdt = getattr(torch, cfg.compute_dtype)
     grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, cdt)
-    step = opt_state["step"] + 1
+    step = shd.local(opt_state["step"]) + 1  # replicated: a plain scalar
     lr = schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
     step32 = step.to(torch.float32)
@@ -93,14 +112,17 @@ def apply_updates(cfg: AdamWConfig, params: dict, opt_state: dict,
                                      device=step.device), step32)
     sdt = getattr(torch, cfg.state_dtype)
     new_p, new_m, new_v = {}, {}, {}
-    for name, p in params.items():
-        g32 = grads[name].to(cdt)
-        m32 = b1 * opt_state["m"][name].to(cdt) + (1 - b1) * g32
-        v32 = b2 * opt_state["v"][name].to(cdt) + (1 - b2) * g32 * g32
+    for name, pd in params.items():
+        m, v = opt_state["m"][name], opt_state["v"][name]
+        p = shd.local(pd)
+        g32 = shd.local(grads[name]).to(cdt)
+        m32 = b1 * shd.local(m).to(cdt) + (1 - b1) * g32
+        v32 = b2 * shd.local(v).to(cdt) + (1 - b2) * g32 * g32
         u = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
         if _decay_mask(name):
             u = u + cfg.weight_decay * p.to(cdt)
-        new_p[name] = (p.to(cdt) - lr * u).to(p.dtype)
-        new_m[name], new_v[name] = m32.to(sdt), v32.to(sdt)
+        new_p[name] = shd.like((p.to(cdt) - lr * u).to(p.dtype), pd)
+        new_m[name] = shd.like(m32.to(sdt), m)
+        new_v[name] = shd.like(v32.to(sdt), v)
     return new_p, {"step": step, "m": new_m, "v": new_v}, \
         {"grad_norm": gnorm, "lr": lr}
