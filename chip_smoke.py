@@ -80,9 +80,11 @@ drives the port's main path on one card:
            p50, p99; every pool result bit for bit the in-process
            service's on the same flush); 32 MiB through a worker-like
            pipe with default and widened socket buffers
-  learned  the dispatch model (``models/dispatch_model.py``): autotune
-           sweeps on the card over the CLI traffic's keys and the
-           stand-ins, the model trained on the card and on the CPU
+  learned  the dispatch model (``models/dispatch_model.py``): three
+           autotune sweeps on the card over the CLI traffic's keys and
+           the stand-ins, each on a cache of its own, every sample's
+           timing the median of the three (sigma logged), the model
+           trained on the card and on the CPU
            (within the CPU test's tolerances, the same picks; the
            weights held where the samples determine them), then
            beside a fresh cache ``plan`` takes ``source="model"`` where
@@ -219,6 +221,20 @@ drives the port's main path on one card:
            W1^T: no transposed copy), with its time, bound, the plain
            version's, torch.bmm's and torch.bmm's dW; the float32 K7
            run's peak memory
+  dryrun   the dry run (``launch/dryrun.py``): its CLI on four cells at
+           the 16 x 16 production mesh (a fake process group of 256
+           ranks, meta tensors; TinyLlama-1.1B's train_4k, DeepSeek-V2's
+           decode_32k through K7's shape-only path and _shardmap_moe's
+           all_to_alls, two more decodes), each exiting 0 with a complete
+           record; the dry run on a (1, 1) mesh of TinyLlama-1.1B's train
+           step (8 x 2,048, remat "block"), prefill (4 x 512, K6) and one
+           decode step held against the same steps on the card: FLOPs
+           equal (FlopCounterMode plus K6's and K7's card FLOPs),
+           argument bytes equal to what the arguments allocate, the
+           predicted peak within 0.8-1.25x of max_memory_allocated; and
+           ``serving.sampler.zipper_topk`` on 16 shards of TinyLlama's
+           vocab, k = 40: torch.topk's ids, bit for bit its CPU run, each
+           merge a K5 launch (``stream_merge.zipper_topk``)
   kernels  every ported kernel and its launches on its path's run, on
            the service path's (``service_launches``) and in the pool's
            workers (``pool_launches``)
@@ -1563,6 +1579,11 @@ POOL_PIPE_BYTES = 32 << 20   # the pipe probe's message (int32s)
 # SuiteSparse-scale matrices no sweep saw (hub-full shares cage11-full's
 # cache key)
 LEARNED_NEW = ("cage11-full", "email-Enron-full")
+# independent autotune sweeps whose timings train the model: each
+# (key, combo) sample is the median of this many timings, each from one
+# call (``dispatch._measure``'s repeat of 1, which ``plan`` keeps), so one
+# noisy call does not set a sample
+LEARNED_SWEEPS = 3
 # the CPU test's tolerances (tests/test_torch_learned_dispatch.py): a
 # model trained on the same samples, card against CPU
 W_ATOL, BIAS_ATOL, SIGMA_ATOL, CONF_ATOL = 2e-2, 1e-3, 1e-3, 1e-2
@@ -1930,13 +1951,36 @@ def _weight_split(np, dm, card, cpu, samples):
     return seen, flat, sv
 
 
+def _median_samples(sweeps):
+    """The training samples of several sweeps over the same operands:
+    each key's features and, for every combo timed in every sweep, the
+    median of its timings.  Also the spread of the timings: the median
+    and largest log(max / min) over the (key, combo) pairs."""
+    by_key = [{s["key"]: s for s in sw} for sw in sweeps]
+    samples, logs = [], []
+    for key in sorted(set.intersection(*(set(b) for b in by_key))):
+        runs = [b[key]["timings"] for b in by_key]
+        timings = {}
+        for c in sorted(set.intersection(*(set(r) for r in runs))):
+            ts = [r[c] for r in runs]
+            timings[c] = statistics.median(ts)
+            logs.append(math.log(max(ts) / min(ts)))
+        if timings:
+            samples.append({"key": key, "features": by_key[0][key]["features"],
+                            "timings": timings})
+    return samples, {"median": statistics.median(logs) if logs else 0.0,
+                     "max": max(logs, default=0.0)}
+
+
 def phase_learned(torch, np, mats):
     """The learned dispatch rung on the card:
 
-    1. autotune sweeps (``autotune=True``: every combo measurable on the
-       card) over the CLI's traffic (200 requests, seed 0) and the 13
-       stand-ins, one operand per cache key, on a temporary cache: each
-       entry a timing vector of card combos;
+    1. LEARNED_SWEEPS independent autotune sweeps (``autotune=True``:
+       every combo measurable on the card) over the CLI's traffic (200
+       requests, seed 0) and the 13 stand-ins, one operand per cache key,
+       each on a temporary cache of its own: each entry a timing vector
+       of card combos; the samples are each key's median timing of each
+       combo over the sweeps (:func:`_median_samples`);
     2. the dispatch model trained on the card from those samples, and on
        the CPU from the same samples: every predicted log-runtime,
        bias, sigma and confidence within the CPU test's tolerances, the
@@ -1979,27 +2023,35 @@ def phase_learned(torch, np, mats):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_learned_")
     saved = dp._default_cache
     try:
-        # 1. sweeps
-        cache = dp.AutotuneCache(os.path.join(tmp, "sweep.json"))
+        # 1. sweeps, each on a cache of its own
         swept = per_key(traffic(0) + [mats[n] for n in table3.names()])
         t0 = time.perf_counter()
-        for A in swept:
-            p = dp.plan(A, A, autotune=True, cache=cache, model=False)
-            combos = set(cache.get(p.cache_key).get("timings", {}))
-            if p.source != "autotune" or not combos or any(
-                    c.endswith("|torch") for c in combos):
-                raise AssertionError(f"learned sweep: {p.source} {combos}")
+        sweeps = []
+        for i in range(LEARNED_SWEEPS):
+            cache = dp.AutotuneCache(os.path.join(tmp, f"sweep{i}.json"))
+            for A in swept:
+                p = dp.plan(A, A, autotune=True, cache=cache, model=False)
+                combos = set(cache.get(p.cache_key).get("timings", {}))
+                if p.source != "autotune" or not combos or any(
+                        c.endswith("|torch") for c in combos):
+                    raise AssertionError(f"learned sweep: {p.source} "
+                                         f"{combos}")
+            sweeps.append(dm.samples_from_entries(cache.entries()))
         out["sweep_s"] = time.perf_counter() - t0
-        samples = dm.samples_from_entries(cache.entries())
+        samples, spread = _median_samples(sweeps)
         combos = sorted({c for s in samples for c in s["timings"]})
         winners = {}
         for s in samples:
             w = min(s["timings"], key=s["timings"].get)
             winners[w] = winners.get(w, 0) + 1
-        log(f"learned: {len(samples)} autotune sweeps ({len(swept)} "
-            f"operands: the CLI traffic's keys and the stand-ins) in "
-            f"{out['sweep_s']:.1f} s | combos {combos} | winners "
-            f"{winners}")
+        out["timing_spread"] = spread
+        log(f"learned: {LEARNED_SWEEPS} autotune sweeps of {len(swept)} "
+            f"operands (the CLI traffic's keys and the stand-ins) in "
+            f"{out['sweep_s']:.1f} s; {len(samples)} samples, each timing "
+            f"the median of {LEARNED_SWEEPS} | median |log(max / min)| "
+            f"of a (key, combo)'s timings over the sweeps "
+            f"{spread['median']:.4f}, largest {spread['max']:.4f} | combos "
+            f"{combos} | winners {winners}")
 
         # 2. train on the card and on the CPU
         t0 = time.perf_counter()
@@ -2043,6 +2095,8 @@ def phase_learned(torch, np, mats):
                    singular_values=sv, dpred=dp_, db=db, dsigma=ds,
                    dconf=dc, sigma=card.sigma, candidates=card.candidates,
                    ties_seen=n_ties_seen)
+        log(f"learned: sigma {card.sigma:.4f} (model trained on the "
+            f"median timings of {LEARNED_SWEEPS} sweeps)")
         log(f"learned: trained on the card in {out['train_card_s']:.2f} s "
             f"(CPU {out['train_cpu_s']:.2f} s), sigma {card.sigma:.4f}, "
             f"loss {card.train_loss:.5f} | card vs CPU: |dlog-cost| "
@@ -4319,6 +4373,298 @@ def phase_mesh(torch, np):
     return out
 
 
+# the dry run's CLI cells at the production 16 x 16 mesh, traced at once
+# (each its own process): the smallest full train cell, and DeepSeek-V2's
+# decode, which reaches K7's shape-only path and _shardmap_moe's
+# all_to_alls over a 16-rank model axis
+DRYRUN_CELLS = (("tinyllama_1_1b", "train_4k"),
+                ("deepseek_v2_236b", "decode_32k"),
+                ("qwen1_5_0_5b", "decode_32k"),
+                ("mamba2_780m", "decode_32k"))
+DRYRUN_CLI_TIMEOUT_S = 80
+# the calibration: the dry run on a (1, 1) mesh (a fake group of one)
+# against the same steps on the card, TinyLlama-1.1B at phase train's
+# shape and phase serve's prefill (K6) and one decode step
+DRYRUN_CALIB = (("train", TRAIN_BATCH, TRAIN_SEQ, {}),
+                ("prefill", 4, 512, {"attn_impl": "pallas"}),
+                ("decode", 4, 1024, {"attn_impl": "pallas"}))
+DRYRUN_PEAK_RANGE = (0.8, 1.25)   # predicted peak / max_memory_allocated
+TOPK_SHARDS, TOPK_K = 16, 40
+_RECORD_KEYS = {
+    "memory": ("argument_bytes_per_device", "output_bytes_per_device",
+               "temp_bytes_per_device", "peak_bytes_per_device"),
+    "cost": ("flops_per_device", "bytes_per_device"),
+    "collectives": ("total_bytes", "bytes", "bytes_by_axis", "counts"),
+    "roofline": ("compute_s", "memory_s", "collective_s", "dominant",
+                 "step_time_lb_s", "roofline_fraction")}
+
+
+def _record_complete(rec) -> bool:
+    return "error" not in rec and all(
+        k in rec for k in ("arch", "shape", "mesh", "n_chips", "trace_s",
+                           "params", "active_params", "fits")) and all(
+        rec.get(sec, {}).get(k) is not None
+        for sec, keys in _RECORD_KEYS.items() for k in keys)
+
+
+def _dryrun_cli(tmp):
+    """Start ``python -m repro_torch.launch.dryrun`` on each of
+    DRYRUN_CELLS (16 x 16), each with its own output file; returns the
+    processes and their files."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        out = os.path.join(tmp, f"{arch}_{shape}.json")
+        procs.append((arch, shape, out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", out], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    return procs
+
+
+def _dryrun_cli_check(procs):
+    """Wait for the CLI cells: each exits 0 with a complete record;
+    DeepSeek-V2's decode traces K7 and _shardmap_moe's all_to_alls."""
+    recs = {}
+    for arch, shape, out, proc in procs:
+        try:
+            text, _ = proc.communicate(timeout=DRYRUN_CLI_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise AssertionError(f"dryrun CLI {arch} x {shape}: past "
+                                 f"{DRYRUN_CLI_TIMEOUT_S} s")
+        with open(out) as f:
+            rec = json.load(f)[f"{arch}|{shape}|16x16"]
+        if proc.returncode != 0 or not _record_complete(rec):
+            raise AssertionError(f"dryrun CLI {arch} x {shape}: exit "
+                                 f"{proc.returncode}, record {rec}\n{text}")
+        recs[f"{arch}|{shape}"] = rec
+        log(f"dryrun: CLI {arch} x {shape} @ 16x16: exit 0, trace "
+            f"{rec['trace_s']} s, peak "
+            f"{rec['memory']['peak_bytes_per_device'] / 2**30:.2f} GiB/card "
+            f"(fits {rec['fits']}), args "
+            f"{rec['memory']['argument_bytes_per_device'] / 2**30:.2f} GiB, "
+            f"flops {rec['cost']['flops_per_device']:.4e}, kernel calls "
+            f"{rec['cost']['kernel_calls']}, collectives "
+            f"{rec['collectives']['counts']} "
+            f"({rec['collectives']['total_bytes']:,} bytes), dominant "
+            f"{rec['roofline']['dominant']}")
+    ds = recs["deepseek_v2_236b|decode_32k"]
+    if not (ds["cost"]["kernel_calls"]["grouped_matmul"]
+            and ds["collectives"]["counts"].get("all_to_all")):
+        raise AssertionError(f"dryrun: DeepSeek-V2's decode traced no K7 or "
+                             f"no all_to_all: {ds['cost']} "
+                             f"{ds['collectives']}")
+    return recs
+
+
+def _calib_real(torch, kind, B, S, over, mesh):
+    """One TinyLlama step of ``kind`` on the card, on the (1, 1) mesh,
+    from the inputs the dry run builds (``dryrun.step_inputs``, here
+    with weights and tokens from SEED): the bytes its arguments
+    allocate, its peak over that (``max_memory_allocated``), and its
+    FLOPs (``FlopCounterMode`` around a second run, its module tracker
+    off as in the dry run, ``dryrun.flop_counter``, plus the card FLOPs
+    of its K6 and K7 launches, which ctypes makes invisible to it)."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import base as cb
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import flash_attention as k6
+    from repro_torch.kernels import grouped_matmul as k7
+    from repro_torch.launch import dryrun
+
+    cfg = dataclasses.replace(cb.get_config("tinyllama-1.1b"), **over)
+    shape = cb.ShapeConfig(f"calib_{kind}", S, B, kind)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    kflops = [0]
+    real6, real7 = k6.launch, k7.launch
+
+    def launch6(q, k, v, o, *, causal, window, scale):
+        kflops[0] += k6.card_flops(
+            q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3],
+            causal=causal, window=window,
+            route="wgmma" if q.dtype == torch.bfloat16 else "fma")
+        real6(q, k, v, o, causal=causal, window=window, scale=scale)
+
+    def launch7(x, w, sizes, out, *, cap=None, k_major=False):
+        kflops[0] += k7.card_flops(x.shape[0], x.shape[1], out.shape[1],
+                                   w.shape[0], cap)
+        real7(x, w, sizes, out, cap=cap, k_major=k_major)
+
+    # the arguments go to fresh segments, as in a fresh process: a block
+    # cached by an earlier phase can hold a tensor with a remainder the
+    # allocator does not split off (up to 1 MiB), counted as allocated
+    pool = torch.cuda.MemPool()
+    with shd.use_mesh(mesh):
+        with torch.cuda.use_mem_pool(pool):
+            step, args, _ = dryrun.step_inputs(
+                cfg, shape, torch.Generator(device="cuda").manual_seed(SEED))
+        torch.cuda.synchronize()
+        arg_bytes = torch.cuda.memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        out = step(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del out
+        k6.launch, k7.launch = launch6, launch7
+        try:
+            with dryrun.flop_counter() as fc:
+                step(*args)
+            torch.cuda.synchronize()
+        finally:
+            k6.launch, k7.launch = real6, real7
+    del args
+    gc.collect()
+    del pool
+    torch.cuda.empty_cache()
+    return dict(argument_bytes=arg_bytes, peak_bytes=peak,
+                flops=fc.get_total_flops() + kflops[0],
+                kernel_flops=kflops[0])
+
+
+def _zipper_topk_check(torch, np):
+    """``serving.sampler.zipper_topk`` on the card: TinyLlama's vocab of
+    float32 logits (standard normal from SEED) in TOPK_SHARDS shards,
+    top TOPK_K: the ids ``torch.topk``'s over the whole row, each value
+    its logit, bit for bit the same call on the CPU; every merge a K5
+    launch (counted).  Returns K5's row for the kernels line (one merge
+    step's launch at this path's shape, S = 1, R = 64) and the
+    launches."""
+    from repro_torch.kernels import backend as kb
+    from repro_torch.kernels import stream_merge as k5
+    from repro_torch.serving.sampler import _chunk, zipper_topk
+
+    V = 32000
+    row = np.random.default_rng(SEED).standard_normal(V).astype(np.float32)
+    shards = np.split(row, TOPK_SHARDS)
+    card = [torch.from_numpy(s).cuda() for s in shards]
+    zipper_topk(card, TOPK_K)  # warm
+    torch.cuda.synchronize()
+    kb.reset_launch_counts()
+    t0 = time.perf_counter()
+    vals, ids = zipper_topk(card, TOPK_K)
+    torch.cuda.synchronize()
+    z_ms = (time.perf_counter() - t0) * 1e3
+    launches = kb.launch_counts()
+    k5_n = launches["stream_merge"]
+    if not k5_n or k5_n != launches["stream_merge.chunk"] or any(
+            n for k, n in launches.items()
+            if n and not k.startswith("stream_merge")):
+        raise AssertionError(f"zipper_topk launched {launches}")
+    cpu_vals, cpu_ids = zipper_topk(shards, TOPK_K, device="cpu")
+    full = torch.from_numpy(row).cuda()
+    want_v, want_i = torch.topk(full, TOPK_K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.topk(full, TOPK_K)
+    torch.cuda.synchronize()
+    topk_ms = (time.perf_counter() - t0) * 1e3
+    ids_c, vals_c = ids.cpu(), vals.cpu()
+    if set(ids_c.tolist()) != set(want_i.cpu().tolist()) or not torch.equal(
+            vals_c, torch.from_numpy(row)[ids_c]) or not torch.equal(
+            ids_c, cpu_ids) or not torch.equal(vals_c, cpu_vals):
+        raise AssertionError(f"zipper_topk: ids {ids_c.tolist()} vs "
+                             f"torch.topk {want_i.tolist()}, CPU "
+                             f"{cpu_ids.tolist()}")
+    # one merge step at this path's shape: the first two shards' streams
+    R = 1 << (TOPK_K - 1).bit_length()
+    qa, qb = (torch.sort(torch.randperm(4 * R, device="cuda")[:TOPK_K]
+                         .to(torch.int32))[0] * 2 + i for i in (0, 1))
+    ga = torch.arange(TOPK_K, dtype=torch.float32, device="cuda")
+    args = (*_chunk(qa, ga, 0, R), *_chunk(qb, ga + TOPK_K, 0, R))
+    got = k5.stream_merge(*args)
+    want = k5.stream_merge_plain(*args)
+    err = max_abs_err(torch, got, want)
+    b, by = bound_ms(nbytes(*args, *got), int(got[4].sum() + got[5].sum()))
+    outs = [torch.empty_like(t) for t in got]
+    row_ = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: k5.launch(*args, *outs), reps=50, warmup=5),
+        wrapper_ms=time_ms(torch, lambda: k5.stream_merge(*args), reps=50,
+                           warmup=5),
+        plain_ms=time_ms(torch, lambda: k5.stream_merge_plain(*args),
+                         reps=10, warmup=1),
+        bound_ms=b, bound_by=by, library_ms=None, shape=f"S=1 R={R}")
+    log(f"dryrun: zipper_topk: {TOPK_SHARDS} shards of {V // TOPK_SHARDS} "
+        f"float32 logits, k {TOPK_K} (R {R}): the ids of torch.topk over the "
+        f"row, each value its logit, bit for bit the CPU run; {k5_n} K5 "
+        f"launches (chunk form), nothing else; {z_ms:.3f} ms a call (host "
+        f"clock, {k5_n} host reads), torch.topk over the row {topk_ms:.3f} "
+        f"ms | K5 at S = 1, R = {R}: kernel_ms {row_['ms']:.4f} wrapper_ms "
+        f"{row_['wrapper_ms']:.4f} plain_ms {row_['plain_ms']:.4f} bound_ms "
+        f"{b:.6f} ({by}), bit for bit its plain version")
+    return row_, k5_n, dict(zipper_topk_ms=z_ms, topk_ms=topk_ms)
+
+
+def phase_dryrun(torch, np):
+    """The dry run (``launch/dryrun.py``): (a) its CLI on DRYRUN_CELLS at
+    16 x 16, each exiting 0 with a complete record; (b) the dry run on a
+    (1, 1) mesh of TinyLlama-1.1B's train step (8 x 2,048, remat
+    "block"), prefill (4 x 512, K6) and one decode step, against the
+    same steps on the card: FLOPs equal, argument bytes equal to what
+    the arguments allocate, the predicted peak within DRYRUN_PEAK_RANGE
+    of ``max_memory_allocated`` over the step; (c) ``zipper_topk`` on
+    the card (K5).  Returns the records, the gates' numbers, K5's row and
+    its launches."""
+    import concurrent.futures
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import base as cb
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+
+    out = {"calib": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = _dryrun_cli(tmp)
+        base = cb.get_config("tinyllama-1.1b")
+        with concurrent.futures.ThreadPoolExecutor(len(DRYRUN_CALIB)) as ex:
+            preds = {kind: ex.submit(
+                dryrun.lower_cell, "tinyllama_1_1b",
+                cb.ShapeConfig(f"calib_{kind}", S, B, kind),
+                cfg_override=dataclasses.replace(base, **over),
+                mesh_shape=(1, 1), verbose=False)
+                for kind, B, S, over in DRYRUN_CALIB}
+            mesh = make_host_mesh()
+            real = {kind: _calib_real(torch, kind, B, S, over, mesh)
+                    for kind, B, S, over in DRYRUN_CALIB}
+            preds = {k: f.result() for k, f in preds.items()}
+        out["cli"] = _dryrun_cli_check(procs)
+        out["cli_s"] = time.perf_counter() - t0
+    for kind, B, S, _ in DRYRUN_CALIB:
+        p, r = preds[kind], real[kind]
+        pred = dict(flops=p["cost"]["flops_per_device"],
+                    argument_bytes=p["memory"]["argument_bytes_per_device"],
+                    peak_bytes=p["memory"]["peak_bytes_per_device"])
+        ratio = pred["peak_bytes"] / r["peak_bytes"]
+        out["calib"][kind] = dict(pred=pred, real=r, peak_ratio=ratio,
+                                  trace_s=p["trace_s"])
+        log(f"dryrun: calibration {kind} {B} x {S} (TinyLlama-1.1B, (1, 1) "
+            f"mesh): flops predicted {pred['flops']:,} card "
+            f"{r['flops']:,} (K6/K7 {r['kernel_flops']:,}) | argument bytes "
+            f"predicted {pred['argument_bytes']:,} card "
+            f"{r['argument_bytes']:,} | peak predicted "
+            f"{pred['peak_bytes']:,} card {r['peak_bytes']:,} "
+            f"(max_memory_allocated over the step), ratio {ratio:.4f} | "
+            f"trace {p['trace_s']} s")
+        if pred["flops"] != r["flops"] or \
+                pred["argument_bytes"] != r["argument_bytes"] or \
+                not DRYRUN_PEAK_RANGE[0] <= ratio <= DRYRUN_PEAK_RANGE[1]:
+            raise AssertionError(f"dryrun calibration {kind}: predicted "
+                                 f"{pred}, card {r}")
+    row, n, times = _zipper_topk_check(torch, np)
+    out.update(rows={"stream_merge.zipper_topk": row}, zipper_launches=n,
+               **times)
+    return out
+
+
 def phase_inputs(np):
     """The 16 matrices of the main paths plus dense-row-full, and the
     scl-array oracle of each (host numpy)."""
@@ -4367,7 +4713,8 @@ def main() -> int:
               ("families", lambda: phase_families(torch, np)),
               ("encdec", lambda: phase_encdec(torch, np)),
               ("train", lambda: phase_train(torch, np)),
-              ("mesh", lambda: phase_mesh(torch, np)))
+              ("mesh", lambda: phase_mesh(torch, np)),
+              ("dryrun", lambda: phase_dryrun(torch, np)))
     # the serving phases run as the engine does, with autograd off
     serving = ("serve", "profile", "moe", "families", "encdec")
     for label, fn in phases:
@@ -4393,7 +4740,7 @@ def main() -> int:
     kernel_rows, floor = res["kernel"]
     rows = {**kernel_rows, **res["attention"], **res["moe"]["rows"],
             **res["families"]["rows"], **res["encdec"]["rows"],
-            **res["train"]["rows"]}
+            **res["train"]["rows"], **res["dryrun"]["rows"]}
     # each kernel's launches on its own path's run
     counts = {k: v for k, v in res["spgemm"][0].items()
               if not k.startswith(("stream_", "flash_attention",
@@ -4415,6 +4762,7 @@ def main() -> int:
         encdec["vision"]["counts"]["flash_attention"]
     counts["grouped_matmul.backward"] = \
         res["train"]["deepseek"]["counts"]["grouped_matmul.backward"]
+    counts["stream_merge.zipper_topk"] = res["dryrun"]["zipper_launches"]
     log("kernels: " + ", ".join(f"{k}={v}" for k, v in counts.items()))
     mesh = res["mesh"]["deepseek"]["counts"]  # K7 under _shardmap_moe
     log("kernels: mesh path (DeepSeek-V2 on the (1, 1) mesh) " + ", ".join(

@@ -29,7 +29,8 @@ What the fields mean in the port, where it differs from the reference:
   no layout to pin.  ``remat`` acts only in training: ``"block"``
   checkpoints each decoder layer (``models.model.forward``).
 - ``scan_unroll`` does nothing: the port runs its layers in a Python
-  loop, not a scan.
+  loop, not a scan, so its dry run (``launch/dryrun.py``) counts every
+  layer as it runs and needs no unrolled variant.
 - ``moe_dispatch`` picks the MoE block's path on a mesh: "zipper" (the
   default) the sort + all_to_all dispatch (``models.moe._shardmap_moe``),
   "einsum" the capacity-padded einsum dispatch over the global batch;
@@ -188,12 +189,45 @@ class ModelConfig:
                 n += D * self.d_ff * 3
         return int(n)
 
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only routed experts count)."""
+        if not self.moe:
+            return self.param_count()
+        full = self.param_count()
+        D, f = self.d_model, self.moe_d_ff
+        kinds = [k for pat, rep in self.groups for k in pat * rep]
+        n_moe_layers = sum(1 for k in kinds if k != "ssd") - self.first_k_dense
+        inactive = n_moe_layers * D * f * 3 * (self.num_experts - self.top_k)
+        return int(full - inactive)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 # the reference's ten architectures, all of which the port builds
 ARCH_IDS = ["tinyllama_1_1b", "phi4_mini_3_8b", "qwen1_5_0_5b",
-            "granite_3_2b", "recurrentgemma_9b", "arctic_480b",
-            "deepseek_v2_236b", "mamba2_780m", "whisper_small",
-            "llama_3_2_vision_11b"]
+            "granite_3_2b", "llama_3_2_vision_11b", "recurrentgemma_9b",
+            "arctic_480b", "deepseek_v2_236b", "mamba2_780m",
+            "whisper_small"]
+
+# archs whose every layer is full quadratic attention: long_500k skipped
+FULL_ATTENTION_ARCHS = {
+    "tinyllama_1_1b", "phi4_mini_3_8b", "qwen1_5_0_5b", "granite_3_2b",
+    "llama_3_2_vision_11b", "arctic_480b", "deepseek_v2_236b",
+    "whisper_small",
+}
 
 
 def norm_id(name: str) -> str:
@@ -213,3 +247,18 @@ def get_config(name: str) -> ModelConfig:
 
 def get_smoke_config(name: str) -> ModelConfig:
     return _module(name).smoke()
+
+
+def list_configs():
+    return list(ARCH_IDS)
+
+
+def cells():
+    """All assigned (arch, shape) cells, with documented skips applied."""
+    out = []
+    for a in ARCH_IDS:
+        for s in SHAPES:
+            if s == "long_500k" and a in FULL_ATTENTION_ARCHS:
+                continue  # O(S^2) attention at 524288 — documented skip
+            out.append((a, s))
+    return out

@@ -702,3 +702,21 @@ def spgemm_spz(A: CSR, B: CSR, *, R: int = 16, S: int | None = None,
         torch.cuda.synchronize(device)
     stats.t_output = time.perf_counter() - t3
     return out, stats
+
+
+def spgemm(A: CSR, B: CSR, method: str = "spz", **kw):
+    """Deprecated front-end: use ``repro_torch.core.spgemm(A, B,
+    engine=...)`` (the dispatch entry re-exported by
+    ``repro_torch.core``).
+
+    ``method`` names map 1:1 onto registered dispatch engines, so this
+    alias warns with ``DeprecationWarning`` and delegates to
+    ``core.dispatch.spgemm(A, B, engine=method, **kw)``."""
+    import warnings
+
+    from repro_torch.core import dispatch
+    warnings.warn(
+        "repro_torch.core.spgemm.spgemm(method=...) is deprecated; call "
+        "repro_torch.core.spgemm (core.dispatch.spgemm) with engine=... "
+        "instead", DeprecationWarning, stacklevel=2)
+    return dispatch.spgemm(A, B, engine=method, **kw)

@@ -52,7 +52,10 @@ program.
   over ranks in their backward, so each parameter's gradient is the
   single-device one.
 
-Collectives are counted by kind (:func:`collective_counts`).
+Collectives are counted by kind (:func:`collective_counts`), with the
+bytes each leaves on the rank by kind and by mesh axis
+(:func:`collective_bytes`), which the dry run reads in place of the
+reference's parse of the compiled HLO.
 """
 from __future__ import annotations
 
@@ -65,6 +68,8 @@ import torch.distributed as dist
 
 _MESH = None
 _COUNTS: dict = {}
+_BYTES: dict = {}       # kind -> bytes on this rank
+_AXIS_BYTES: dict = {}  # mesh axis (or "a,b" for several) -> bytes
 _SPLIT = ()  # the mesh axes the last batch taken by local_batch split over
 
 
@@ -188,8 +193,10 @@ def constrain(x, *spec):
     want = placements(_clean(x.shape, spec))
     if tuple(x.placements) == want:
         return x
-    _count("redistribute")
-    return x.redistribute(_MESH, want)
+    out = x.redistribute(_MESH, want)
+    _count("redistribute", _nbytes(out.to_local()), ",".join(
+        _MESH.mesh_dim_names), world_size())
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -270,12 +277,34 @@ def collective_counts() -> dict:
     return dict(_COUNTS)
 
 
+def collective_bytes() -> dict:
+    """{"bytes": {kind: bytes}, "by_axis": {axis: bytes}} since the last
+    :func:`reset_collective_counts`: the bytes of each collective's
+    result on this rank (an all_gather's whole output, an all_reduce's
+    or all_to_all's tensor, rank 0's gathered blocks), counted where
+    the group holds more than one rank (one rank exchanges nothing);
+    ``by_axis`` keys a group of several mesh axes by their names joined
+    with commas."""
+    return {"bytes": dict(_BYTES), "by_axis": dict(_AXIS_BYTES)}
+
+
 def reset_collective_counts() -> None:
     _COUNTS.clear()
+    _BYTES.clear()
+    _AXIS_BYTES.clear()
 
 
-def _count(kind):
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def _count(kind, nbytes=0, axis=None, ranks=1):
+    """One ``kind`` call; ``nbytes`` of result on the rank over ``axis``
+    when the group holds more than one rank."""
     _COUNTS[kind] = _COUNTS.get(kind, 0) + 1
+    if ranks > 1:
+        _BYTES[kind] = _BYTES.get(kind, 0) + nbytes
+        _AXIS_BYTES[axis] = _AXIS_BYTES.get(axis, 0) + nbytes
 
 
 def _group(axis):
@@ -310,13 +339,16 @@ def distribute(t: torch.Tensor, plc, mesh=None, device=None):
     drawn from one seed or read from one file) with placements ``plc``:
     each rank keeps its block, nothing is sent.  The block is cut where
     ``t`` lies and then moved to ``device`` (default: ``t``'s), so a
-    tensor on the host never lies whole on the card."""
+    tensor on the host never lies whole on the card; a block that is a
+    view into ``t`` is copied out, so that it does not keep ``t`` alive."""
     from torch.distributed.tensor import DTensor
 
     mesh = mesh if mesh is not None else _MESH
     local = _local_slice(t, plc, mesh).contiguous()
     if device is not None:
         local = local.to(device)
+    if local.untyped_storage().nbytes() > local.numel() * local.element_size():
+        local = local.clone()  # a block of ``t`` must not hold all of it
     return DTensor.from_local(local, mesh, plc, run_check=False)
 
 
@@ -347,7 +379,8 @@ def gather_to_root(t):
     rank = dist.get_rank()
     parts = ([torch.empty_like(block) for _ in range(dist.get_world_size())]
              if rank == 0 else None)
-    _count("gather")
+    n = dist.get_world_size()
+    _count("gather", _nbytes(block) * n, ",".join(mesh.mesh_dim_names), n)
     dist.gather(block, parts, dst=0)
     if rank != 0:
         return None
@@ -366,16 +399,17 @@ def gather_to_root(t):
 
 
 def _all_gather_dim(t, axis, dim):
-    _count("all_gather")
     g = _group(axis)
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(g))]
+    n = dist.get_world_size(g)
+    _count("all_gather", _nbytes(t) * n, axis, n)
+    parts = [torch.empty_like(t) for _ in range(n)]
     dist.all_gather(parts, t.contiguous(), group=g)
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
 
 
 def _all_reduce_(t, axes, op=dist.ReduceOp.SUM):
     for a in axes:
-        _count("all_reduce")
+        _count("all_reduce", _nbytes(t), a, _axis_size(a))
         dist.all_reduce(t, op=op, group=_group(a))
     return t
 
@@ -462,7 +496,7 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis):
         ctx.axis = axis
-        _count("all_to_all")
+        _count("all_to_all", _nbytes(x), axis, _axis_size(axis))
         out = torch.empty_like(x)
         dist.all_to_all_single(out, x.contiguous(), group=_group(axis))
         return out
@@ -591,6 +625,21 @@ def from_local_batch(t, global_batch: int):
                               shape=torch.Size(shape), stride=stride)
 
 
+def full_tensor(t):
+    """The whole of the DTensor ``t`` on every rank (``full_tensor``,
+    DTensor's all_gather over the axes that shard it, counted as one
+    all_gather of its global size); anything else as it is."""
+    if not is_dtensor(t):
+        return t
+    axes = [n for n, p in zip(t.device_mesh.mesh_dim_names, t.placements)
+            if p.is_shard()]
+    ranks = 1
+    for a in axes:
+        ranks *= _axis_size(a)
+    _count("all_gather", _nbytes(t), ",".join(axes), ranks)
+    return t.full_tensor()
+
+
 def is_dtensor(t) -> bool:
     from torch.distributed.tensor import DTensor
 
@@ -635,7 +684,8 @@ def mesh_sum_(t, mesh):
     """``t`` summed in place over every rank of ``mesh`` (one all_reduce
     per mesh axis); returns ``t``."""
     for name in mesh.mesh_dim_names:
-        _count("all_reduce")
+        _count("all_reduce", _nbytes(t), name, mesh.size(
+            mesh.mesh_dim_names.index(name)))
         dist.all_reduce(t, group=mesh.get_group(name))
     return t
 

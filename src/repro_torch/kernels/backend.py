@@ -21,16 +21,21 @@ primitives the fused spz pipeline runs —
 
   ``torch``  the plain versions: torch tensor code, on the CPU or the card
   ``cuda``   the hand-written kernels (``csrc/*.cu``); CUDA tensors only
+  ``ref``    the eager oracles (``kernels/ref.py``; the chunk sort is
+             ``ref.stream_sort_ref``, the merge tree the plain one): a
+             debugging tier, ``on_device=False``, never swept
+             (``measure=False``)
 
 ``"auto"`` resolves to ``cuda`` for a CUDA device and ``torch`` for the
 CPU, and :func:`measurable_backends` names the one an autotune sweep
-times on each.  Asking for ``cuda`` on the CPU raises.  Both backends are
+times on each.  Asking for ``cuda`` on the CPU raises.  Every backend is
 bit-compatible: same keys, values, lengths and counters on the same
 inputs.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional, Union
 
 import torch
@@ -51,7 +56,9 @@ class KernelBackend:
     """A registered kernel implementation tier.
 
     ``device_type``: the only device type the backend runs on ("cuda"),
-    or None for any device."""
+    or None for any device.  ``on_device``: its primitives run as device
+    work (False for the eager oracles, which read the device between
+    ops).  ``measure``: a candidate of autotune sweeps."""
 
     name: str
     chunk_sort: Callable
@@ -62,6 +69,8 @@ class KernelBackend:
     stream_merge: Callable
     stream_merge_ptr: Callable
     device_type: Optional[str] = None
+    on_device: bool = True
+    measure: bool = True
     description: str = ""
 
 
@@ -116,9 +125,11 @@ def measurable_backends(device: Union[str, torch.device] = "cpu",
     On a CUDA device only the backends bound to it (``cuda``): the plain
     ``torch`` tier repeats the kernels' arithmetic and is no yardstick
     of speed, so it never takes part in a sweep where a card is.  On the
-    CPU the backends that run anywhere (``torch``)."""
+    CPU the backends that run anywhere (``torch``).  A backend declared
+    ``measure=False`` (``ref``) is never swept."""
     want = "cuda" if torch.device(device).type == "cuda" else None
-    return [bk for bk in _BACKENDS.values() if bk.device_type == want]
+    return [bk for bk in _BACKENDS.values()
+            if bk.measure and bk.device_type == want]
 
 
 def load() -> None:
@@ -191,3 +202,18 @@ register_backend(
                 "merge, K3 fused bucket (expand and streams entries; large "
                 "buckets: K1 + K2 per round), "
                 "K4 stream sort, K5 stream merge (chunk and pointer forms)")
+register_backend(
+    name="ref",
+    chunk_sort=ref.stream_sort_ref,
+    merge_partitions=merge_tree.merge_partitions,
+    fused_bucket=functools.partial(_k3.fused_bucket_plain,
+                                   chunk_sort=ref.stream_sort_ref),
+    fused_expand_bucket=functools.partial(_k3.fused_expand_bucket_plain,
+                                          chunk_sort=ref.stream_sort_ref),
+    stream_sort=ref.stream_sort_ref,
+    stream_merge=ref.stream_merge_ref,
+    stream_merge_ptr=ref.stream_merge_ptr_ref,
+    on_device=False,
+    measure=False,
+    description="eager oracles (stream_sort_ref as the chunk sort, the "
+                "plain merge tree); debugging tier")

@@ -19,7 +19,11 @@ is first copied into a zero-padded head dim.
 :func:`flash_attention` takes the plain version only for tensors on the
 CPU; on CUDA tensors it launches the kernel (counting the launch in
 ``flash_attention.launches`` and its route in ``flash_attention.routes``)
-or raises.
+or raises.  On ``meta`` tensors (the dry run, ``launch/dryrun.py``) it
+launches nothing: it returns the output the kernel would write (shape,
+dtype, device) and adds the kernel's FLOPs (:func:`card_flops`) to
+``flash_attention.traced_flops`` and one to
+``flash_attention.traced_calls``.
 
 K6 has no backward pass: the reference's Pallas kernel has none either
 (``jax.grad`` through it fails), and the reference trains with
@@ -50,6 +54,38 @@ def wgmma_tiles(hd: int) -> tuple[int, int]:
     to 128 and 32-key tiles above (the output accumulator takes hd / 2
     registers a thread)."""
     return 128, (128 if hd <= 64 else 64 if hd <= 128 else 32)
+
+
+def card_flops(B: int, Sq: int, Skv: int, H: int, hd: int, *, causal: bool,
+               window: int, route: str) -> int:
+    """The multiply-adds, as FLOPs (2 per multiply-add), that one launch
+    of K6 performs.  From ``csrc/flash_attention.cu``: each CTA takes
+    one head of one sequence and a tile of query rows, and visits the
+    key tiles ``[kt_lo, kt_hi)`` that any of its rows can see (causal:
+    up to the tile of its last row's position; windowed: from the tile
+    of its first row's position - window + 1); each visited tile costs
+    S = Q Kᵀ and O += P V at the instantiation's head dim.  The fma route
+    takes 64 query rows and 64 keys at head dims 32, 64, 128 or 256, one
+    product each; the wgmma route 128 query rows and ``wgmma_tiles``'
+    keys at head dims 64, 128 or 256, with P V issued once per bf16 part
+    of P (three)."""
+    if route == "wgmma":
+        bq, bk = wgmma_tiles(hd)
+        dim, pv_parts = (64 if hd <= 64 else 128 if hd <= 128 else 256), 3
+    else:
+        bq, bk, pv_parts = 64, 64, 1
+        dim = next(d for d in (32, 64, 128, 256) if hd <= d)
+    off, n_kt = Skv - Sq, -(-Skv // bk)
+    tiles = 0
+    for q0 in range(0, Sq, bq):
+        lo, hi = 0, n_kt
+        if causal:
+            last = min(q0 + bq, Sq) - 1 + off
+            hi = 0 if last < 0 else min(n_kt, last // bk + 1)
+        if window:
+            lo = max(0, q0 + off - window + 1) // bk
+        tiles += max(0, hi - lo)
+    return B * H * tiles * 2 * bq * bk * dim * (1 + pv_parts)
 
 
 def tma_ready(strides, data_ptr: int) -> bool:
@@ -114,7 +150,11 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
         q, k, v = (t if t.stride(-1) == 1 else t.contiguous()
                    for t in (q, k, v))
     o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
-    if B and Sq:
+    if B and Sq and q.is_meta:  # the dry run: no data, the card's work
+        flash_attention.traced_flops += card_flops(
+            B, Sq, Skv, H, hd, causal=causal, window=window, route=route)
+        flash_attention.traced_calls += 1
+    elif B and Sq:
         launch(q, k, v, o, causal=causal, window=window, scale=scale)
         flash_attention.launches += 1
         flash_attention.routes[route] += 1
@@ -123,6 +163,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
 
 flash_attention.launches = 0
 flash_attention.routes = {"wgmma": 0, "fma": 0}
+flash_attention.traced_flops = 0
+flash_attention.traced_calls = 0
 
 
 def launch(q, k, v, o, *, causal, window, scale) -> None:

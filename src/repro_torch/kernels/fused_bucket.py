@@ -173,12 +173,14 @@ def _counters(plens, rounds, R: int, with_counters: bool):
 
 
 def fused_bucket_plain(keys, vals, plens, *, R: int,
-                       with_counters: bool = True, detailed: bool = False):
-    """Plain torch: ``sort_chunks_linear`` over all chunks, then
+                       with_counters: bool = True, detailed: bool = False,
+                       chunk_sort=sort_chunks_linear):
+    """Plain torch: ``chunk_sort`` (default ``sort_chunks_linear``; the
+    ``ref`` tier's ``ref.stream_sort_ref``) over all chunks, then
     ``zip_merge_tree``.  Same contract as :func:`fused_bucket`."""
     S, L = keys.shape
     C = L // R
-    sk, sv, sl = sort_chunks_linear(keys.reshape(S * C, R),
+    sk, sv, sl = chunk_sort(keys.reshape(S * C, R),
                                     vals.reshape(S * C, R),
                                     chunk_lens(plens, C, R))
     mk, mv, ml, rounds = zip_merge_tree(
@@ -301,15 +303,17 @@ fused_bucket.routes = {"expand": 0, "fused": 0, "large": 0}
 
 def fused_expand_bucket_plain(row_ids, lane_ids, a_indptr, a_idx, a_val,
                               b_indptr, b_idx, b_val, *, R: int, L: int,
-                              steps_acc, zip_acc, tails_acc):
+                              steps_acc, zip_acc, tails_acc,
+                              chunk_sort=sort_chunks_linear):
     """Plain torch: :func:`fused_expand_plain`, :func:`fused_bucket_plain`
-    and :func:`reduce_rounds`.  Same contract as
+    (with ``chunk_sort``) and :func:`reduce_rounds`.  Same contract as
     :func:`fused_expand_bucket`."""
     keys, vals, plens = fused_expand_plain(row_ids, lane_ids, a_indptr,
                                            a_idx, a_val, b_indptr, b_idx,
                                            b_val, L)
     mk, mv, ml, rounds = fused_bucket_plain(keys, vals, plens, R=R,
-                                            detailed=True)
+                                            detailed=True,
+                                            chunk_sort=chunk_sort)
     reduce_rounds(rounds, steps_acc, zip_acc, tails_acc)
     return mk, mv, ml
 

@@ -21,7 +21,11 @@ for bit.
 :func:`grouped_matmul` takes the plain version only for tensors on the
 CPU; on CUDA tensors it launches the kernel (counting the launch in
 ``grouped_matmul.launches`` and its layout in ``grouped_matmul.routes``)
-or raises.  The sizes stay on the card: the kernel maps rows to groups
+or raises.  On ``meta`` tensors (the dry run, ``launch/dryrun.py``) it
+launches nothing: it returns the output the kernel would write and adds
+the kernel's FLOPs (:func:`card_flops`) to
+``grouped_matmul.traced_flops`` and one to
+``grouped_matmul.traced_calls``, the backward's dx launch likewise.  The sizes stay on the card: the kernel maps rows to groups
 itself, so a launch adds no host wait.
 
 Backward (:class:`GroupedMatmul`, the wrapper's route on CUDA tensors
@@ -67,6 +71,17 @@ def row_tile(T: int, E: int, dtype=torch.bfloat16) -> int:
     mean = -(-T // max(E, 1))
     tiles = (64, 128, 192, 256) if dtype == torch.bfloat16 else (16, 32, 64)
     return next((bm for bm in tiles if mean <= bm), tiles[-1])
+
+
+def card_flops(T: int, K: int, N: int, E: int, cap: int | None) -> int:
+    """The FLOPs (2 per multiply-add) one K7 launch of x (T, K) by W (E,
+    K, N) is charged in the dry run: 2 T K N in the contiguous layout
+    (every row belongs to one group, or is past them); 2 E cap K N in
+    the counts layout, every group's whole capacity.  The counts layout's
+    kernel skips the row tiles that hold no kept row, which depend on
+    the routing (data that a traced run does not hold): this is the
+    most it performs."""
+    return 2 * (T if cap is None else E * cap) * K * N
 
 
 def grid_rows(T: int, E: int, bm: int, cap: int | None = None) -> int:
@@ -125,7 +140,10 @@ def kernel_launch(x, w, group_sizes, cap, route=None):
     x, ws = _aligned(x.contiguous()), _aligned(ws)
     sizes = group_sizes.to(torch.int32).contiguous()
     out = torch.empty((T, F), dtype=x.dtype, device=x.device)
-    if T and F:
+    if T and F and x.is_meta:  # the dry run: no data, the card's work
+        grouped_matmul.traced_flops += card_flops(T, D, F, E, cap)
+        grouped_matmul.traced_calls += 1
+    elif T and F:
         launch(x, ws, sizes, out, cap=cap, k_major=k_major)
         grouped_matmul.launches += 1
         grouped_matmul.routes[route or ("contiguous" if cap is None
@@ -153,6 +171,8 @@ def _aligned(t):
 
 grouped_matmul.launches = 0
 grouped_matmul.routes = {"contiguous": 0, "counts": 0, "backward": 0}
+grouped_matmul.traced_flops = 0
+grouped_matmul.traced_calls = 0
 
 
 def plain_launch(x, w, group_sizes, cap, route=None):

@@ -24,8 +24,14 @@ the collectives' backward passes sum each gradient over the ranks.
 the reference's specs (``Sharding(spec, placements)``) for the port's
 trees: its cache is a list with one dict per layer, where the reference
 stacks a group's layers along a leading dim, so a cache spec here is the
-reference's without that dim's leading None.  The input specs of the
-dry run (``train_state_shapes``, ``input_specs``) are not ported yet.
+reference's without that dim's leading None.
+
+The dry run's inputs (``launch/dryrun.py``) are tensors on the ``meta``
+device, which hold a shape and a dtype and allocate nothing:
+``train_state_shapes`` gives the train state (``init_train_state``'s
+structure: the model's parameters under the port's names, the AdamW
+step and moments), ``input_specs`` the batch, cache and ``cache_len``
+of a ``configs.base.ShapeConfig``.
 """
 from __future__ import annotations
 
@@ -63,8 +69,7 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig):
         names = list(params.named_parameters())
         if shd.get_mesh() is not None:
             # micro-batches split the global batch, as the reference's do
-            batch = {k: v.full_tensor() if shd.is_dtensor(v) else v
-                     for k, v in batch.items()}
+            batch = {k: shd.full_tensor(v) for k, v in batch.items()}
         if accum == 1:
             loss, met, grads = grads_of(params, names, batch)
         else:
@@ -111,6 +116,58 @@ def init_train_state(cfg, opt_cfg: adamw.AdamWConfig,
                                  cfg.fsdp, device=device or generator.device)
     return {"params": params,
             "opt": adamw.init_state(opt_cfg, dict(params.named_parameters()))}
+
+
+def train_state_shapes(cfg, opt_cfg: adamw.AdamWConfig) -> dict:
+    """The train state of :func:`init_train_state` on the ``meta``
+    device: {"params": the model (every parameter a meta tensor of its
+    shape and dtype), "opt": {"step", "m", "v"}}.  Nothing is drawn or
+    allocated.  The reference's stacked ``g{j}/s{k}`` leaves are one
+    parameter per layer here (``models/convert.py``)."""
+    params = M.init_params(cfg, torch.Generator(), device="meta")
+    return {"params": params,
+            "opt": adamw.init_state(opt_cfg, dict(params.named_parameters()))}
+
+
+def input_specs(cfg, shape, device="meta") -> dict:
+    """The step inputs of the ``ShapeConfig`` ``shape`` as empty tensors
+    on ``device`` (default ``meta``: nothing allocated), the reference's
+    keys and dtypes: train {"tokens", "labels"} (B, S) int32, plus
+    "enc_inp" (B, frontend tokens, D) float32; prefill {"tokens", "cache",
+    "enc_inp" (or None)}; decode {"token" (B, 1) int32, "cache",
+    "cache_len"}.  The cache is the port's list of per-layer dicts
+    (``model.cache_shapes`` for B sequences of S positions, the
+    frontend's tokens in a ``cross_attn`` layer's), where the reference
+    stacks a group's layers along a leading dim.  ``cache_len`` is an
+    int, the position a decode step writes: S - 1, the step that reads
+    a full cache."""
+    B, S = shape.global_batch, shape.seq_len
+    ids = torch.int32
+
+    def enc():
+        return (torch.empty((B, cfg.num_frontend_tokens, cfg.d_model),
+                            dtype=torch.float32, device=device)
+                if cfg.num_frontend_tokens else None)
+
+    def cache():
+        return [{n: torch.empty(sh, dtype=dt, device=device)
+                 for n, (sh, dt) in c.items()}
+                for c in M.cache_shapes(cfg, B, S,
+                                        enc_len=cfg.num_frontend_tokens)]
+
+    if shape.kind == "train":
+        batch = {"tokens": torch.empty((B, S), dtype=ids, device=device),
+                 "labels": torch.empty((B, S), dtype=ids, device=device)}
+        if cfg.num_frontend_tokens:
+            batch["enc_inp"] = enc()
+        return batch
+    if shape.kind == "prefill":
+        return {"tokens": torch.empty((B, S), dtype=ids, device=device),
+                "cache": cache(), "enc_inp": enc()}
+    if shape.kind == "decode":
+        return {"token": torch.empty((B, 1), dtype=ids, device=device),
+                "cache": cache(), "cache_len": S - 1}
+    raise ValueError(shape.kind)
 
 
 def make_prefill_step(cfg):

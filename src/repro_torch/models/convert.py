@@ -48,26 +48,50 @@ def _np32(arr) -> np.ndarray:
     return np.array(arr)
 
 
-def params_from_jax(tree, cfg, *, device="cpu") -> Model:
-    """The port's model for ``cfg`` holding the weights of the
-    reference's parameter tree ``tree`` (nested dicts of numpy arrays),
-    on ``device``.  Raises if a parameter is missing, left over, or of
-    another shape."""
+def _index(arr, i):
+    return arr[i]
+
+
+def per_layer(tree, cfg, index=_index) -> list:
+    """[(layer, key, leaf), ...] of a tree keyed by the reference's
+    decoder groups (``{group: {"s{k}": subtree}}``: its parameters', or
+    its cache's), each stacked group unit cut along its leading repeat
+    dim by ``index(leaf, repeat)`` into the port's layers, in execution
+    order; ``key`` is the leaf's path in its unit, joined with dots."""
+    out = []
+    layer = 0
+    for name, pattern, reps in _groups(cfg):
+        for r in range(reps or 1):
+            for s in range(len(pattern)):
+                for key, arr in _flat(tree[name][f"s{s}"]):
+                    out.append((layer, key,
+                                arr if reps is None else index(arr, r)))
+                layer += 1
+    return out
+
+
+def port_state(tree, cfg, index=_index) -> dict:
+    """{the port's parameter name: leaf} of the reference's parameter tree
+    ``tree``: the stacked units cut by ``index`` (:func:`per_layer`; the
+    encoder's ``enc_g/s0`` likewise), the other leaves as they are."""
     state = {"embed.w": tree["embed"]["w"], "norm.scale": tree["norm"]["scale"],
              "lm_head.w": tree["lm_head"]["w"]}
     if cfg.encoder_layers:
         state["enc_norm.scale"] = tree["enc_norm"]["scale"]
         for key, arr in _flat(tree["enc_g"]["s0"]):
             for i in range(cfg.encoder_layers):
-                state[f"encoder.{i}.{key}"] = arr[i]
-    layer = 0
-    for name, pattern, reps in _groups(cfg):
-        for r in range(reps or 1):
-            for s in range(len(pattern)):
-                for key, arr in _flat(tree[name][f"s{s}"]):
-                    state[f"layers.{layer}.{key}"] = (
-                        arr if reps is None else arr[r])
-                layer += 1
+                state[f"encoder.{i}.{key}"] = index(arr, i)
+    for layer, key, arr in per_layer(tree, cfg, index):
+        state[f"layers.{layer}.{key}"] = arr
+    return state
+
+
+def params_from_jax(tree, cfg, *, device="cpu") -> Model:
+    """The port's model for ``cfg`` holding the weights of the
+    reference's parameter tree ``tree`` (nested dicts of numpy arrays),
+    on ``device``.  Raises if a parameter is missing, left over, or of
+    another shape."""
+    state = port_state(tree, cfg)
     model = Model(cfg, generator=torch.Generator().manual_seed(0))
     model.load_state_dict({k: torch.from_numpy(_np32(v))
                            for k, v in state.items()}, strict=True)

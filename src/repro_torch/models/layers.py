@@ -27,10 +27,16 @@ def normal(shape, scale: float, dtype, *, generator: torch.Generator,
            device=None) -> nn.Parameter:
     """A parameter of standard-normal draws times ``scale``, drawn in
     float32 on the generator's device, stored as ``dtype`` on ``device``
-    (default: the generator's device)."""
+    (default: the generator's device).  On the ``meta`` device nothing
+    is drawn or allocated: the parameter has the shape and dtype alone
+    (``launch.steps.train_state_shapes``)."""
+    device = device or generator.device
+    if torch.device(device).type == "meta":
+        return nn.Parameter(torch.empty(tuple(shape), dtype=dtype,
+                                        device="meta"))
     w = torch.randn(tuple(shape), generator=generator,
                     device=generator.device, dtype=torch.float32) * scale
-    return nn.Parameter(w.to(device=device or generator.device, dtype=dtype))
+    return nn.Parameter(w.to(device=device, dtype=dtype))
 
 
 def dense(x, w, b=None):

@@ -48,9 +48,12 @@ from repro_torch.models.layers import MLP, Dense, mlp
 def _expert_normal(shape, scale, dtype, *, generator, device=None):
     """(E, a, b) standard-normal draws times ``scale`` stored as ``dtype``,
     drawn one expert at a time in float32: a whole float32 draw at
-    Arctic's width would be 17.9 GB of transient memory."""
+    Arctic's width would be 17.9 GB of transient memory.  On the
+    ``meta`` device nothing is drawn."""
     device = device or generator.device
     w = torch.empty(shape, dtype=dtype, device=device)
+    if w.is_meta:
+        return nn.Parameter(w)
     for e in range(shape[0]):
         w[e] = torch.randn(shape[1:], generator=generator,
                            device=generator.device,

@@ -303,21 +303,27 @@ def _ring_prefill(cache, k, v, pos, W):
     """A local-attention ring after the prompt, in place: the last
     min(W, S) positions' K/V in their slots (position % W), their
     positions in ``slot_pos``, -10**9 (never in a window) elsewhere.  A
-    rank of a mesh writes the slots of its block."""
+    rank of a mesh writes the slots of its block.  The prompt's
+    positions are 0 .. S - 1 (``pos`` of the prefill), so which of them
+    land in the rank's slots is worked out on the host: the device is
+    not read (a boolean mask would be), and a traced run on ``meta``
+    tensors gets the same writes."""
     S = k.shape[1]
     take = min(W, S)
-    p_last = pos[0, S - take:]
-    slots = p_last % W
     blocks = {n: attn.seq_block(cache[n]) for n in ("k", "v", "slot_pos")}
     local, off, _, _ = blocks["k"]
-    mine = (slots >= off) & (slots < off + local.shape[1])
+    last = torch.arange(S - take, S)
+    slots = last % W
+    mine = torch.nonzero((slots >= off) & (slots < off + local.shape[1]))[:, 0]
+    dst = (slots[mine] - off).to(k.device)
+    src = last[mine].to(k.device)
     for name, val in (("k", k), ("v", v)):
         buf = blocks[name][0]
         buf.zero_()
-        buf[:, slots[mine] - off] = val[:, S - take:][:, mine].to(buf.dtype)
+        buf[:, dst] = val[:, src].to(buf.dtype)
     sp = blocks["slot_pos"][0]
     sp.fill_(-10**9)
-    sp[:, slots[mine] - off] = p_last[mine].to(torch.int32)
+    sp[:, dst] = pos[0, src].to(torch.int32)
     return cache
 
 

@@ -890,7 +890,7 @@ def test_k3_group_reduction_emulation(spb):
 # ---------------------------------------------------------------------------
 
 def test_backend_registry():
-    assert set(kb.available_backends()) == {"torch", "cuda"}
+    assert set(kb.available_backends()) == {"torch", "cuda", "ref"}
     assert kb.resolve_backend("auto", "cpu").name == "torch"
     assert kb.resolve_backend("auto", "cuda").name == "cuda"
     assert kb.resolve_backend("torch", "cuda").name == "torch"
