@@ -4231,17 +4231,24 @@ def _mesh_deepseek(torch, np, mesh):
 def _mesh_tinyllama(torch, np):
     """TinyLlama-1.1B whole, float32: saved with no mesh, restored by
     ``elastic.reshard_restore`` onto ``elastic.remesh(1)``; one train step
-    of MESH_TRAIN_B x MESH_TRAIN_S tokens there and one without a mesh
-    from the same weights (loss and weights within MESH_REL_TOL); then a
-    prefill and MESH_DECODE_STEPS decode steps with the caches placed by
+    of MESH_TRAIN_B x MESH_TRAIN_S tokens there under the default
+    ``layer_layout="tp"`` and one without a mesh from the same weights
+    (loss and weights within MESH_REL_TOL), and one under ``"sp"`` from
+    the same weights restored again (within MESH_REL_TOL of the "tp"
+    step; both step times printed); then a prefill through K6
+    (``attn_impl="pallas"``, its launches on the mesh counted) and
+    MESH_DECODE_STEPS decode steps with the caches placed by
     ``cache_shardings`` beside the same without a mesh (float32 logits
-    within CPU_LOGIT_TOL)."""
+    within CPU_LOGIT_TOL; the mesh's next token picked over the
+    vocabulary by ``sharding.vocab_argmax``, which must be the argmax of
+    the whole logits)."""
     import dataclasses
     import tempfile
 
     from repro_torch.checkpoint import ckpt
     from repro_torch.configs import base as cb
     from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import backend as kb
     from repro_torch.launch import steps as st
     from repro_torch.models import model as M
     from repro_torch.optim import adamw
@@ -4249,6 +4256,8 @@ def _mesh_tinyllama(torch, np):
 
     cfg = dataclasses.replace(cb.get_config("tinyllama-1.1b"),
                               dtype="float32")
+    if cfg.layer_layout != "tp":
+        raise AssertionError(f"the default layout is {cfg.layer_layout}")
     opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=2, decay_steps=10)
     plain = _family_model(torch, cfg, f"{cfg.name} (float32 compute)",
                           phase="mesh")
@@ -4258,12 +4267,18 @@ def _mesh_tinyllama(torch, np):
                            plain.named_parameters()})
         t_save = time.perf_counter() - t0
         mesh = elastic.remesh(1)
-        sharded = M.init_params(cfg, torch.Generator(device="cuda")
-                                .manual_seed(SEED + 1))
-        t0 = time.perf_counter()
-        sharded = elastic.reshard_restore(tmp, sharded, mesh, fsdp=cfg.fsdp)
-        torch.cuda.synchronize()
-        t_restore = time.perf_counter() - t0
+        restored = []
+        for seed in (1, 2):  # one model for each layout
+            model = M.init_params(cfg, torch.Generator(device="cuda")
+                                  .manual_seed(SEED + seed))
+            t0 = time.perf_counter()
+            restored.append(elastic.reshard_restore(tmp, model, mesh,
+                                                    fsdp=cfg.fsdp))
+            torch.cuda.synchronize()
+            t_restore = time.perf_counter() - t0
+            del model
+    sharded, sharded_sp = restored
+    del restored
     with shd.use_mesh(mesh):
         want = shd.param_shardings(sharded, cfg.fsdp)
     wrong = [n for n, p in sharded.named_parameters()
@@ -4274,35 +4289,52 @@ def _mesh_tinyllama(torch, np):
         f"{t_save:.1f} s, restored onto {mesh} (elastic.remesh(1)) in "
         f"{t_restore:.1f} s, every parameter on its rule's placements")
     batch = _train_batch(torch, cfg, MESH_TRAIN_B, MESH_TRAIN_S)
-    step = st.make_train_step(cfg, opt_cfg)
-    res = {}
-    for label, model, m in (("without a mesh", plain, None),
-                            ("on the mesh", sharded, mesh)):
+    res, step_s = {}, {}
+    sp = dataclasses.replace(cfg, layer_layout="sp")
+    for label, model, m, c in (("without a mesh", plain, None, cfg),
+                               ("on the mesh (tp)", sharded, mesh, cfg),
+                               ("on the mesh (sp)", sharded_sp, mesh, sp)):
         with shd.use_mesh(m):
             state = {"params": model, "opt": adamw.init_state(
                 opt_cfg, dict(model.named_parameters()))}
             shd.reset_collective_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state, met = step(state, batch)
-            loss = float(met["loss"])
-            secs = time.perf_counter() - t0
-        res[label] = loss
-        log(f"mesh: tinyllama train step {label}: loss {loss}, grad_norm "
-            f"{float(met['grad_norm'])}, {secs:.2f} s; collectives "
-            f"{shd.collective_counts()}")
-    loss_err = abs(res["on the mesh"] - res["without a mesh"]) / abs(
+            state, met = st.make_train_step(c, opt_cfg)(state, batch)
+            res[label] = float(met["loss"])
+            step_s[label] = time.perf_counter() - t0
+        del state
+        log(f"mesh: tinyllama train step {label}: loss {res[label]}, "
+            f"grad_norm {float(met['grad_norm'])}, {step_s[label]:.2f} s "
+            f"({smi()}); collectives {shd.collective_counts()}")
+
+    def max_weight_err(a, b):
+        return max(((_rel_err(torch, pa.detach().full_tensor()
+                              if shd.is_dtensor(pa) else pa.detach(),
+                              pb.detach().full_tensor()), n) for
+                    (n, pa), pb in zip(a.named_parameters(), b.parameters())),
+                   key=lambda t: t[0])
+
+    loss_err = abs(res["on the mesh (tp)"] - res["without a mesh"]) / abs(
         res["without a mesh"])
-    w_err, worst = max(
-        ((_rel_err(torch, ps.detach().full_tensor(), pp), n) for
-         (n, pp), ps in zip(plain.named_parameters(), sharded.parameters())),
-        key=lambda t: t[0])
-    log(f"mesh: tinyllama train gates: loss {loss_err}, weights {w_err} "
-        f"({worst}) relative, tolerance {MESH_REL_TOL}")
+    w_err, worst = max_weight_err(plain, sharded)
+    sp_loss_err = abs(res["on the mesh (sp)"] - res["on the mesh (tp)"]) / \
+        abs(res["on the mesh (tp)"])
+    sp_w_err, sp_worst = max_weight_err(sharded, sharded_sp)
+    del sharded_sp
+    log(f"mesh: tinyllama train gates: tp vs without a mesh: loss "
+        f"{loss_err}, weights {w_err} ({worst}); sp vs tp: loss "
+        f"{sp_loss_err}, weights {sp_w_err} ({sp_worst}); relative, "
+        f"tolerance {MESH_REL_TOL}; step s tp {step_s['on the mesh (tp)']:.3f}"
+        f", sp {step_s['on the mesh (sp)']:.3f} | {smi()}")
     if not (loss_err <= MESH_REL_TOL and w_err <= MESH_REL_TOL):
         raise AssertionError(f"train step on the mesh: loss {loss_err}, "
                              f"weights {w_err} ({worst})")
+    if not (sp_loss_err <= MESH_REL_TOL and sp_w_err <= MESH_REL_TOL):
+        raise AssertionError(f"sp step vs tp step: loss {sp_loss_err}, "
+                             f"weights {sp_w_err} ({sp_worst})")
 
+    serve = dataclasses.replace(cfg, attn_impl="pallas")  # K6 in prefill
     rng = np.random.default_rng(SEED)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
         MESH_TRAIN_B, MESH_TRAIN_S))).cuda()
@@ -4313,16 +4345,21 @@ def _mesh_tinyllama(torch, np):
     cache_p = M.init_cache(cfg, MESH_TRAIN_B, smax, "cuda")
     shd.reset_collective_counts()
     t0 = time.perf_counter()
+    kb.reset_launch_counts()
     with shd.use_mesh(mesh):
-        lg, cache = M.prefill(sharded, cfg, toks, cache)
-    lg_p, cache_p = M.prefill(plain, cfg, toks, cache_p)
+        lg, cache = M.prefill(sharded, serve, toks, cache)
+    torch.cuda.synchronize()
+    k6 = {k: n for k, n in kb.launch_counts().items() if n}
+    lg_p, cache_p = M.prefill(plain, serve, toks, cache_p)
     errs.append(float((lg.full_tensor() - lg_p).abs().max()))
     for i in range(MESH_DECODE_STEPS):
         nxt = lg_p.argmax(-1)[:, None]
+        if not torch.equal(shd.vocab_argmax(lg), lg.full_tensor().argmax(-1)):
+            raise AssertionError("decode: vocab_argmax is not the argmax")
         with shd.use_mesh(mesh):
-            lg, cache = M.decode_step(sharded, cfg, nxt, cache,
+            lg, cache = M.decode_step(sharded, serve, nxt, cache,
                                       MESH_TRAIN_S + i)
-        lg_p, cache_p = M.decode_step(plain, cfg, nxt, cache_p,
+        lg_p, cache_p = M.decode_step(plain, serve, nxt, cache_p,
                                       MESH_TRAIN_S + i)
         errs.append(float((lg.full_tensor() - lg_p).abs().max()))
     torch.cuda.synchronize()
@@ -4332,23 +4369,33 @@ def _mesh_tinyllama(torch, np):
     if any(tuple(t.placements) != placed[i][n].placements
            for i, c in enumerate(cache) for n, t in c.items()):
         raise AssertionError("decode: a cache left its placement")
-    log(f"mesh: tinyllama prefill {MESH_TRAIN_B} x {MESH_TRAIN_S} + "
-        f"{MESH_DECODE_STEPS} decode steps, caches on {placed[0]['k']}: "
-        f"float32 logits vs without a mesh, largest abs diff per step "
-        f"{errs} (tolerance {CPU_LOGIT_TOL}); both paths {secs:.2f} s; "
-        f"collectives {shd.collective_counts()}")
+    want_k6 = {"flash_attention": cfg.num_layers,
+               "flash_attention.fma": cfg.num_layers}
+    log(f"mesh: tinyllama prefill {MESH_TRAIN_B} x {MESH_TRAIN_S} (K6 on "
+        f"the mesh: {k6}) + {MESH_DECODE_STEPS} decode steps, caches on "
+        f"{placed[0]['k']}: float32 logits vs without a mesh, largest abs "
+        f"diff per step {errs} (tolerance {CPU_LOGIT_TOL}); both paths "
+        f"{secs:.2f} s; collectives {shd.collective_counts()}")
+    if k6 != want_k6:
+        raise AssertionError(f"prefill on the mesh launched {k6}, want "
+                             f"{want_k6}")
     if not max(errs) <= CPU_LOGIT_TOL:
         raise AssertionError(f"decode on the mesh: logits {max(errs)} apart")
     return dict(loss_err=loss_err, weight_err=w_err, decode_err=max(errs),
-                save_s=t_save, restore_s=t_restore)
+                sp_loss_err=sp_loss_err, sp_weight_err=sp_w_err,
+                tp_step_s=step_s["on the mesh (tp)"],
+                sp_step_s=step_s["on the mesh (sp)"], save_s=t_save,
+                restore_s=t_restore, counts=k6)
 
 
 def phase_mesh(torch, np):
     """The sharded model paths on one card: the (1, 1) mesh of a
-    one-process NCCL group (every collective issued), DeepSeek-V2's
-    zipper dispatch over the all_to_all and TinyLlama-1.1B's
-    reshard-on-restore, train step and sharded decode, each against the
-    same without a mesh.  Returns the metrics and K7's launches."""
+    one-process NCCL group (every collective issued), under the default
+    ``layer_layout="tp"``: DeepSeek-V2's zipper dispatch over the
+    all_to_all and TinyLlama-1.1B's reshard-on-restore, train step (and
+    one under ``"sp"`` beside it) and sharded prefill (K6) and decode,
+    each against the same without a mesh.  Returns the metrics and K6's
+    and K7's launches."""
     import gc
 
     import torch.distributed as dist
@@ -4764,9 +4811,12 @@ def main() -> int:
         res["train"]["deepseek"]["counts"]["grouped_matmul.backward"]
     counts["stream_merge.zipper_topk"] = res["dryrun"]["zipper_launches"]
     log("kernels: " + ", ".join(f"{k}={v}" for k, v in counts.items()))
-    mesh = res["mesh"]["deepseek"]["counts"]  # K7 under _shardmap_moe
-    log("kernels: mesh path (DeepSeek-V2 on the (1, 1) mesh) " + ", ".join(
-        f"{k}={v}" for k, v in mesh.items()))
+    # K7 under _shardmap_moe, K6 in TinyLlama's prefill, both under "tp"
+    mesh = {**res["mesh"]["deepseek"]["counts"],
+            **res["mesh"]["tinyllama"]["counts"]}
+    log("kernels: mesh path (DeepSeek-V2's step and TinyLlama's prefill on "
+        "the (1, 1) mesh, layer_layout tp) " + ", ".join(
+            f"{k}={v}" for k, v in mesh.items()))
     sources = {
         "chunk_sort": ("src/repro_torch/kernels/csrc/chunk_sort.cu",
                        "src/repro/kernels/chunk_sort.py:91"),

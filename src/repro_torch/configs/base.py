@@ -22,11 +22,22 @@ What the fields mean in the port, where it differs from the reference:
   ``local_window``); an MLA layer always takes the plain blocked
   attention, as the reference's does.
 - ``fsdp`` acts on a mesh (``distributed/sharding.py``): it adds the
-  data axis to the parameters' placements (gathered on use).
-  ``layer_layout`` and ``prefill_cache_seqshard`` are read by no code of
-  the port: they pick the reference's activation constraint specs, and
-  on a mesh the port runs each rank's block as a plain tensor, which has
-  no layout to pin.  ``remat`` acts only in training: ``"block"``
+  data axis to the parameters' placements (gathered over it on use).
+- ``layer_layout`` picks how the model axis runs on a mesh
+  (``distributed/sharding.py``).  ``"tp"`` (the default, the
+  reference's): Megatron tensor parallelism with a sequence-parallel
+  residual; weights stay on their model shard (heads, hidden units,
+  vocabulary rows, channels), the batch splits over the batch axes
+  only, and each sublayer all-gathers the sequence and reduce-scatters
+  its output.  ``"sp"``: the port's earlier layout, every dense weight
+  all-gathered on use over every axis (ZeRO-3 style) and, without a
+  cache, the batch's rows split over the data and model axes together
+  (where the reference's ``"sp"`` splits the sequence).
+- ``prefill_cache_seqshard`` selects nothing that runs: it picks
+  between two XLA lowerings of the same prefill cache in the reference;
+  the port always moves a prefill's K/V from heads to the cache's
+  sequence blocks in one all_to_all (``models/transformer.py``), the
+  layout the flag pins.  ``remat`` acts only in training: ``"block"``
   checkpoints each decoder layer (``models.model.forward``).
 - ``scan_unroll`` does nothing: the port runs its layers in a Python
   loop, not a scan, so its dry run (``launch/dryrun.py``) counts every
@@ -112,8 +123,8 @@ class ModelConfig:
     attn_kv_block: int = 1024
     # causal-block skipping in the blocked attention (halves its FLOPs)
     attn_block_skip: bool = False
-    # intra-layer layout of the reference's mesh ("tp" | "sp"); read by
-    # no code of the port
+    # the model axis's layout on a mesh: "tp" (Megatron TP + sequence-
+    # parallel residual) | "sp" (weights gathered on use)
     layer_layout: str = "tp"
     # carry softmax probabilities in bf16 between the two matmuls of the
     # blocked attention (flash-attention-2 numerics)

@@ -19,33 +19,48 @@ answer, so single-device code runs unchanged.
 
 How the port runs on a mesh (the counterpart of GSPMD plus
 ``shard_map``): each process runs the model as one explicit SPMD
-program.
+program, in the layout ``cfg.layer_layout`` names (:func:`tp`).
 
 - Parameters are DTensors placed by the rules (:func:`shard_model`).
-  A dense layer reads its weights through :func:`gathered` (all-gathered
-  on use, ZeRO-3 style, over every axis that shards them); the MoE
-  block reads its experts through :func:`local_view` with the model
-  axis kept local (expert parallelism).  The backward of either sums
-  each weight's gradient over every rank that used the same values and
-  keeps the rank's shard.
-- Activations are plain tensors: each rank's block of the batch.  With
-  a cache (prefill, decode) the batch dim is split over the batch axes
-  when it divides, as ``batch_shardings`` places it, and replicated
-  over the model axis, whose ranks split the cache's sequence instead.
-  Without one (training, a plain forward) the batch dim is split over
-  the batch axes and the model axis together when it divides by all of
-  them, so every rank computes different rows (else as with a cache).
-  The reference splits the sequence over the model axis there (its
-  ``sp`` layout); rows split the same work without an exchange of K/V
-  in attention or of the recurrent blocks' state.  :func:`local_batch`
-  takes the block from a global tensor or a DTensor at the model's
-  entry and records the axes it was split over (:func:`batch_split`);
-  :func:`from_local_batch` wraps an output back into a DTensor.
-  :func:`constrain` redistributes a DTensor (a cache) and returns a
-  plain block unchanged.
+  A layer reads its weights through :func:`gathered`, which swaps each
+  DTensor for a plain tensor (:func:`local_view`) for the block's
+  length: under ``"tp"`` the rank's model shard, all-gathered over the
+  data axis when ``cfg.fsdp`` puts it there; under ``"sp"`` the whole
+  weight, all-gathered over every axis (ZeRO-3 style).  The MoE block
+  reads its experts itself, the model axis kept local (expert
+  parallelism).  The backward of either sums each weight's gradient
+  over every rank that used the same values and keeps the rank's
+  shard.
+- ``"tp"`` is the reference's default, Megatron tensor parallelism with
+  a sequence-parallel residual.  The batch is split over the batch axes
+  only (the rule of ``batch_shardings``); the residual stream holds the
+  rank's block of the sequence over the model axis when the sequence
+  divides (else all of it, as the reference's constraint drops the
+  axis).  Each mixer and MLP all-gathers its input's sequence
+  (:func:`seq_gather`), runs the rank's heads, hidden units or
+  channels on the rank's weight shards (column-parallel in,
+  row-parallel out) and reduce-scatters its partial sums back onto the
+  rank's sequence block (:func:`seq_scatter`): the all-gather and the
+  reduce-scatter are each other's backward.  A weight whose dim does
+  not divide the model axis is whole on every rank, and so is its
+  output (taken, not reduced).  The embedding and the head are split
+  by vocabulary (a masked lookup, a vocab-parallel loss).
+- ``"sp"`` is the port's earlier layout (the counterpart of the
+  reference's ``"sp"``): whole weights, and without a cache (training,
+  a plain forward) the batch dim split over the batch axes and the
+  model axis together when it divides by all of them, so every rank
+  computes different rows; with a cache the batch is split over the
+  batch axes and replicated over the model axis.  The reference splits
+  the sequence there, not the rows.
+- :func:`local_batch` takes the block from a global tensor or a DTensor
+  at the model's entry and records the axes it was split over
+  (:func:`batch_split`); :func:`from_local_batch` wraps an output back
+  into a DTensor.  :func:`constrain` redistributes a DTensor (a cache)
+  and returns a plain block unchanged.
 - Caches are DTensors placed by ``launch.steps.cache_shardings`` (the
-  sequence dim over the model axis); attention reads and writes them in
-  their local form (``models/attention.py``).
+  sequence dim over the model axis; a recurrent state's width);
+  attention reads and writes them in their local form
+  (``models/attention.py``).
 - A rank's loss is the global loss, replicated (its sums all-reduced
   over the batch axes); the step backpropagates loss / world size from
   every rank, and the autograd-aware collectives here sum gradients
@@ -53,9 +68,10 @@ program.
   single-device one.
 
 Collectives are counted by kind (:func:`collective_counts`), with the
-bytes each leaves on the rank by kind and by mesh axis
-(:func:`collective_bytes`), which the dry run reads in place of the
-reference's parse of the compiled HLO.
+bytes each moves on the rank by kind and by mesh axis, and the
+parameters' all-gathers by mesh axis apart (:func:`collective_bytes`),
+which the dry run reads in place of the reference's parse of the
+compiled HLO.
 """
 from __future__ import annotations
 
@@ -70,6 +86,7 @@ _MESH = None
 _COUNTS: dict = {}
 _BYTES: dict = {}       # kind -> bytes on this rank
 _AXIS_BYTES: dict = {}  # mesh axis (or "a,b" for several) -> bytes
+_WEIGHT_BYTES: dict = {}  # mesh axis -> bytes of parameters all-gathered
 _SPLIT = ()  # the mesh axes the last batch taken by local_batch split over
 
 
@@ -131,6 +148,32 @@ def data_axis_size() -> int:
 
 def model_axis_size() -> int:
     return axis_sizes().get("model", 1)
+
+
+def model_rank() -> int:
+    """This rank's coordinate on the model axis (0 without one)."""
+    return _coord("model") if "model" in axis_sizes() else 0
+
+
+def tp(cfg) -> bool:
+    """Whether ``cfg`` runs the ``"tp"`` layout on the current mesh (see
+    the module docstring); False without a mesh."""
+    if cfg.layer_layout not in ("tp", "sp"):
+        raise ValueError(f"layer_layout {cfg.layer_layout!r}")
+    return _MESH is not None and cfg.layer_layout == "tp"
+
+
+def weight_keep(cfg) -> tuple:
+    """The mesh axes a layer's weights stay split over when it reads
+    them (:func:`gathered`): the model axis under ``"tp"``."""
+    return ("model",) if tp(cfg) and "model" in axis_sizes() else ()
+
+
+def block_offset(local: int, full: int) -> int:
+    """Where this rank's block of a dim of ``full`` entries starts, its
+    ``local`` entries being the model axis's even split of it (or all of
+    them, at 0)."""
+    return model_rank() * local if local < full else 0
 
 
 def _axis_size(a) -> int:
@@ -278,20 +321,24 @@ def collective_counts() -> dict:
 
 
 def collective_bytes() -> dict:
-    """{"bytes": {kind: bytes}, "by_axis": {axis: bytes}} since the last
-    :func:`reset_collective_counts`: the bytes of each collective's
-    result on this rank (an all_gather's whole output, an all_reduce's
-    or all_to_all's tensor, rank 0's gathered blocks), counted where
-    the group holds more than one rank (one rank exchanges nothing);
+    """{"bytes": {kind: bytes}, "by_axis": {axis: bytes}, "weights":
+    {axis: bytes}} since the last :func:`reset_collective_counts`: the
+    bytes of each collective's whole tensor on this rank (an
+    all_gather's output, a reduce_scatter's input, an all_reduce's or
+    all_to_all's tensor, rank 0's gathered blocks), counted where the
+    group holds more than one rank (one rank exchanges nothing);
     ``by_axis`` keys a group of several mesh axes by their names joined
-    with commas."""
-    return {"bytes": dict(_BYTES), "by_axis": dict(_AXIS_BYTES)}
+    with commas; ``weights`` holds the part of the all_gathers that
+    gathered parameters (:func:`local_view`), by axis."""
+    return {"bytes": dict(_BYTES), "by_axis": dict(_AXIS_BYTES),
+            "weights": dict(_WEIGHT_BYTES)}
 
 
 def reset_collective_counts() -> None:
     _COUNTS.clear()
     _BYTES.clear()
     _AXIS_BYTES.clear()
+    _WEIGHT_BYTES.clear()
 
 
 def _nbytes(t) -> int:
@@ -398,13 +445,30 @@ def gather_to_root(t):
     return full
 
 
-def _all_gather_dim(t, axis, dim):
+def _all_gather_dim(t, axis, dim, weight=False):
     g = _group(axis)
     n = dist.get_world_size(g)
     _count("all_gather", _nbytes(t) * n, axis, n)
+    if weight and n > 1:
+        _WEIGHT_BYTES[axis] = _WEIGHT_BYTES.get(axis, 0) + _nbytes(t) * n
     parts = [torch.empty_like(t) for _ in range(n)]
     dist.all_gather(parts, t.contiguous(), group=g)
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+
+def _reduce_scatter_dim(t, axis, dim):
+    """The sum of ``t`` over ``axis``, this rank's block of ``dim``
+    (even splits)."""
+    g = _group(axis)
+    n = dist.get_world_size(g)
+    _count("reduce_scatter", _nbytes(t), axis, n)
+    if n == 1:
+        return t.contiguous().clone()
+    src = t.movedim(dim, 0).contiguous()  # the blocks contiguous
+    out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
+                      dtype=t.dtype, device=t.device)
+    dist.reduce_scatter_tensor(out, src, group=g)
+    return out.movedim(0, dim).contiguous()
 
 
 def _all_reduce_(t, axes, op=dist.ReduceOp.SUM):
@@ -432,7 +496,7 @@ class _View(torch.autograd.Function):
         ctx.gather = gather
         t = p.to_local()
         for name, dim in reversed(gather):
-            t = _all_gather_dim(t, name, dim)
+            t = _all_gather_dim(t, name, dim, weight=True)
         # a view, never the parameter's own local tensor: autograd marks
         # what this returns as the function's output
         return t.view_as(t)
@@ -464,10 +528,11 @@ _EXPERTS = re.compile(r"(^|\.)experts\.w[123]$")
 
 
 @contextlib.contextmanager
-def gathered(*modules):
+def gathered(*modules, keep=()):
     """Within the block, every DTensor parameter of ``modules`` reads as
-    its gathered plain tensor (:func:`local_view`), but the MoE experts,
-    which the MoE block reads itself.  The identity without a mesh."""
+    a plain tensor (:func:`local_view`: gathered over every mesh axis
+    but ``keep``, :func:`weight_keep`), but the MoE experts, which the
+    MoE block reads itself.  The identity without a mesh."""
     if _MESH is None:
         yield
         return
@@ -481,7 +546,7 @@ def gathered(*modules):
             mod_name, _, leaf = name.rpartition(".")
             mod = m.get_submodule(mod_name) if mod_name else m
             swapped.append((mod, leaf, p))
-            mod._parameters[leaf] = local_view(p)
+            mod._parameters[leaf] = local_view(p, keep)
     try:
         yield
     finally:
@@ -513,9 +578,9 @@ def all_to_all(x, axis):
 
 
 class _AllGather(torch.autograd.Function):
-    """All-gather over ``axis`` along ``dim``; the backward sums each
-    rank's gradient of the whole over the axis and keeps the rank's
-    block."""
+    """All-gather over ``axis`` along ``dim``; the backward is the
+    reduce-scatter (each rank's gradient of the whole summed over the
+    axis, the rank's block kept)."""
 
     @staticmethod
     def forward(ctx, x, axis, dim):
@@ -524,13 +589,95 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = _all_reduce_(g.contiguous().clone(), [ctx.axis])
-        n = dist.get_world_size(_group(ctx.axis))
-        return g.chunk(n, dim=ctx.dim)[_coord(ctx.axis)], None, None
+        return _reduce_scatter_dim(g, ctx.axis, ctx.dim), None, None
 
 
 def all_gather(x, axis, dim):
     return _AllGather.apply(x, axis, dim)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Sum over ``axis``, the rank's block of ``dim`` kept; the backward
+    is the all-gather."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return _reduce_scatter_dim(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather_dim(g, ctx.axis, ctx.dim), None, None
+
+
+def reduce_scatter(x, axis, dim):
+    return _ReduceScatter.apply(x, axis, dim)
+
+
+def seq_gather(x, seq: int):
+    """The whole sequence of ``x`` (B, s, ...), the residual's block of a
+    sequence of ``seq`` positions: all-gathered over the model axis
+    along dim 1 when ``x`` holds a block of it (``"tp"``), else ``x``."""
+    return x if x.shape[1] == seq else all_gather(x, "model", 1)
+
+
+def seq_part(t, s: int):
+    """The rank's block of ``s`` positions of ``t`` (B, S, ...) along dim
+    1 (all of ``t`` when ``s`` is S)."""
+    S = t.shape[1]
+    return t if s == S else t.narrow(1, model_rank() * s, s)
+
+
+def seq_scatter(y, s: int, partial: bool):
+    """``y`` (B, S, ...), a sublayer's output over the whole sequence, as
+    the residual's block of ``s`` positions: when ``partial`` (a
+    row-parallel product's share of the sum) reduce-scattered over the
+    model axis along dim 1, or all-reduced when the residual holds all
+    S positions; else the block taken."""
+    if not partial:
+        return seq_part(y, s)
+    if s < y.shape[1]:
+        return reduce_scatter(y, "model", 1)
+    return all_reduce(y, ("model",))
+
+
+def residual_len(seq: int, cfg) -> int:
+    """The positions of a sequence of ``seq`` that this rank's residual
+    holds: seq / n_model under ``"tp"`` when it divides (the reference's
+    ``_seq_shard``), else all of them."""
+    n = model_axis_size()
+    return seq // n if tp(cfg) and n > 1 and seq % n == 0 else seq
+
+
+def heads_to_seq(t):
+    """``t`` (B, L, h, ...) holding this rank's block of heads over the
+    model axis, L dividing by it -> (B, L / n, n h, ...): every head, at
+    the rank's block of dim 1 (one all_to_all)."""
+    n = model_axis_size()
+    B, L = t.shape[:2]
+    x = t.reshape((B, n, L // n) + tuple(t.shape[2:])).movedim(1, 0)
+    x = all_to_all(x.contiguous(), "model")  # (src: head block, B, L/n, h..)
+    return x.movedim(0, 2).reshape((B, L // n, n * t.shape[2]) +
+                                   tuple(t.shape[3:]))
+
+
+def vocab_argmax(logits):
+    """The id of each row's largest logit, int64, (B,): ``logits`` a plain
+    tensor or a DTensor whose last (vocab) dim may be split over the
+    model axis; ties go to the lowest id, as ``torch.argmax``'s do.
+    Each rank sends its block's best value and id, never its logits."""
+    if not is_dtensor(logits):
+        return logits.argmax(-1)
+    dim, off, _ = model_shard(logits)
+    loc = logits.to_local()
+    if dim is None:
+        return loc.argmax(-1)
+    idx = loc.argmax(-1)
+    val = loc.gather(-1, idx[..., None])[..., 0]
+    both = torch.stack([val.float(), (idx + off).float()], -1)
+    every = _all_gather_dim(both[None], "model", 0)  # (n, B, 2)
+    best = every[..., 0].argmax(0)  # the first block holding the max
+    return every[..., 1].gather(0, best[None])[0].long()
 
 
 class _AllReduce(torch.autograd.Function):
@@ -610,16 +757,22 @@ def batch_block(t):
     return _local_slice(t, placements((_SPLIT or None,)))
 
 
-def from_local_batch(t, global_batch: int):
+def from_local_batch(t, global_batch: int, last_over_model: bool = False):
     """A DTensor of the rank's block ``t`` of a batch output whose global
-    batch is ``global_batch`` (split as the batch the model took last,
-    the rest replicated).  The identity without a mesh."""
+    batch is ``global_batch`` (split as the batch the model took last;
+    with ``last_over_model`` the last dim split over the model axis, as
+    ``"tp"`` splits the vocabulary; the rest replicated).  The identity
+    without a mesh."""
     from torch.distributed.tensor import DTensor
 
     if _MESH is None:
         return t
     shape = (global_batch,) + tuple(t.shape[1:])
-    plc = placements((_SPLIT or None,))
+    spec = [_SPLIT or None] + [None] * (t.ndim - 1)
+    if last_over_model:
+        spec[-1] = "model"
+        shape = shape[:-1] + (shape[-1] * model_axis_size(),)
+    plc = placements(tuple(spec))
     stride = torch.empty(shape, device="meta").stride()
     return DTensor.from_local(t, _MESH, plc, run_check=False,
                               shape=torch.Size(shape), stride=stride)
@@ -705,29 +858,32 @@ def model_shard(c) -> tuple:
     return pl.dim, c.device_mesh.get_local_rank("model") * length, length
 
 
-def to_cache(value, like):
+def to_cache(value, like, block=False):
     """``value``, a tensor in the local program's layout (this rank's
-    batch block, whole along every other dim), in the place of the cache
-    entry ``like``: for a DTensor, a DTensor of its mesh and placements
-    that keeps the rank's block along the model-axis dim; else
-    ``value``."""
+    batch block, whole along every other dim, or with ``block`` already
+    the rank's block along the model-axis dim), in the place of the
+    cache entry ``like``: for a DTensor, a DTensor of its mesh and
+    placements that keeps the rank's block along the model-axis dim;
+    else ``value``."""
     from torch.distributed.tensor import DTensor
 
     if not isinstance(like, DTensor):
         return value
     dim, off, length = model_shard(like)
-    if dim is not None:
+    if dim is not None and not block:
         value = value.narrow(dim, off, length)
     return DTensor.from_local(value.contiguous(), like.device_mesh,
                               like.placements, run_check=False)
 
 
-def from_cache(c):
+def from_cache(c, block=False):
     """A cache entry in the local program's layout: a DTensor's batch
     block all-gathered along the model-axis dim (where a step needs the
-    whole state: the recurrent blocks'); a plain tensor as it is."""
+    whole state: the recurrent blocks' under ``"sp"``), or with
+    ``block`` the rank's block as it is (``"tp"``, whose recurrent
+    blocks run the rank's channels); a plain tensor as it is."""
     if not is_dtensor(c):
         return c
     dim, _, _ = model_shard(c)
     t = c.to_local()
-    return t if dim is None else _all_gather_dim(t, "model", dim)
+    return t if dim is None or block else _all_gather_dim(t, "model", dim)

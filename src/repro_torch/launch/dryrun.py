@@ -22,9 +22,11 @@ records:
                allocations, the traffic of the unfused eager program (an
                upper bound of what the card moves: a fused kernel reads
                its operands once);
-  collectives  the bytes of each collective's result on rank 0, by kind
-               and by mesh axis (``distributed.sharding``'s wrappers
-               count them), and the calls by kind;
+  collectives  the bytes of each collective's whole tensor on rank 0
+               (an all_gather's output, a reduce_scatter's input), by
+               kind and by mesh axis, the parameters' all_gathers by mesh
+               axis apart (``distributed.sharding``'s wrappers count
+               them), and the calls by kind;
   roofline     the reference's three terms and useful-work fractions,
                with the card's constants below.
 
@@ -376,6 +378,7 @@ def trace_step(cfg, shape):
         "bytes": trace.traffic,
         "coll_bytes": coll["bytes"],
         "coll_by_axis": coll["by_axis"],
+        "coll_weights": coll["weights"],
         "coll_counts": shd.collective_counts(),
     }
 
@@ -434,6 +437,7 @@ def _lower_here(arch, shape, multi_pod, cfg_override, mesh_shape,
         "collectives": {"total_bytes": sum(m["coll_bytes"].values()),
                         "bytes": m["coll_bytes"],
                         "bytes_by_axis": m["coll_by_axis"],
+                        "weight_bytes_by_axis": m["coll_weights"],
                         "counts": m["coll_counts"]},
         "roofline": rl,
         "params": cfg.param_count(),

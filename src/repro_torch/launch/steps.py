@@ -17,9 +17,12 @@ card) and returns the state with the new moments.
 
 Under a mesh (``distributed.sharding.use_mesh``) the state's parameters
 and moments are DTensors placed by ``state_shardings``; the step runs
-the model as each rank's SPMD program (``distributed/sharding.py``) and
-backpropagates the replicated global loss divided by the world size, so
-the collectives' backward passes sum each gradient over the ranks.
+the model as each rank's SPMD program (``distributed/sharding.py``, in
+the layout ``cfg.layer_layout`` names: under ``"tp"`` the batch over the
+batch axes, as ``batch_shardings`` places it, the sequence and the
+weights over the model axis) and backpropagates the replicated global
+loss divided by the world size, so the collectives' backward passes sum
+each gradient over the ranks.
 ``batch_shardings``, ``cache_shardings`` and ``state_shardings`` give
 the reference's specs (``Sharding(spec, placements)``) for the port's
 trees: its cache is a list with one dict per layer, where the reference

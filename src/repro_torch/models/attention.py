@@ -31,6 +31,18 @@ writes the new token's entry only where that position lies in its
 block, and the softmax is combined across the axis (the max and the
 sums all-reduced: flash-decoding's partial softmax, which the reference
 leaves to GSPMD).
+
+Under ``layer_layout="tp"`` the projections hold the rank's block of
+heads over the model axis (where the heads divide it; else all of
+them, as the reference's rules leave them): the forward runs the
+rank's query heads, with its own KV heads when those split too, else
+the whole KV heads that its query heads group onto (:func:`kv_group`);
+``wo`` is row-parallel, so the output is the rank's share of a sum
+(``out_partial``).  Decode, whose cache is split by sequence, gathers
+the step's query heads (B·H·hd values) and, when the KV heads split,
+the new token's K/V over the model axis, attends every head on the
+rank's positions, combines the partial softmax, and keeps the rank's
+heads for ``wo``.
 """
 from __future__ import annotations
 
@@ -196,6 +208,30 @@ def blocked_attention(q, k, v, *, causal=True, window=0, q_block=2048,
 # GQA block forward
 # ---------------------------------------------------------------------------
 
+def out_partial(p, cfg) -> bool:
+    """Whether the attention's output is the rank's share of a sum over
+    the model axis: its ``wo`` holds a block of the heads (``"tp"``)."""
+    return p.wo.w.shape[0] < cfg.num_heads
+
+
+def kv_group(k, n_q: int, cfg):
+    """The KV heads of ``k`` (B, S, KVl, hd) that the rank's ``n_q``
+    query heads attend, as many whole groups of ``H / KVH`` query heads
+    per KV head: all of ``k`` when the query heads are all there or the
+    KV heads are the rank's own block (split with them); else (the query
+    heads split, the KV heads whole: fewer than the model axis) the
+    slice they group onto."""
+    H, KVH = cfg.num_heads, cfg.num_kv_heads
+    if n_q == H or k.shape[2] < KVH:
+        return k
+    G = H // KVH
+    if n_q % G and G % n_q:
+        raise ValueError(f"the rank's {n_q} query heads straddle groups "
+                         f"of {G}")
+    lo = shd.block_offset(n_q, H)
+    return k[:, :, lo // G:(lo + n_q - 1) // G + 1]
+
+
 def gqa_forward(p: GQA, x, pos, cfg, *, causal=True, window=0,
                 kv_override=None):
     """Full-sequence (prefill) GQA self-attention, causal or not, over a
@@ -204,29 +240,59 @@ def gqa_forward(p: GQA, x, pos, cfg, *, causal=True, window=0,
     it is cross attention instead: keys and values are projected from
     ``kv_override``, nothing is roped, and every query attends every key
     through :func:`blocked_attention`.  Returns (out (B, S, D), k, v),
-    k/v (B, Skv, KVH, hd) as attended (after rope), for the prefill
-    cache."""
+    k/v (B, Skv, KVl, hd) as projected (after rope), for the prefill
+    cache: every KV head, or the rank's block of them under ``"tp"``
+    (module docstring), whose ``out`` is a share of the sum when
+    :func:`out_partial`."""
     q = p.wq(x)
     src = kv_override if kv_override is not None else x
     k = p.wk(src)
     v = p.wv(src)
     if kv_override is not None:
-        out = blocked_attention(q, k, v, causal=False,
+        out = blocked_attention(q, kv_group(k, q.shape[2], cfg),
+                                kv_group(v, q.shape[2], cfg), causal=False,
                                 q_block=cfg.attn_q_block,
                                 kv_block=cfg.attn_kv_block)
         return torch.einsum("bshd,hdo->bso", out, p.wo.w.to(x.dtype)), k, v
     if cfg.pos_emb == "rope":
         q = rope(q, pos, cfg.rope_theta)
         k = rope(k, pos, cfg.rope_theta)
+    ka, va = kv_group(k, q.shape[2], cfg), kv_group(v, q.shape[2], cfg)
     if cfg.attn_impl == "pallas":
-        out = flash_attention(q, k, v, causal=causal, window=window)
+        out = flash_attention(q, ka, va, causal=causal, window=window)
     else:
-        out = blocked_attention(q, k, v, causal=causal, window=window,
+        out = blocked_attention(q, ka, va, causal=causal, window=window,
                                 q_block=cfg.attn_q_block,
                                 kv_block=cfg.attn_kv_block,
                                 block_skip=cfg.attn_block_skip,
                                 p_bf16=cfg.attn_p_bf16)
     return torch.einsum("bshd,hdo->bso", out, p.wo.w.to(x.dtype)), k, v
+
+
+def all_heads(t, cfg, dim=2, full=None):
+    """``t`` with its ``dim`` holding the rank's block of ``full``
+    (default ``cfg.num_heads``) heads -> every head, all-gathered over
+    the model axis; ``t`` itself when it holds them all."""
+    full = full or cfg.num_heads
+    return t if t.shape[dim] == full else shd.all_gather(t, "model", dim)
+
+
+def all_kv_heads(k, v, cfg):
+    """``k``, ``v`` (B, S, KVl, hd) with every KV head: as they are, or
+    all-gathered over the model axis (one exchange for both) when they
+    hold the rank's block of them (``"tp"``)."""
+    if k.shape[2] == cfg.num_kv_heads:
+        return k, v
+    kv = all_heads(torch.stack([k, v]), cfg, 3, cfg.num_kv_heads)
+    return kv[0], kv[1]
+
+
+def own_heads(t, n: int, cfg, dim=2):
+    """The rank's block of ``n`` heads of ``t``, which holds every head
+    along ``dim`` (the heads' order)."""
+    if n == t.shape[dim]:
+        return t
+    return t.narrow(dim, shd.block_offset(n, cfg.num_heads), n)
 
 
 def seq_block(c):
@@ -277,6 +343,9 @@ def gqa_decode(p: GQA, x, cache_k, cache_v, cache_len: int, cfg, *,
     if cfg.pos_emb == "rope":
         k_new = rope(k_new, pos, cfg.rope_theta)
     v_new = p.wv(x)
+    n_q = q.shape[2]  # the rank's query heads (``"tp"``: a block)
+    q = all_heads(q, cfg)
+    k_new, v_new = all_kv_heads(k_new, v_new, cfg)
     ba = shd.batch_axes() or None
     cache_k = shd.constrain(cache_k, ba, "model", None, None)
     cache_v = shd.constrain(cache_v, ba, "model", None, None)
@@ -303,8 +372,8 @@ def gqa_decode(p: GQA, x, cache_k, cache_v, cache_len: int, cfg, *,
     s = torch.where(valid, s, NEG_INF)
     out = attend(s, lambda pr: torch.einsum("bkgs,bskd->bkgd", pr,
                                             cv.float()), split)
-    out = out.reshape(B, 1, cfg.num_heads, hd).to(x.dtype)
-    y = torch.einsum("bshd,hdo->bso", out, p.wo.w.to(x.dtype))
+    out = own_heads(out.reshape(B, 1, cfg.num_heads, hd), n_q, cfg)
+    y = torch.einsum("bshd,hdo->bso", out.to(x.dtype), p.wo.w.to(x.dtype))
     return y, wrap(ck), wrap(cv)
 
 
@@ -331,13 +400,15 @@ def _mla_q(p: MLA, x, pos, cfg):
 
 def mla_forward(p: MLA, x, pos, cfg):
     """Full-sequence causal MLA.  x: (B, S, D); pos: (B, S).  Returns (out
-    (B, S, D), c_kv, k_rope) for the prefill cache."""
+    (B, S, D), c_kv, k_rope) for the prefill cache.  Under ``"tp"`` the
+    up-projections and ``wo`` hold the rank's heads (the compressed KV
+    is every rank's whole), and ``out`` is a share of the sum."""
     B, S, _ = x.shape
-    H = cfg.num_heads
     q_nope, q_rope = _mla_q(p, x, pos, cfg)
     c_kv, k_rope = _mla_kv(p, x, pos, cfg)
-    k_nope = p.w_uk(c_kv)  # (B, S, H, nope)
+    k_nope = p.w_uk(c_kv)  # (B, S, H, nope): the rank's heads under "tp"
     v = p.w_uv(c_kv)       # (B, S, H, v_head_dim)
+    H = k_nope.shape[2]
     k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H,
                                                      cfg.qk_rope_dim)],
                   dim=-1)
@@ -376,8 +447,13 @@ def mla_decode(p: MLA, x, cache_c, cache_kr, cache_len: int, cfg):
                   ).to(cc.dtype)[None, :, None]
         cc = cc * (1 - onehot) + c_new * onehot
         ckr = ckr * (1 - onehot) + kr_new * onehot
-    # absorb w_uk into q: q' = q_nope @ w_uk^T -> (B, H, kv_lora)
+    # absorb w_uk into q: q' = q_nope @ w_uk^T -> (B, H, kv_lora); the
+    # rank's heads under "tp", every head gathered for the cache's block
     qc = torch.einsum("bhn,rhn->bhr", q_nope, p.w_uk.w.to(x.dtype))
+    n_q = qc.shape[1]
+    if n_q < cfg.num_heads:
+        qq = all_heads(torch.cat([qc, q_rope], -1), cfg, 1)
+        qc, q_rope = qq[..., :qc.shape[-1]], qq[..., qc.shape[-1]:]
     s = torch.einsum("bhr,bsr->bhs", qc.float(), cc.float())
     s = s + torch.einsum("bhe,bse->bhs", q_rope.float(), ckr.float())
     s = s * (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
@@ -385,6 +461,7 @@ def mla_decode(p: MLA, x, cache_c, cache_kr, cache_len: int, cfg):
     s = torch.where(valid, s, NEG_INF)
     ctx = attend(s, lambda pr: torch.einsum("bhs,bsr->bhr", pr, cc.float()),
                  split)
+    ctx = own_heads(ctx, n_q, cfg, 1)
     v = torch.einsum("bhr,rhv->bhv", ctx.to(x.dtype), p.w_uv.w.to(x.dtype))
     y = torch.einsum("bhv,hvo->bo", v, p.wo.w.to(x.dtype))
     return y[:, None], wrap(cc), wrap(ckr)

@@ -11,7 +11,10 @@ parameter paths joined with dots.  Initialisers draw from an explicit
 under ``torch.inference_mode()``).  The reference's activation sharding
 constraints have no counterpart: on a mesh the port runs each rank's
 block as a plain tensor (``distributed/sharding.py``), which has no
-layout to pin.
+layout to pin.  Under ``layer_layout="tp"`` the MLP, the embedding and
+the head run on the rank's weight shards (hidden units, vocabulary
+rows) and exchange activations instead (:func:`mlp`,
+:func:`embed_lookup`, :func:`cross_entropy`).
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ from typing import Optional, Sequence, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.distributed import sharding as shd
 
 
 def normal(shape, scale: float, dtype, *, generator: torch.Generator,
@@ -119,20 +124,28 @@ def silu(x):
 
 
 class MLP(nn.Module):
-    """SwiGLU MLP: w2(silu(w1 x) * w3 x)."""
+    """SwiGLU MLP: w2(silu(w1 x) * w3 x); ``d_ff`` its hidden width."""
 
     def __init__(self, d_model: int, d_ff: int, dtype, *,
                  generator: torch.Generator, device=None):
         super().__init__()
         kw = dict(generator=generator, device=device)
+        self.d_ff = d_ff
         self.w1 = Dense(d_model, d_ff, dtype, **kw)
         self.w2 = Dense(d_ff, d_model, dtype, **kw)
         self.w3 = Dense(d_model, d_ff, dtype, **kw)
 
 
-def mlp(p: MLP, x):
-    h = F.silu(p.w1(x)) * p.w3(x)
-    return p.w2(h)
+def mlp(p: MLP, x, seq=None):
+    """x: (B, s, D), the residual's block of a sequence of ``seq``
+    positions (default s: all of it).  With the hidden width split over
+    the model axis (``"tp"``: w1 and w3 column-parallel, w2
+    row-parallel) the input's sequence is all-gathered and w2's partial
+    sums reduce-scattered onto the block (``sharding.seq_gather``,
+    ``seq_scatter``); with whole weights both are the identity."""
+    xg = shd.seq_gather(x, seq or x.shape[1])
+    h = F.silu(p.w1(xg)) * p.w3(xg)
+    return shd.seq_scatter(p.w2(h), x.shape[1], p.w2.w.shape[0] < p.d_ff)
 
 
 class Embed(nn.Module):
@@ -145,28 +158,51 @@ class Embed(nn.Module):
                         generator=generator, device=device)
 
 
-def embed_lookup(p: Embed, ids, compute_dtype):
+def embed_lookup(p: Embed, ids, compute_dtype, vocab=None):
     """Rows ``ids`` of the table in ``compute_dtype`` (gathered, then
-    cast: the same numbers as the reference's cast-then-gather)."""
-    return p.w[ids].to(compute_dtype)
+    cast: the same numbers as the reference's cast-then-gather).  When
+    the table holds the rank's block of the ``vocab`` rows (``"tp"``)
+    an id outside the block reads zeros: the result is the rank's share
+    of a sum over the model axis, one term of which is the row."""
+    w = p.w
+    if vocab is None or w.shape[0] == vocab:
+        return w[ids].to(compute_dtype)
+    local = ids - shd.block_offset(w.shape[0], vocab)
+    hit = (local >= 0) & (local < w.shape[0])
+    rows = w[torch.where(hit, local, 0)]
+    return torch.where(hit[..., None], rows, 0).to(compute_dtype)
 
 
 def logits_head(p: Dense, x):
-    """x: (B, S, D) -> (B, S, V)."""
+    """x: (B, S, D) -> (B, S, V), or the rank's block of V when the head
+    is split by vocabulary (``"tp"``)."""
     return p(x)
 
 
-def cross_entropy(logits, labels, *, ignore_id: int = -1):
+def cross_entropy(logits, labels, *, ignore_id: int = -1,
+                  vocab_offset=None):
     """Mean cross-entropy over the labels that are not ``ignore_id``, in
     float32: logits (B, S, V), labels (B, S) integer.  The label's logit
     is taken by a masked reduction over the vocab, as the reference takes
     it (a gather there would all-gather vocab-sharded logits); a mask of
-    no label gives 0."""
+    no label gives 0.  With ``vocab_offset`` the logits are the rank's
+    block of the vocabulary from that id on (``"tp"``): the max, the sum
+    of exponentials and the label's logit are each reduced over the
+    model axis."""
     logits = logits.float()
+    split = vocab_offset is not None
     m = logits.amax(dim=-1, keepdim=True)
-    lse = m[..., 0] + torch.log(torch.sum(torch.exp(logits - m), dim=-1))
-    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    if split:
+        m = shd.all_reduce_max(m, ("model",))
+    se = torch.sum(torch.exp(logits - m), dim=-1)
+    if split:
+        se = shd.all_reduce(se, ("model",))
+    lse = m[..., 0] + torch.log(se)
+    vocab = torch.arange(logits.shape[-1], device=logits.device) + (
+        vocab_offset or 0)
     hit = vocab == labels.clamp(min=0)[..., None]
     ll = torch.sum(torch.where(hit, logits, 0.0), dim=-1)
+    if split:
+        ll = shd.all_reduce(ll, ("model",))
     mask = (labels != ignore_id).float()
     return torch.sum((lse - ll) * mask) / torch.clamp(mask.sum(), min=1.0)

@@ -50,11 +50,18 @@ On a mesh (``distributed/sharding.py``; parameters placed by
 ``sharding.shard_model``) the functions take the batch inputs as the
 global batch (a plain tensor, the same on every rank) or as DTensors,
 run each rank's block of it (``sharding.local_batch``), read each
-layer's weights gathered on use, and return the logits as a DTensor
-placed by the batch rule; ``loss_fn``'s loss is the global batch's,
-the same on every rank.  ``prefill`` and ``decode_step`` take the cache
-as DTensors placed by ``launch.steps.cache_shardings`` (a plain cache is
-placed so first) and return it so.
+layer's weights in the layout ``cfg.layer_layout`` names (``"tp"``: the
+rank's model shard; ``"sp"``: gathered on use; ``sharding.gathered``),
+and return the logits as a DTensor placed by the batch rule (under
+``"tp"`` split by vocabulary over the model axis;
+``sharding.vocab_argmax`` picks a token from it); ``loss_fn``'s loss is
+the global batch's, the same on every rank.  Under ``"tp"`` the
+residual between the embedding and the final norm is each rank's block
+of the sequence (``sharding.residual_len``), the embedding's partial
+lookup reduce-scattered onto it and the final norm's output all-gathered
+for the vocab-parallel head.  ``prefill`` and ``decode_step`` take the
+cache as DTensors placed by ``launch.steps.cache_shardings`` (a plain
+cache is placed so first) and return it so.
 """
 from __future__ import annotations
 
@@ -123,6 +130,32 @@ class Model(nn.Module):
             for kind, use_moe in layer_kinds(cfg))
 
 
+def _weights(cfg, *modules):
+    """``sharding.gathered`` over ``modules`` in ``cfg``'s layout."""
+    return shd.gathered(*modules, keep=shd.weight_keep(cfg))
+
+
+def _vocab_offset(params: Model, cfg):
+    """Where the rank's block of the vocabulary starts when the head is
+    split by it (``"tp"``), else None; within :func:`_weights` of
+    ``lm_head``."""
+    n = params.lm_head.w.shape[1]
+    return shd.block_offset(n, cfg.vocab_size) if n < cfg.vocab_size \
+        else None
+
+
+def _embed(params: Model, cfg, tokens, s: int):
+    """The embedding of ``tokens`` (B, S), the residual's block of ``s``
+    positions: under ``"tp"`` each rank looks up its block of the
+    vocabulary and the partial rows are reduce-scattered onto the block
+    (all-reduced when it holds every position)."""
+    with _weights(cfg, params.embed):
+        x = embed_lookup(params.embed, tokens, getattr(torch, cfg.dtype),
+                         cfg.vocab_size)
+        split = params.embed.w.shape[0] < cfg.vocab_size
+    return shd.seq_scatter(x, s, split)
+
+
 def init_params(cfg, generator: torch.Generator, device=None) -> Model:
     """A model with random weights drawn from ``generator`` (on its
     device), stored on ``device`` (default: the generator's)."""
@@ -136,13 +169,15 @@ def _encode(params: Model, cfg, enc_inp):
     x = enc_inp.to(getattr(torch, cfg.dtype))
     B, S = x.shape[:2]
     pos = torch.arange(S, device=x.device)[None].expand(B, S)
-    x = x + _sinusoid(pos, cfg.d_model, x.dtype)
+    x = shd.seq_part(x + _sinusoid(pos, cfg.d_model, x.dtype),
+                     shd.residual_len(S, cfg))
     for blk in params.encoder:
-        with shd.gathered(blk):
+        with _weights(cfg, blk):
             x, _, _ = tf.sublayer_apply(blk, "attn", x, pos, cfg,
                                         causal=False)
-    with shd.gathered(params.enc_norm):
-        return rmsnorm(x, params.enc_norm.scale, cfg.norm_eps)
+    with _weights(cfg, params.enc_norm):
+        return shd.seq_gather(rmsnorm(x, params.enc_norm.scale,
+                                      cfg.norm_eps), S)
 
 
 def forward(params: Model, cfg, tokens, *, enc_inp=None, cache=None,
@@ -151,12 +186,14 @@ def forward(params: Model, cfg, tokens, *, enc_inp=None, cache=None,
     batch inputs are the global batch or DTensors, and the logits (or
     hidden states) come back as a DTensor of the global batch."""
     B = tokens.shape[0]
-    rows = cache is None  # without a cache the model axis splits rows too
+    # "sp" without a cache: the model axis splits rows too
+    rows = cache is None and not shd.tp(cfg)
     out, aux, cache = _forward(params, cfg, shd.local_batch(tokens, rows),
                                enc_inp=shd.local_batch(enc_inp, rows),
                                cache=_placed(cache),
                                return_hidden=return_hidden)
-    return shd.from_local_batch(out, B), aux, cache
+    split = not return_hidden and out.shape[-1] < cfg.vocab_size
+    return shd.from_local_batch(out, B, split), aux, cache
 
 
 def _placed(cache):
@@ -177,14 +214,15 @@ def _forward(params: Model, cfg, tokens, *, enc_inp=None, cache=None,
     ``return_hidden``; with a zeroed ``cache`` each layer's prefill
     state (K/V, ring, recurrent state, the encoder's K/V) is written
     into it.  Under ``cfg.remat == "block"`` with autograd recording and
-    no cache, each decoder layer runs in one ``torch.utils.checkpoint``."""
+    no cache, each decoder layer runs in one ``torch.utils.checkpoint``.
+    Under ``"tp"`` the logits are the rank's block of the vocabulary."""
     cdt = getattr(torch, cfg.dtype)
     B, S = tokens.shape
-    with shd.gathered(params.embed):
-        x = embed_lookup(params.embed, tokens, cdt)
+    s = shd.residual_len(S, cfg)
+    x = _embed(params, cfg, tokens, s)
     pos = torch.arange(S, device=tokens.device)[None].expand(B, S)
     if cfg.pos_emb == "sinusoid":
-        x = x + _sinusoid(pos, cfg.d_model, cdt)
+        x = x + _sinusoid(shd.seq_part(pos, s), cfg.d_model, cdt)
     enc = None
     if enc_inp is not None:
         enc = (_encode(params, cfg, enc_inp) if cfg.encoder_layers
@@ -203,15 +241,15 @@ def _forward(params: Model, cfg, tokens, *, enc_inp=None, cache=None,
             x, aux = checkpoint(_layer, layer, x, pos, cfg, enc,
                                 use_reentrant=False)
         else:
-            with shd.gathered(layer):
+            with _weights(cfg, layer):
                 x, aux, c = tf.sublayer_apply(
                     layer, layer.kind, x, pos, cfg, enc=enc,
                     cache=cache[i] if cache is not None else None)
             if cache is not None:
                 new_cache.append(c)
         aux_total += aux
-    with shd.gathered(params.norm, params.lm_head):
-        x = rmsnorm(x, params.norm.scale, cfg.norm_eps)
+    with _weights(cfg, params.norm, params.lm_head):
+        x = shd.seq_gather(rmsnorm(x, params.norm.scale, cfg.norm_eps), S)
         if return_hidden:
             return x, aux_total, new_cache
         return logits_head(params.lm_head, x), aux_total, new_cache
@@ -219,9 +257,9 @@ def _forward(params: Model, cfg, tokens, *, enc_inp=None, cache=None,
 
 def _layer(layer, x, pos, cfg, enc):
     """One decoder layer without a cache: (x, aux), the unit that
-    ``remat="block"`` checkpoints (its weights gathered again in the
+    ``remat="block"`` checkpoints (its weights read again in the
     recompute)."""
-    with shd.gathered(layer):
+    with _weights(cfg, layer):
         x, aux, _ = tf.sublayer_apply(layer, layer.kind, x, pos, cfg,
                                       enc=enc)
     return x, aux
@@ -241,8 +279,9 @@ def _chunked_ce(params: Model, cfg, x, labels):
 
     def one(x_blk, l_blk):
         n = (l_blk != -1).float().sum()
-        with shd.gathered(params.lm_head):
-            ce = cross_entropy(logits_head(params.lm_head, x_blk), l_blk)
+        with _weights(cfg, params.lm_head):
+            ce = cross_entropy(logits_head(params.lm_head, x_blk), l_blk,
+                               vocab_offset=_vocab_offset(params, cfg))
         return ce * torch.clamp(n, min=1.0), n
 
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -270,16 +309,19 @@ def loss_fn(params: Model, cfg, batch):
     "enc_inp" (B, Senc, D) for a model with cross attention).  Returns
     (loss + AUX_LOSS_COEF * aux, {"ce": loss, "aux": aux}), float32
     scalars (on a mesh: the global batch's, on every rank)."""
-    tokens, labels = (shd.local_batch(batch[k], over_model=True)
+    rows = not shd.tp(cfg)  # "sp": the model axis splits rows too
+    tokens, labels = (shd.local_batch(batch[k], over_model=rows)
                       for k in ("tokens", "labels"))
-    enc_inp = shd.local_batch(batch.get("enc_inp"), over_model=True)
+    enc_inp = shd.local_batch(batch.get("enc_inp"), over_model=rows)
     if cfg.ce_chunk:
         x, aux, _ = _forward(params, cfg, tokens, enc_inp=enc_inp,
                              return_hidden=True)
         loss = _chunked_ce(params, cfg, x, labels)
     else:
         logits, aux, _ = _forward(params, cfg, tokens, enc_inp=enc_inp)
-        loss = cross_entropy(logits, labels)
+        voff = (shd.block_offset(logits.shape[-1], cfg.vocab_size)
+                if logits.shape[-1] < cfg.vocab_size else None)
+        loss = cross_entropy(logits, labels, vocab_offset=voff)
         if shd.get_mesh() is not None:
             n = (labels != -1).float().sum()
             loss = _batch_mean(loss * torch.clamp(n, min=1.0), n)
@@ -312,7 +354,8 @@ def prefill(params: Model, cfg, tokens, cache, *, enc_inp=None):
     logits, _, cache = _forward(params, cfg, shd.local_batch(tokens),
                                 enc_inp=shd.local_batch(enc_inp),
                                 cache=_placed(cache))
-    return shd.from_local_batch(logits[:, -1], tokens.shape[0]), cache
+    return shd.from_local_batch(logits[:, -1], tokens.shape[0],
+                                logits.shape[-1] < cfg.vocab_size), cache
 
 
 @torch.inference_mode()
@@ -322,19 +365,19 @@ def decode_step(params: Model, cfg, token, cache, cache_len: int):
     cdt = getattr(torch, cfg.dtype)
     B = token.shape[0]
     token, cache = shd.local_batch(token), _placed(cache)
-    with shd.gathered(params.embed):
-        x = embed_lookup(params.embed, token, cdt)
+    x = _embed(params, cfg, token, 1)
     if cfg.pos_emb == "sinusoid":
         pos = torch.full(token.shape, cache_len, dtype=torch.int32,
                          device=token.device)
         x = x + _sinusoid(pos, cfg.d_model, cdt)
     new_cache = []
     for layer, c in zip(params.layers, cache):
-        with shd.gathered(layer):
+        with _weights(cfg, layer):
             x, c, _ = tf.sublayer_decode(layer, layer.kind, x, c, cache_len,
                                          cfg)
         new_cache.append(c)
-    with shd.gathered(params.norm, params.lm_head):
+    with _weights(cfg, params.norm, params.lm_head):
         x = rmsnorm(x, params.norm.scale, cfg.norm_eps)
         logits = logits_head(params.lm_head, x)[:, -1]
-    return shd.from_local_batch(logits, B), new_cache
+    return shd.from_local_batch(logits, B,
+                                logits.shape[-1] < cfg.vocab_size), new_cache

@@ -15,16 +15,20 @@ summed back per token.
 Two paths, as in the reference (``moe_block`` picks one):
 
   zipper (production, ``_shardmap_moe``): on a mesh.  Each rank's tokens
-    are split over the model axis (sequence parallelism) when the
-    sequence divides, routed and zipper-sorted locally into per-expert
-    capacity bins, exchanged with one all_to_all over the model axis
-    (the experts are model-sharded), run through the rank's experts and
-    sent back by the inverse exchange, then combined through the
-    inverse permutation.  FSDP-sharded expert weights are all-gathered
-    over the data axis.
+    are its block of the sequence over the model axis when the sequence
+    divides (the reference's ``shard_map`` partition: under ``"tp"`` the
+    residual's block, which the block takes as it is), routed and
+    zipper-sorted locally into per-expert capacity bins, exchanged with
+    one all_to_all over the model axis (the experts are model-sharded),
+    run through the rank's experts and sent back by the inverse
+    exchange, then combined through the inverse permutation.
+    FSDP-sharded expert weights are all-gathered over the data axis.
   einsum (``_einsum_moe``): every token's assignments into one (E, cap,
     D) buffer; without a mesh every ``dispatch`` takes it, as in the
-    reference.
+    reference; on a mesh over the global batch.
+
+:func:`record_kept` collects each zipper call's tokens and the experts
+their assignments kept (the kept set the capacity leaves).
 
 Parameters mirror the reference tree: ``router.w`` (D, E) in float32,
 ``experts.w1``/``w3`` (E, D, F) and ``experts.w2`` (E, F, D), and
@@ -32,6 +36,7 @@ Parameters mirror the reference tree: ``router.w`` (D, E) in float32,
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import types
 
@@ -133,23 +138,26 @@ def _aux_loss(logits, ids, cfg):
     return E * torch.sum(hot.mean(0) * probs.mean(0))
 
 
-def moe_block(p: MoE, x, cfg, *, dispatch=None, gmm=None):
-    """x: (B, S, D) -> (out (B, S, D), aux_loss float32 scalar).  The
-    parts add in the reference's order: dense MLP, shared experts,
-    routed experts.  The routed part takes the einsum dispatch when
-    ``dispatch`` (default ``cfg.moe_dispatch``) is "einsum" or there is
-    no mesh, else the zipper dispatch over the mesh
-    (:func:`_shardmap_moe`); ``gmm`` as in :func:`_expert_ffn`."""
+def moe_block(p: MoE, x, cfg, *, dispatch=None, gmm=None, seq=None):
+    """x: (B, S, D) -> (out (B, S, D), aux_loss float32 scalar); under
+    ``"tp"`` x is the residual's block of a sequence of ``seq``
+    positions (default S: all of it), and so is out.  The parts add in
+    the reference's order: dense MLP, shared experts, routed experts.
+    The routed part takes the einsum dispatch when ``dispatch`` (default
+    ``cfg.moe_dispatch``) is "einsum" or there is no mesh, else the
+    zipper dispatch over the mesh (:func:`_shardmap_moe`); ``gmm`` as in
+    :func:`_expert_ffn`."""
     dispatch = dispatch or cfg.moe_dispatch
     out_parts = []
     if cfg.dense_residual:
-        out_parts.append(mlp(p.dense_mlp, x))
+        out_parts.append(mlp(p.dense_mlp, x, seq))
     if cfg.num_shared_experts:
-        out_parts.append(mlp(p.shared, x))
+        out_parts.append(mlp(p.shared, x, seq))
     if dispatch == "einsum" or shd.get_mesh() is None:
-        routed, aux = _einsum_moe(p, x, cfg, gmm=gmm)
+        routed, aux = _einsum_moe(p, x, cfg, gmm=gmm, seq=seq)
     else:
-        routed, aux = _shardmap_moe(p, x, cfg, gmm=gmm)
+        routed, aux = _shardmap_moe(p, x, cfg, gmm=gmm,
+                                    own_tokens=shd.tp(cfg))
     out_parts.append(routed)
     return functools.reduce(torch.add, out_parts), aux
 
@@ -176,19 +184,23 @@ def _assign(p: MoE, xt, cfg):
     return ids, w, logits, cap, pos, pos < cap
 
 
-def _einsum_moe(p: MoE, x, cfg, *, gmm=None):
+def _einsum_moe(p: MoE, x, cfg, *, gmm=None, seq=None):
     """The einsum dispatch over every token of the batch.  On a mesh
     each rank's block of the batch is all-gathered over the axes it is
-    split over (the reference's GSPMD runs this dispatch on the global
-    batch, whose capacity depends on its token count), the batch runs
-    with the whole expert weights, and the rank keeps its rows."""
+    split over, and its block of a sequence of ``seq`` positions over
+    the model axis (``"tp"``; the reference's GSPMD runs this dispatch
+    on the global batch, whose capacity depends on its token count);
+    the batch runs with the whole expert weights, and the rank keeps
+    its block."""
     if shd.get_mesh() is None:
         return _einsum_moe_local(p, p.experts, x, cfg, gmm=gmm)
+    s = x.shape[1]
+    x = shd.seq_gather(x, seq or s)
     axes = shd.batch_split()
     for a in reversed(axes):
         x = shd.all_gather(x, a, 0)
     out, aux = _einsum_moe_local(p, _expert_weights(p), x, cfg, gmm=gmm)
-    return (shd.batch_block(out) if axes else out), aux
+    return shd.seq_part(shd.batch_block(out) if axes else out, s), aux
 
 
 def _expert_weights(p: MoE, keep=()):
@@ -229,15 +241,37 @@ def _einsum_moe_local(p: MoE, we, x, cfg, *, gmm=None):
     return out.reshape(B, S, D), _aux_loss(logits, ids, cfg)
 
 
-def _shardmap_moe(p: MoE, x, cfg, *, gmm=None):
+_KEPT = None
+
+
+@contextlib.contextmanager
+def record_kept():
+    """Within the block, each :func:`_shardmap_moe` call appends to the
+    list this yields {"tokens": (T, D) the tokens it routed, "kept": (T,
+    k) int32 the expert of each assignment the capacity kept, -1 for a
+    dropped one}."""
+    global _KEPT
+    prev, _KEPT = _KEPT, []
+    try:
+        yield _KEPT
+    finally:
+        _KEPT = prev
+
+
+def _shardmap_moe(p: MoE, x, cfg, *, gmm=None, own_tokens=False):
     """The zipper dispatch on a mesh, the body of the reference's
     ``shard_map`` as each rank's program.  x: (B, S, D), the rank's block
     of the batch -> (out (B, S, D), aux float32 scalar, the same on
     every rank).
 
-    The rank routes its tokens: all of them when the batch is split over
-    the model axis (``sharding.batch_split``), else its 1/n_model of the
-    sequence when that divides (the reference's rule), else all of
+    The rank routes its tokens.  With ``own_tokens`` (``"tp"``) they
+    are ``x``: the residual's block of the sequence, which is the
+    reference's partition (or the whole sequence, when it does not
+    divide, as the reference's routing is then replicated over the
+    model axis).  Else (``"sp"``) all of ``x`` when the batch is split
+    over the model axis (``sharding.batch_split``: a departure from the
+    reference, whose ranks route sequence blocks), else its 1/n_model of
+    the sequence when that divides (the reference's rule), else all of
     them.  It zipper-sorts the (expert, slot) stream
     and packs each expert's kept assignments into an (E, cap, D) buffer,
     cap = ``_capacity(T_loc, ...)``.  One all_to_all over the model axis
@@ -255,8 +289,8 @@ def _shardmap_moe(p: MoE, x, cfg, *, gmm=None):
     # the model axis's ranks hold different rows (training), or split the
     # sequence when the shape allows it (prefill); decode (S < n_model)
     # replicates routing over the model axis; the experts stay sharded
-    seq_shard = ("model" not in shd.batch_split() and S % n_model == 0
-                 and S >= n_model)
+    seq_shard = (not own_tokens and "model" not in shd.batch_split()
+                 and S % n_model == 0 and S >= n_model)
     s_loc = S // n_model if seq_shard else S
     xl = x.narrow(1, shd.get_mesh().get_local_rank("model") * s_loc, s_loc) \
         if seq_shard else x
@@ -281,6 +315,10 @@ def _shardmap_moe(p: MoE, x, cfg, *, gmm=None):
     pos_sorted = (torch.cumsum(hot, dim=0) - hot).gather(
         1, sorted_ids[:, None])[:, 0]
     keep = pos_sorted < cap
+    if _KEPT is not None:
+        kept = torch.empty_like(flat_ids)
+        kept[perm] = torch.where(keep, sorted_ids, -1).to(kept.dtype)
+        _KEPT.append({"tokens": xt.detach(), "kept": kept.view(T, k)})
     tok_sorted = perm // k
     # kept assignments own distinct (expert, pos) slots; dropped ones go
     # to one spare row past the buffer, which is cut off

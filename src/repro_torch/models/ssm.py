@@ -14,6 +14,21 @@ What differs in form, not in result:
 - RG-LRU's ``lax.associative_scan`` is a log-depth doubling scan of the
   pairs (a, b) with the reference's combine: ceil(log2 S) steps over the
   whole sequence, not a loop over S.
+
+Under ``layer_layout="tp"`` (``distributed/sharding.py``) a block runs
+on the rules' model dimension: ``in_proj`` (f, model), ``conv`` (None,
+model), the per-channel or per-head parameters (model) and ``out_proj``
+(model, f) hold the rank's block where their dim divides the model axis
+(else all of it).  The conv and the scan then run per channel (RG-LRU)
+or per head (SSD) on the rank's block, the recurrent state is the
+rank's block of the cache's, and ``out_proj`` is row-parallel
+(:func:`out_partial`).  What a rank's channels need from other ranks is
+all-gathered over the model axis along the width: RG-LRU's gates read
+every channel of the conv's output (``a_gate``/``x_gate`` split by
+output channel); SSD's ``in_proj`` and conv split its concatenated
+(z, x, B, C, dt) width evenly, not by head, so both outputs are
+gathered and each rank takes its heads' channels and the shared B, C.
+With whole weights every gather and cut is the identity.
 """
 from __future__ import annotations
 
@@ -21,7 +36,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import Dense, RMSNorm, gelu, normal, silu
+from repro_torch.distributed import sharding as shd
+from repro_torch.models.layers import (Dense, RMSNorm, dense, gelu, normal,
+                                       silu)
 
 
 def _f32(value, shape, device):
@@ -105,16 +122,63 @@ def ssd_init(cfg, dtype, *, generator, device=None) -> SSD:
     return SSD(cfg, dtype, generator=generator, device=device)
 
 
+def _whole(t, full: int):
+    """``t`` with its last dim holding the rank's block of ``full``
+    channels -> every channel (all-gathered over the model axis); ``t``
+    when it holds them all."""
+    return t if t.shape[-1] == full else shd.all_gather(t, "model",
+                                                        t.ndim - 1)
+
+
+def out_partial(p, kind, cfg) -> bool:
+    """Whether the block's output is the rank's share of a sum over the
+    model axis: its ``out_proj`` holds a block of its rows."""
+    D = cfg.d_model
+    width = (cfg.rnn_width or D) if kind == "rglru" else cfg.ssm_expand * D
+    return p.out_proj.w.shape[0] < width
+
+
 def _ssd_split(p: SSD, x, cfg):
+    """(z, xbc, dt, inner, N, H) of x: every channel (``in_proj``'s block
+    all-gathered under ``"tp"``)."""
     D = cfg.d_model
     inner = cfg.ssm_expand * D
     N = cfg.ssm_state
     H = inner // cfg.ssm_head_dim
-    zxbcdt = p.in_proj(x)
+    zxbcdt = _whole(p.in_proj(x), 2 * inner + 2 * N + H)
     z = zxbcdt[..., :inner]
     xbc = zxbcdt[..., inner:inner + inner + 2 * N]
     dt = zxbcdt[..., -H:]
     return z, xbc, dt, inner, N, H
+
+
+def _ssd_conv_in(p: SSD, xbc):
+    """The conv's block of ``xbc``'s channels: the rank's under ``"tp"``
+    (``conv.w`` holds a block of them), else all."""
+    n = p.conv.w.shape[1]
+    return xbc.narrow(-1, shd.block_offset(n, xbc.shape[-1]), n)
+
+
+def _ssd_heads(p: SSD, H: int):
+    """(first head, heads) of the rank's block (``a_param``'s)."""
+    n = p.a_param.shape[0]
+    return shd.block_offset(n, H), n
+
+
+def _ssd_out(p: SSD, y, z, lo: int, P_: int, cfg):
+    """The gated, scaled output of the rank's heads ``y`` (B, S, Hl·P)
+    (channels lo·P on of the inner width) through ``out_proj``: whole
+    (then so are the heads: H divides the model axis only if H·P does),
+    or its block of rows, which y holds (all heads, or the same block)."""
+    c0 = lo * P_
+    n = y.shape[-1]
+    y = y * silu(z[..., c0:c0 + n])
+    y = y * p.norm.scale[c0:c0 + n].to(y.dtype)  # gated RMS-ish scale
+    w = p.out_proj.w
+    rows = w.shape[0]
+    if rows < n:
+        y = y.narrow(-1, shd.block_offset(rows, n), rows)
+    return dense(y, w)
 
 
 def ssd_forward(p: SSD, x, cfg):
@@ -122,13 +186,15 @@ def ssd_forward(p: SSD, x, cfg):
     final_state (B, H, P, N) float32, conv_tail (B, cw-1, conv_ch))."""
     B, S, D = x.shape
     z, xbc, dt, inner, N, H = _ssd_split(p, x, cfg)
-    conv_tail = _conv_tail(xbc, cfg.conv_width)
-    xbc = silu(conv1d(p.conv, xbc))
+    xbc_own = _ssd_conv_in(p, xbc)
+    conv_tail = _conv_tail(xbc_own, cfg.conv_width)
+    xbc = _whole(silu(conv1d(p.conv, xbc_own)), xbc.shape[-1])
     P_ = cfg.ssm_head_dim
-    xs = xbc[..., :inner].reshape(B, S, H, P_)
+    lo, H = _ssd_heads(p, H)  # the rank's heads
+    xs = xbc[..., lo * P_:(lo + H) * P_].reshape(B, S, H, P_)
     Bm = xbc[..., inner:inner + N]
     Cm = xbc[..., inner + N:]
-    dt = softplus(dt.float() + p.dt_bias)
+    dt = softplus(dt[..., lo:lo + H].float() + p.dt_bias)
     A = -torch.exp(p.a_param)             # (H,) negative
     adt = A * dt                          # (B, S, H) log-decay per step
     dtx = xs.float() * dt[..., None]
@@ -173,33 +239,33 @@ def ssd_forward(p: SSD, x, cfg):
         * torch.exp(cum)[..., None]
     y = (y_intra + y_inter).reshape(B, S, H, P_)[:, :S_orig]
     y = y + p.d_skip[None, None, :, None] * xs.float()
-    y = y.reshape(B, S_orig, inner).to(x.dtype)
-    y = y * silu(z)
-    y = y * p.norm.scale.to(x.dtype)  # gated RMS-ish scale
-    return p.out_proj(y), h, conv_tail
+    y = y.reshape(B, S_orig, H * P_).to(x.dtype)
+    return _ssd_out(p, y, z, lo, P_, cfg), h, conv_tail
 
 
 def ssd_decode(p: SSD, x, state, conv_cache, cfg):
     """x: (B, 1, D); state: (B, H, P, N) float32; conv_cache: (B, cw-1,
-    conv_ch).  Returns (y, state, conv_cache)."""
+    conv_ch) (under ``"tp"`` the rank's heads and conv channels).
+    Returns (y, state, conv_cache)."""
     B = x.shape[0]
     z, xbc, dt, inner, N, H = _ssd_split(p, x, cfg)
-    xbc, conv_cache = conv1d_step(p.conv, xbc, conv_cache)
-    xbc = silu(xbc)
+    xbc_own, conv_cache = conv1d_step(p.conv, _ssd_conv_in(p, xbc),
+                                      conv_cache)
+    xbc = _whole(silu(xbc_own), xbc.shape[-1])
     P_ = cfg.ssm_head_dim
-    xs = xbc[..., :inner].reshape(B, H, P_)
+    lo, H = _ssd_heads(p, H)  # the rank's heads
+    xs = xbc[..., lo * P_:(lo + H) * P_].reshape(B, H, P_)
     Bm = xbc[:, 0, inner:inner + N].float()
     Cm = xbc[:, 0, inner + N:].float()
-    dt = softplus(dt[:, 0].float() + p.dt_bias)            # (B, H)
+    dt = softplus(dt[:, 0, lo:lo + H].float() + p.dt_bias)  # (B, H)
     a = torch.exp(-torch.exp(p.a_param) * dt)               # (B, H)
     dtx = xs.float() * dt[..., None]
     state = state * a[..., None, None] + \
         torch.einsum("bhp,bn->bhpn", dtx, Bm)
     y = torch.einsum("bhpn,bn->bhp", state, Cm)
     y = y + p.d_skip[None, :, None] * xs.float()
-    y = y.reshape(B, 1, inner).to(x.dtype)
-    y = y * silu(z) * p.norm.scale.to(x.dtype)
-    return p.out_proj(y), state, conv_cache
+    y = y.reshape(B, 1, H * P_).to(x.dtype)
+    return _ssd_out(p, y, z, lo, P_, cfg), state, conv_cache
 
 
 # ---------------------------------------------------------------------------
@@ -233,10 +299,32 @@ def rglru_init(cfg, dtype, *, generator, device=None) -> RGLRU:
     return RGLRU(cfg, dtype, generator=generator, device=device)
 
 
+def _rglru_gate(p: RGLRU, x):
+    """gelu(gate_proj x) on the rank's channels (``gate_proj`` is whole
+    on every rank: the rules leave it replicated)."""
+    w, n = p.gate_proj.w, p.in_proj.w.shape[1]
+    if n < w.shape[1]:
+        w = w.narrow(1, shd.block_offset(n, w.shape[1]), n)
+    return gelu(dense(x, w))
+
+
+def _gate_dense(g: Dense, xr_all, n: int):
+    """``g`` (w -> w, its weight split by output channel under ``"tp"``)
+    on every channel ``xr_all``, for the rank's ``n`` output channels."""
+    b = g.b
+    if n < b.shape[0]:
+        b = b.narrow(0, shd.block_offset(n, b.shape[0]), n)
+    return dense(xr_all, g.w, b)
+
+
 def _rglru_gates(p: RGLRU, xr):
-    """(a, b) of h_t = a_t h_{t-1} + b_t, both float32."""
-    r = torch.sigmoid(p.a_gate(xr).float())
-    i = torch.sigmoid(p.x_gate(xr).float())
+    """(a, b) of h_t = a_t h_{t-1} + b_t, both float32, on the channels
+    of ``xr`` (the rank's under ``"tp"``: the gates read every channel,
+    all-gathered)."""
+    xr_all = _whole(xr, p.a_gate.b.shape[0])
+    n = xr.shape[-1]
+    r = torch.sigmoid(_gate_dense(p.a_gate, xr_all, n).float())
+    i = torch.sigmoid(_gate_dense(p.x_gate, xr_all, n).float())
     log_a = -RGLRU_C * softplus(p.a_param) * r
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * xr.float())
@@ -259,8 +347,10 @@ def linear_scan(a, b):
 
 
 def rglru_forward(p: RGLRU, x, cfg):
-    """x: (B, S, D) -> (y, final_state (B, w) float32, conv_tail)."""
-    gate = gelu(p.gate_proj(x))
+    """x: (B, S, D) -> (y, final_state (B, w) float32, conv_tail); under
+    ``"tp"`` the state and the tail are the rank's channels, and y a
+    share of the sum."""
+    gate = _rglru_gate(p, x)
     xr_raw = p.in_proj(x)
     conv_tail = _conv_tail(xr_raw, cfg.conv_width)
     xr = conv1d(p.conv, xr_raw)
@@ -271,9 +361,9 @@ def rglru_forward(p: RGLRU, x, cfg):
 
 
 def rglru_decode(p: RGLRU, x, state, conv_cache, cfg):
-    """x: (B, 1, D); state: (B, w) float32.  Returns (y, state,
-    conv_cache)."""
-    gate = gelu(p.gate_proj(x))
+    """x: (B, 1, D); state: (B, w) float32 (the rank's channels under
+    ``"tp"``).  Returns (y, state, conv_cache)."""
+    gate = _rglru_gate(p, x)
     xr, conv_cache = conv1d_step(p.conv, p.in_proj(x), conv_cache)
     a, b = _rglru_gates(p, xr)
     state = a[:, 0] * state + b[:, 0]

@@ -28,9 +28,20 @@ parameter subtree, and return what the reference returns.
 On a mesh (``distributed/sharding.py``) a cache of DTensors
 (``launch.steps.cache_shardings``) is read and written in local form:
 each rank writes the prompt positions (or ring slots) of its block of
-the sequence dim, and the recurrent blocks' state, split over the model
-axis along its width, is all-gathered for the step and cut back to the
-rank's block after it.
+the sequence dim.  The recurrent blocks' state is split over the model
+axis along its width: under ``"sp"`` it is all-gathered for the step
+and cut back to the rank's block after it; under ``"tp"`` the rank's
+recurrent block runs its own channels, and the state stays split.
+
+Under ``layer_layout="tp"`` (the reference's Megatron-SP) ``x`` is the
+residual's block of the sequence (``sharding.residual_len``): each
+sublayer norms its block, all-gathers the sequence, runs its mixer and
+FFN on the rank's weight shards and reduce-scatters their partial sums
+back onto the block (``sharding.seq_gather``, ``seq_scatter``); the
+MoE block routes the block's tokens.  A prefill whose K/V are the
+rank's heads moves them to the cache's sequence blocks in one
+all_to_all (``sharding.heads_to_seq``), which is where the reference's
+``prefill_cache_seqshard`` pins them.
 """
 from __future__ import annotations
 
@@ -101,17 +112,27 @@ def sublayer_init(kind, cfg, *, generator, device=None, use_moe=True):
                  use_moe=use_moe)
 
 
-def _ffn_apply(p: Block, x, cfg):
-    """The block's FFN on x: (y, MoE aux loss or 0.0)."""
+def _ffn_apply(p: Block, x, cfg, seq):
+    """The block's FFN on x, the residual's block of a sequence of
+    ``seq`` positions: (y on that block, MoE aux loss or 0.0)."""
     if cfg.moe and p.use_moe:
-        return moe_mod.moe_block(p.ffn, x, cfg)
-    return mlp(p.ffn, x), 0.0
+        return moe_mod.moe_block(p.ffn, x, cfg, seq=seq)
+    return mlp(p.ffn, x, seq), 0.0
 
 
-def _with_ffn(p: Block, x, cfg):
+def _with_ffn(p: Block, x, cfg, seq):
     """x + FFN(norm2(x)), and the FFN's aux loss."""
-    y, aux = _ffn_apply(p, rmsnorm(x, p.norm2.scale, cfg.norm_eps), cfg)
+    y, aux = _ffn_apply(p, rmsnorm(x, p.norm2.scale, cfg.norm_eps), cfg,
+                        seq)
     return x + y, aux
+
+
+def _mixer_partial(p: Block, kind, cfg) -> bool:
+    """Whether the mixer's output is the rank's share of a sum over the
+    model axis (its output projection row-parallel, ``"tp"``)."""
+    if kind in ("rglru", "ssd"):
+        return ssm.out_partial(p.mixer, kind, cfg)
+    return attn.out_partial(p.mixer, cfg)
 
 
 def sublayer_apply(p: Block, kind, x, pos, cfg, *, enc=None, causal=True,
@@ -121,17 +142,20 @@ def sublayer_apply(p: Block, kind, x, pos, cfg, *, enc=None, causal=True,
     states, which a ``cross_attn`` layer attends.  Returns (x, aux,
     cache): ``aux`` is the MoE load-balance loss (0.0 for a dense FFN);
     ``cache`` is the populated prefill cache when a (zeroed) cache is
-    passed, else None."""
-    h = rmsnorm(x, p.norm1.scale, cfg.norm_eps)
+    passed, else None.  ``x`` is the residual's block of the ``pos``
+    sequence under ``"tp"`` (module docstring)."""
+    S, s = pos.shape[1], x.shape[1]
+    h = shd.seq_gather(rmsnorm(x, p.norm1.scale, cfg.norm_eps), S)
     if kind == "ssd":
         y, hstate, conv_tail = ssm.ssd_forward(p.mixer, h, cfg)
         if cache is not None:
-            cache = _recurrent_cache(cache, hstate, conv_tail)
-        return x + y, 0.0, cache
+            cache = _recurrent_cache(cache, hstate, conv_tail, cfg)
+        return x + shd.seq_scatter(y, s, _mixer_partial(p, kind, cfg)), \
+            0.0, cache
     if kind == "rglru":
         y, hstate, conv_tail = ssm.rglru_forward(p.mixer, h, cfg)
         if cache is not None:
-            cache = _recurrent_cache(cache, hstate, conv_tail)
+            cache = _recurrent_cache(cache, hstate, conv_tail, cfg)
     elif cfg.mla:
         y, c_kv, kr = attn.mla_forward(p.mixer, h, pos, cfg)
         if cache is not None:
@@ -142,11 +166,12 @@ def sublayer_apply(p: Block, kind, x, pos, cfg, *, enc=None, causal=True,
         y, k, v = attn.gqa_forward(p.mixer, h, pos, cfg, causal=causal,
                                    window=window)
         if cache is not None:
-            cache = (_ring_prefill(cache, k, v, pos, window) if window
-                     else sublayer_prefill_cache(cache, k, v))
-    x = x + y
+            cache = (_ring_prefill(cache, *attn.all_kv_heads(k, v, cfg),
+                                   pos, window) if window
+                     else _prefill_kv(cache, k, v, cfg))
+    x = x + shd.seq_scatter(y, s, _mixer_partial(p, kind, cfg))
     if kind == "cross_attn":
-        hx = rmsnorm(x, p.normx.scale, cfg.norm_eps)
+        hx = shd.seq_gather(rmsnorm(x, p.normx.scale, cfg.norm_eps), S)
         # without enc the reference attends hx itself, with rope, through
         # xattn; the model refuses that case (model.forward)
         yx, ek, ev = attn.gqa_forward(p.xattn, hx, pos, cfg, kv_override=enc)
@@ -154,10 +179,11 @@ def sublayer_apply(p: Block, kind, x, pos, cfg, *, enc=None, causal=True,
             # the entries are replaced, as the reference's are, whatever
             # enc_len the cache was made with
             dt = cache["enc_k"].dtype
-            cache = dict(cache, enc_k=shd.to_cache(ek.to(dt), cache["enc_k"]),
-                         enc_v=shd.to_cache(ev.to(dt), cache["enc_v"]))
-        x = x + yx
-    x, aux = _with_ffn(p, x, cfg)
+            cache = dict(cache, **{
+                n: _kv_to_cache(t.to(dt), cache[n], cfg)
+                for n, t in (("enc_k", ek), ("enc_v", ev))})
+        x = x + shd.seq_scatter(yx, s, attn.out_partial(p.xattn, cfg))
+    x, aux = _with_ffn(p, x, cfg, S)
     return x, aux, cache
 
 
@@ -201,16 +227,17 @@ def sublayer_cache(kind, cfg, batch, smax, enc_len=0):
 # ---------------------------------------------------------------------------
 
 def sublayer_decode(p: Block, kind, x, cache, cache_len, cfg):
-    """One token through the sublayer.  Returns (x, cache, aux)."""
+    """One token through the sublayer.  Returns (x, cache, aux).  ``x``
+    (B, 1, D) is whole on every rank of the model axis; under ``"tp"``
+    the mixer's and FFN's partial sums are all-reduced over it."""
     h = rmsnorm(x, p.norm1.scale, cfg.norm_eps)
     if kind in ("rglru", "ssd"):
         step = ssm.rglru_decode if kind == "rglru" else ssm.ssd_decode
-        y, hs, conv = step(p.mixer, h, shd.from_cache(cache["h"]),
-                           shd.from_cache(cache["conv"]), cfg)
-        cache = dict(cache, h=shd.to_cache(hs, cache["h"]),
-                     conv=shd.to_cache(conv, cache["conv"]))
-        if kind == "ssd":
-            return x + y, cache, 0.0
+        own = shd.tp(cfg)  # the rank's channels: the state stays split
+        y, hs, conv = step(p.mixer, h, shd.from_cache(cache["h"], own),
+                           shd.from_cache(cache["conv"], own), cfg)
+        cache = dict(cache, h=shd.to_cache(hs, cache["h"], own),
+                     conv=shd.to_cache(conv, cache["conv"], own))
     elif kind == "local_attn":
         y, cache = _local_ring_decode(p.mixer, h, cache, cache_len, cfg)
     elif cfg.mla:
@@ -221,12 +248,15 @@ def sublayer_decode(p: Block, kind, x, cache, cache_len, cfg):
         y, ck, cv = attn.gqa_decode(p.mixer, h, cache["k"], cache["v"],
                                     cache_len, cfg)
         cache = dict(cache, k=ck, v=cv)
-    x = x + y
+    x = x + shd.seq_scatter(y, 1, _mixer_partial(p, kind, cfg))
+    if kind == "ssd":
+        return x, cache, 0.0
     if kind == "cross_attn":
         hx = rmsnorm(x, p.normx.scale, cfg.norm_eps)
-        x = x + _cross_decode(p.xattn, hx, cache["enc_k"], cache["enc_v"],
-                              cfg)
-    x, aux = _with_ffn(p, x, cfg)
+        x = x + shd.seq_scatter(
+            _cross_decode(p.xattn, hx, cache["enc_k"], cache["enc_v"], cfg),
+            1, attn.out_partial(p.xattn, cfg))
+    x, aux = _with_ffn(p, x, cfg, 1)
     return x, cache, aux
 
 
@@ -236,7 +266,9 @@ def _cross_decode(p: attn.GQA, x, enc_k, enc_v, cfg):
     position, no mask."""
     B = x.shape[0]
     hd = cfg.resolved_head_dim
-    q = p.wq(x)  # (B, 1, H, hd)
+    q = p.wq(x)  # (B, 1, H, hd): the rank's heads under "tp"
+    n_q = q.shape[2]
+    q = attn.all_heads(q, cfg)
     (ek, _, split, _), (ev, _, _, _) = (attn.seq_block(enc_k),
                                         attn.seq_block(enc_v))
     KVH = ek.shape[2]
@@ -245,8 +277,8 @@ def _cross_decode(p: attn.GQA, x, enc_k, enc_v, cfg):
     s = torch.einsum("bkgd,bskd->bkgs", qg.float(), ek.float()) * hd ** -0.5
     out = attn.attend(s, lambda pr: torch.einsum("bkgs,bskd->bkgd", pr,
                                                  ev.float()), split)
-    out = out.reshape(B, 1, cfg.num_heads, hd).to(x.dtype)
-    return torch.einsum("bshd,hdo->bso", out, p.wo.w.to(x.dtype))
+    out = attn.own_heads(out.reshape(B, 1, cfg.num_heads, hd), n_q, cfg)
+    return torch.einsum("bshd,hdo->bso", out.to(x.dtype), p.wo.w.to(x.dtype))
 
 
 def _local_ring_decode(p: attn.GQA, x, cache, cache_len: int, cfg):
@@ -262,6 +294,9 @@ def _local_ring_decode(p: attn.GQA, x, cache, cache_len: int, cfg):
     q = rope(p.wq(x), pos, cfg.rope_theta)
     k_new = rope(p.wk(x), pos, cfg.rope_theta)
     v_new = p.wv(x)
+    n_q = q.shape[2]  # the rank's query heads (``"tp"``: a block)
+    q = attn.all_heads(q, cfg)
+    k_new, v_new = attn.all_kv_heads(k_new, v_new, cfg)
     (ck, off, split, wrap), (cv, _, _, wv), (sp, _, _, ws) = (
         attn.seq_block(cache["k"]), attn.seq_block(cache["v"]),
         attn.seq_block(cache["slot_pos"]))
@@ -281,14 +316,43 @@ def _local_ring_decode(p: attn.GQA, x, cache, cache_len: int, cfg):
     s = torch.where(valid[:, None, None], s, attn.NEG_INF)
     out = attn.attend(s, lambda pr: torch.einsum("bkgs,bskd->bkgd", pr,
                                                  cv.float()), split)
-    out = out.reshape(B, 1, cfg.num_heads, hd).to(x.dtype)
-    y = torch.einsum("bshd,hdo->bso", out, p.wo.w.to(x.dtype))
+    out = attn.own_heads(out.reshape(B, 1, cfg.num_heads, hd), n_q, cfg)
+    y = torch.einsum("bshd,hdo->bso", out.to(x.dtype), p.wo.w.to(x.dtype))
     return y, dict(cache, k=wrap(ck), v=wv(cv), slot_pos=ws(spos))
 
 
 # ---------------------------------------------------------------------------
 # prefill-time cache population
 # ---------------------------------------------------------------------------
+
+def _prefill_kv(cache, k, v, cfg):
+    """An attention cache after the prompt's K/V (B, S, KVl, hd): when
+    they hold the rank's block of heads and the cache's positions split
+    over the model axis (``"tp"``), moved from heads to the cache's
+    sequence blocks in one all_to_all (the prompt padded to the cache's
+    length: ``sharding.heads_to_seq``), each rank writing its block;
+    else :func:`sublayer_prefill_cache` with every head."""
+    if k.shape[2] == cfg.num_kv_heads or not attn.seq_block(cache["k"])[2]:
+        return sublayer_prefill_cache(cache, *attn.all_kv_heads(k, v, cfg))
+    S, smax = k.shape[1], cache["k"].shape[1]
+    kv = torch.stack([k, v]).flatten(0, 1)
+    kv = torch.nn.functional.pad(kv, (0, 0, 0, 0, 0, smax - S))
+    kv = shd.heads_to_seq(kv).unflatten(0, (2, -1))
+    return dict(cache, k=_write_prefix(cache["k"], kv[0], S),
+                v=_write_prefix(cache["v"], kv[1], S))
+
+
+def _kv_to_cache(val, like, cfg):
+    """``val`` (B, L, KVl, hd), the encoder's K/V as projected, as the
+    cross-attention cache entry ``like`` (every head at the rank's block
+    of positions)."""
+    if val.shape[2] == cfg.num_kv_heads:
+        return shd.to_cache(val, like)
+    _, _, split, _ = attn.seq_block(like)
+    if split:
+        return shd.to_cache(shd.heads_to_seq(val), like, block=True)
+    return shd.to_cache(attn.all_heads(val, cfg, 2, cfg.num_kv_heads), like)
+
 
 def sublayer_prefill_cache(cache, k, v):
     """Populate a zeroed cache from the full prompt's K/V (after rope),
@@ -327,18 +391,26 @@ def _ring_prefill(cache, k, v, pos, W):
     return cache
 
 
-def _recurrent_cache(cache, hstate, conv_tail):
+def _recurrent_cache(cache, hstate, conv_tail, cfg):
     """A recurrent block's cache after the prompt: its final state and
-    the last cw - 1 inputs of its conv."""
-    return dict(cache, h=shd.to_cache(hstate, cache["h"]),
+    the last cw - 1 inputs of its conv (under ``"tp"`` the rank's
+    channels: its block of the cache)."""
+    own = shd.tp(cfg)
+    return dict(cache, h=shd.to_cache(hstate, cache["h"], own),
                 conv=shd.to_cache(conv_tail.to(cache["conv"].dtype),
-                                  cache["conv"]))
+                                  cache["conv"], own))
 
 
-def _write_prefix(buf, val):
-    """Write ``val`` into the first positions of ``buf``, in place; a
-    rank of a mesh writes the positions of its block."""
+def _write_prefix(buf, val, length=None):
+    """Write ``val``, the prompt's entries, into the first positions of
+    ``buf``, in place; a rank of a mesh writes the positions of its
+    block.  With ``length`` ``val`` is already the rank's block of the
+    cache's positions, of a prompt of ``length``."""
     local, off, split, _ = attn.seq_block(buf)
+    if length is not None:
+        n = max(0, min(length - off, local.shape[1]))
+        local[:, :n] = val[:, :n].to(local.dtype)
+        return buf
     n = (max(0, min(val.shape[1] - off, local.shape[1])) if split
          else val.shape[1])
     local[:, :n] = val[:, off:off + n].to(local.dtype)

@@ -378,6 +378,10 @@ def test_lower_cell_tinyllama_train_4k_record_is_complete():
     assert mem["output_bytes_per_device"] > 0
     assert cost["flops_per_device"] > 0 and cost["bytes_per_device"] > 0
     assert coll["counts"]["all_gather"] and coll["counts"]["all_reduce"]
+    # "tp": the sequence all-gathered and reduce-scattered around each
+    # sublayer, no weight all-gathered over the model axis
+    assert coll["counts"]["reduce_scatter"]
+    assert "model" not in coll["weight_bytes_by_axis"]
     assert coll["total_bytes"] == sum(coll["bytes"].values()) == \
         sum(coll["bytes_by_axis"].values()) > 0
     assert rl["dominant"] in ("compute_s", "memory_s", "collective_s")

@@ -94,11 +94,18 @@ def _inputs(root):
     for case, arch, shape in (("deepseek", R.DEEPSEEK_ARCH, R.DEEPSEEK_TOKENS),
                               ("train", R.TRAIN_ARCH, R.TRAIN_BATCH),
                               ("decode", R.DECODE_ARCH, R.DECODE_PROMPT),
-                              ("reshard", R.RESHARD_ARCH, R.RESHARD_TOKENS)):
+                              ("reshard", R.RESHARD_ARCH, R.RESHARD_TOKENS)
+                              ) + tuple(
+            (f"tp_decode/{a}", a, R.DECODE_PROMPT)
+            for a in R.TP_DECODE_ARCHS if a != R.DECODE_ARCH):
         c = _jcfg(arch)
         _put(z, f"{case}/params", JM.init_params(c, key))
         z[f"{case}/tokens"] = rng.integers(0, c.vocab_size, shape).astype(
             np.int32)
+    c = _jcfg(R.MOE_ARCH, **R.KEPT_OV)
+    _put(z, "kept/params", JM.init_params(c, key))
+    z["kept/tokens"] = rng.integers(0, c.vocab_size, R.KEPT_TOKENS).astype(
+        np.int32)
     # the checkpoint reshard_restore reads: saved with no mesh
     ck = root / "reshard-ckpt"
     model = params_from_jax(_tree(z, "reshard/params"),
@@ -162,16 +169,39 @@ def _reference(z):
     for name, t in new.named_parameters():
         ref[f"train/params/{name}"] = t.detach().numpy()
 
-    cfg = _jcfg(R.DECODE_ARCH)
-    params = _tree(z, "decode/params")
-    toks = jnp.asarray(z["decode/tokens"])
-    cache = JM.init_cache(cfg, toks.shape[0], R.DECODE_SMAX)
-    lg, cache = jax.jit(lambda p, t, c: JM.prefill(p, cfg, t, c))(
-        params, toks, cache)
-    d, _ = jax.jit(lambda p, t, c: JM.decode_step(
-        p, cfg, t, c, jnp.int32(R.DECODE_PROMPT[1])))(params, toks[:, :1],
-                                                      cache)
-    ref["decode/prefill"], ref["decode/logits"] = np.asarray(lg), np.asarray(d)
+    for arch in R.TP_DECODE_ARCHS:
+        pre = "decode" if arch == R.DECODE_ARCH else f"tp_decode/{arch}"
+        cfg = _jcfg(arch)
+        params = _tree(z, f"{pre}/params")
+        toks = jnp.asarray(z[f"{pre}/tokens"])
+        cache = JM.init_cache(cfg, toks.shape[0], R.DECODE_SMAX)
+        lg, cache = jax.jit(lambda p, t, c: JM.prefill(p, cfg, t, c))(
+            params, toks, cache)
+        d, _ = jax.jit(lambda p, t, c: JM.decode_step(
+            p, cfg, t, c, jnp.int32(R.DECODE_PROMPT[1])))(
+                params, toks[:, :1], cache)
+        ref[f"{pre}/prefill"], ref[f"{pre}/logits"] = (np.asarray(lg),
+                                                       np.asarray(d))
+
+    # the MoE block's input in one Arctic layer (its moe_block wrapped to
+    # hand what it is given to the host)
+    cfg = _jcfg(R.MOE_ARCH, **R.KEPT_OV)
+    seen = []
+    block = jmoe.moe_block
+
+    def keep_input(p, x, c, **kw):
+        jax.debug.callback(lambda v: seen.append(np.asarray(v)), x)
+        return block(p, x, c, **kw)
+    jmoe.moe_block = keep_input
+    try:
+        JM.forward(_tree(z, "kept/params"), cfg,
+                   jnp.asarray(z["kept/tokens"]))
+    finally:
+        jmoe.moe_block = block
+    ref["kept/moe_in"] = seen[0]
+    w, = (v for k, v in z.items()
+          if k.startswith("kept/params/") and k.endswith("ffn/router/w"))
+    ref["kept/router"] = w.reshape(w.shape[-2:])  # the one layer's
 
     cfg = _jcfg(R.RESHARD_ARCH, fsdp=True)
     ref["reshard/logits"] = np.asarray(jax.jit(
@@ -320,9 +350,10 @@ def test_deepseek_forward_on_mesh_matches_single_device(mesh_run):
 
 
 def test_deepseek_forward_with_rows_split_over_model_axis(mesh_run):
-    """A batch that divides by every rank is split over the data and the
-    model axis together (one row per rank here): the zipper dispatch
-    routes each rank's rows whole, and the logits are the same."""
+    """Under ``layer_layout="sp"`` a batch that divides by every rank is
+    split over the data and the model axis together (one row per rank
+    here): the zipper dispatch routes each rank's rows whole, and the
+    logits are the same."""
     ref, ranks = mesh_run
     _ok(ranks, "deepseek")
     for out in ranks:
@@ -331,6 +362,7 @@ def test_deepseek_forward_with_rows_split_over_model_axis(mesh_run):
 
 
 def test_sharded_train_step_matches_single_device(mesh_run):
+    """Under ``layer_layout="sp"``: rows over the data and model axes."""
     ref, ranks = mesh_run
     _ok(ranks, "train")
     for out in ranks:
@@ -349,6 +381,140 @@ def test_decode_with_sharded_cache_matches_single_device(mesh_run):
     for out in ranks:
         assert _err(out["decode/prefill"], ref["decode/prefill"]) < 1e-4
         assert _err(out["decode/logits"], ref["decode/logits"]) < 1e-4
+
+
+def test_tp_train_step_matches_single_device(mesh_run):
+    """``"tp"``: the batch split over the data axis only, loss and every
+    weight after the step within 1e-4 of the reference's jitted step."""
+    ref, ranks = mesh_run
+    _ok(ranks, "tp_train")
+    for out in ranks:
+        assert str(out["tp_train/split"]) == "('data',)"
+        assert abs(float(out["tp_train/loss"]) - float(ref["train/loss"])) \
+            < 1e-4
+        names = [k for k in ref if k.startswith("train/params/")]
+        for k in names:
+            assert _err(out["tp_" + k], ref[k]) < 1e-4, k
+
+
+def test_tp_deepseek_forward_matches_single_device(mesh_run):
+    """``"tp"``: MLA on the rank's heads, the MoE layer routing the
+    residual's sequence block, at 4 and 8 rows; within 1e-4."""
+    ref, ranks = mesh_run
+    _ok(ranks, "tp_deepseek")
+    for out in ranks:
+        assert _err(out["tp_deepseek/logits"],
+                    ref["deepseek/tokens_logits"]) < 1e-4
+        assert _err(out["tp_deepseek/rows_logits"],
+                    ref["deepseek/rows_logits"]) < 1e-4
+
+
+@pytest.mark.parametrize("arch", R.TP_DECODE_ARCHS)
+def test_tp_prefill_and_decode_match_single_device(mesh_run, arch):
+    """``"tp"``: the prefill's last logits and one decode step over the
+    caches placed by ``cache_shardings`` within 1e-4; the next token
+    picked over the vocabulary split by the model axis is the
+    reference's argmax."""
+    ref, ranks = mesh_run
+    _ok(ranks, "tp_decode")
+    pre = "decode" if arch == R.DECODE_ARCH else f"tp_decode/{arch}"
+    b = R.DECODE_PROMPT[0] // R.MESH[0]
+    for r, out in enumerate(ranks):
+        got = f"tp_decode/{arch}"
+        assert _err(out[f"{got}/prefill"], ref[f"{pre}/prefill"]) < 1e-4
+        assert _err(out[f"{got}/logits"], ref[f"{pre}/logits"]) < 1e-4
+        d = r // R.MESH[1]
+        want = ref[f"{pre}/logits"].argmax(-1)[d * b:(d + 1) * b]
+        assert np.array_equal(out[f"{got}/next"], want), r
+
+
+def test_tp_shardmap_moe_gradients_match_single_device_grad(mesh_run):
+    """``"tp"``: each rank routes its (batch block, sequence block) of
+    tokens; its output and x gradient are those tokens' and the
+    parameters' gradients the single-device ``jax.grad``'s, within
+    1e-3."""
+    ref, ranks = mesh_run
+    _ok(ranks, "tp_moe")
+    b, s = R.MOE_X[0] // R.MESH[0], R.MOE_X[1] // R.MESH[1]
+    for r, out in enumerate(ranks):
+        d, m = divmod(r, R.MESH[1])
+        blk = (slice(d * b, (d + 1) * b), slice(m * s, (m + 1) * s))
+        assert _err(out["tp_moe/y"], ref["moe/y"][blk]) < 1e-3, r
+        assert _err(out["tp_moe/gx"], ref["moe/gx"][blk]) < 1e-3, r
+        for name in ("router/w", "experts/w1", "experts/w3", "experts/w2"):
+            got = out[f"tp_moe/g/{name.replace('/', '.')}"]
+            assert _err(got, ref[f"moe/g/{name}"]) < 1e-3, (r, name)
+
+
+def test_tp_einsum_dispatch_routes_the_global_batch(mesh_run):
+    """``"tp"``: the einsum dispatch gathers the rank's (batch block,
+    sequence block) to the global batch and keeps its block; within
+    1e-4 of the reference's global routing at the dropping factor."""
+    ref, ranks = mesh_run
+    _ok(ranks, "tp_moe_einsum")
+    b, s = R.MOE_DROP_X[0] // R.MESH[0], R.MOE_DROP_X[1] // R.MESH[1]
+    for r, out in enumerate(ranks):
+        d, m = divmod(r, R.MESH[1])
+        want = ref["moe_einsum/y"][d * b:(d + 1) * b, m * s:(m + 1) * s]
+        assert _err(out["tp_moe_einsum/y"], want) < 1e-4, r
+
+
+def _ref_kept(p, xt, cfg):
+    """The reference's kept set of the tokens xt (T, D), as its
+    ``_einsum_moe`` computes it: the expert of each kept assignment,
+    -1 for a dropped one, (T, k)."""
+    E, k = cfg.num_experts, cfg.top_k
+    ids, _, _ = jmoe._router(p, jnp.asarray(xt), cfg)
+    T = xt.shape[0]
+    cap = jmoe._capacity(T, k, E, cfg.capacity_factor)
+    flat = ids.reshape(-1)
+    _, perm = jmoe.kops.sort_tokens_by_key(flat, backend="xla")
+    sid = flat[perm]
+    hot = jax.nn.one_hot(sid, E, dtype=jnp.int32)
+    pos_sorted = (jnp.cumsum(hot, axis=0) - hot)[jnp.arange(T * k), sid]
+    pos = jnp.zeros(T * k, jnp.int32).at[perm].set(pos_sorted)
+    return np.asarray(jnp.where(pos < cap, flat, -1)).reshape(T, k)
+
+
+def test_tp_moe_kept_set_is_the_reference_partition(mesh_run):
+    """At capacity factor 1.0, where assignments drop: on each rank the
+    MoE block of one Arctic layer under ``"tp"`` routes the rank's
+    (batch block, sequence block) of its input, the reference's
+    ``shard_map`` partition (within 1e-4), and keeps bit for bit the
+    experts the reference's routing keeps for those tokens.  Under
+    ``"sp"`` the 8 rows split over all 8 ranks and each rank's tokens
+    would be one whole row."""
+    ref, ranks = mesh_run
+    _ok(ranks, "tp_kept")
+    cfg = _jcfg(R.MOE_ARCH, **R.KEPT_OV)
+    router = {"router": {"w": jnp.asarray(ref["kept/router"])}}
+    x = ref["kept/moe_in"]
+    B, S = R.KEPT_TOKENS
+    b, s = B // R.MESH[0], S // R.MESH[1]
+    dropped = 0
+    for r, out in enumerate(ranks):
+        d, m = divmod(r, R.MESH[1])
+        want = x[d * b:(d + 1) * b, m * s:(m + 1) * s].reshape(-1, x.shape[-1])
+        assert _err(out["tp_kept/tokens"], want) < 1e-4, r
+        kept = _ref_kept(router, out["tp_kept/tokens"], cfg)
+        assert np.array_equal(out["tp_kept/kept"], kept), r
+        dropped += int((kept == -1).sum())
+    assert dropped > 0  # the factor drops
+
+
+def test_tp_gathers_no_dense_weight_over_the_model_axis(mesh_run):
+    """Under ``"tp"`` the train step, the forwards, prefill and decode
+    all-gather no parameter over the model axis; FSDP's weights
+    (TinyLlama restored with ``fsdp``) only over the data axis.  Under
+    ``"sp"`` every dense weight is gathered over both."""
+    _, ranks = mesh_run
+    for out in ranks:
+        for case in ("tp_train", "tp_deepseek", "reshard") + tuple(
+                f"tp_decode/{a}" for a in R.TP_DECODE_ARCHS):
+            assert f"{case}/weights/model" not in out, case
+        assert int(out["reshard/weights/data"]) > 0
+        for case in ("train", "deepseek", "decode"):
+            assert int(out[f"{case}/weights/model"]) > 0, case
 
 
 def test_reshard_restore_onto_mesh(mesh_run):

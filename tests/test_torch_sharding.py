@@ -11,6 +11,7 @@ and its DTensor placements are the spec's; likewise
 ``batch_shardings`` on its batch; ``state_shardings`` gives each moment
 its parameter's sharding; ``constrain`` is the identity without a mesh.
 """
+import dataclasses
 import functools
 
 import jax
@@ -194,9 +195,10 @@ def test_placements_split_a_dim_over_several_axes_in_mesh_order():
     (4, True, ("data",)), (3, True, None)])
 def test_batch_rows_split_over_the_model_axis_when_they_divide(
         batch, over_model, want):
-    """Without a cache the local program splits rows over the model axis
-    too when they divide by every rank; the batch rule of
-    ``batch_shardings`` does not."""
+    """Under ``layer_layout="sp"``, without a cache the local program
+    splits rows over the model axis too when they divide by every rank
+    (``over_model``); the batch rule of ``batch_shardings`` does not,
+    nor does ``"tp"``, whose model axis splits the sequence."""
     with shd.use_mesh(shd.AbstractMesh((2, 4), ("data", "model"))):
         assert shd._batch_spec((batch, 16), over_model) == (want, None)
 
@@ -238,3 +240,23 @@ def test_constrain_redistributes_a_dtensor_on_a_mesh():
         assert torch.equal(shd.local_batch(moved), x) and shd.batch_split()
         back = shd.from_local_batch(x, 4)
         assert tuple(back.placements) == (Shard(0), Replicate())
+
+
+@pytest.mark.parametrize("layout, seq, want", [
+    ("tp", 16, 4), ("tp", 18, 18), ("tp", 1, 1), ("sp", 16, 16)])
+def test_tp_residual_holds_a_sequence_block(layout, seq, want):
+    """Under ``"tp"`` the residual holds seq / n_model positions when the
+    sequence divides the model axis (the reference's ``_seq_shard``),
+    else all of them; the weights stay split over the model axis.
+    Without a mesh either layout is the one-device program."""
+    cfg = dataclasses.replace(tcb.get_smoke_config("tinyllama_1_1b"),
+                              layer_layout=layout)
+    with shd.use_mesh(shd.AbstractMesh((2, 4), ("data", "model"))):
+        assert shd.tp(cfg) == (layout == "tp")
+        assert shd.residual_len(seq, cfg) == want
+        assert shd.weight_keep(cfg) == (("model",) if layout == "tp"
+                                        else ())
+        assert shd.block_offset(8, 8) == 0  # a whole dim starts at 0
+    assert not shd.tp(cfg) and shd.residual_len(seq, cfg) == seq
+    with pytest.raises(ValueError):
+        shd.tp(dataclasses.replace(cfg, layer_layout="pp"))

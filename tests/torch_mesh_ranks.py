@@ -4,7 +4,10 @@ processes on a (2, 4) ("data", "model") mesh of the CPU.
 Imports torch and the port only (the reference's numbers are computed
 by the parent).  Reads the cases' inputs from an npz file, runs every
 case in turn, each under its own deadline, and writes what it computed,
-and each case's status and seconds, to ``rank<r>.npz``.
+and each case's status and seconds, to ``rank<r>.npz``.  The cases of
+the port's earlier layout name ``layer_layout="sp"``; the ``tp_*`` cases
+run the reference's default, ``"tp"`` (Megatron tensor and sequence
+parallelism), and record the parameters' all-gathers by mesh axis.
 """
 import dataclasses
 import datetime
@@ -42,6 +45,15 @@ TRAIN_ARCH, TRAIN_BATCH = "tinyllama_1_1b", (8, 32)
 TRAIN_OPT = dict(lr=1e-3, eps=1e-4, warmup_steps=2, decay_steps=10)
 DECODE_ARCH, DECODE_PROMPT, DECODE_SMAX = "granite_3_2b", (4, 16), 32
 RESHARD_ARCH, RESHARD_TOKENS = "tinyllama_1_1b", (2, 16)
+# "tp" prefill and decode: KV heads fewer than the model axis (granite:
+# the query heads' group), as many (qwen: the cache's heads-to-sequence
+# all_to_all), RG-LRU with local attention, and SSD
+TP_DECODE_ARCHS = ("granite_3_2b", "qwen1_5_0_5b", "recurrentgemma_9b",
+                   "mamba2_780m")
+# the kept-set case: one Arctic layer at a factor that drops, 8 rows so
+# that "sp" would split rows over all 8 ranks
+KEPT_OV = dict(num_layers=1, capacity_factor=MOE_DROP_CF, **MOE_OV)
+KEPT_TOKENS = (8, 256)
 
 
 def config(arch, **ov):
@@ -131,63 +143,144 @@ def case_moe_einsum(z, out, mesh):
     out["moe_einsum/y"] = y.numpy()
 
 
-def case_deepseek(z, out, mesh):
+def _weight_gathers(out, case):
+    """The parameters' all-gather bytes by mesh axis since the last
+    reset, as ``<case>/weights/<axis>``."""
+    for axis, n in shd.collective_bytes()["weights"].items():
+        out[f"{case}/weights/{axis}"] = np.array(n)
+
+
+def case_tp_moe(z, out, mesh):
+    """_shardmap_moe at the dropless factor on the "tp" partition: the
+    rank routes its (batch block, sequence block) of tokens, as the
+    residual hands them; its output and x gradient for them and every
+    gradient of sum(y * ct)."""
+    cfg = config(MOE_ARCH, capacity_factor=MOE_DROPLESS_CF, **MOE_OV)
+    ffn = _moe_module(cfg, tree(z, "moe/params"))
+    s = MOE_X[1] // MESH[1]
+    x = shd.seq_part(_block(z["moe/x"]), s).clone().requires_grad_()
+    ct = shd.seq_part(_block(z["moe/ct"]), s)
+    with shd.gathered(ffn, keep=("model",)):
+        y, aux = tmoe._shardmap_moe(ffn, x, cfg, own_tokens=True)
+    loss = shd.all_reduce((y * ct).sum(), ("model",) + shd.batch_axes())
+    (loss / shd.world_size()).backward()
+    out["tp_moe/y"] = y.detach().numpy()
+    out["tp_moe/gx"] = x.grad.numpy()
+    for name, p in ffn.named_parameters():
+        if p.grad is not None:
+            out[f"tp_moe/g/{name}"] = p.grad.full_tensor().numpy()
+
+
+def case_tp_moe_einsum(z, out, mesh):
+    """The einsum dispatch under "tp" at the dropping factor: the rank's
+    (batch block, sequence block) gathered to the global batch, whose
+    routing and capacity it runs, the rank keeping its block."""
+    cfg = config(MOE_ARCH, capacity_factor=MOE_DROP_CF, moe_dispatch="einsum",
+                 num_experts=MOE_OV["num_experts"])
+    ffn = _moe_module(cfg, tree(z, "moe/params"))
+    S = MOE_DROP_X[1]
+    x = shd.seq_part(_block(z["moe_drop/x"]), S // MESH[1])
+    with torch.no_grad(), shd.gathered(ffn, keep=("model",)):
+        y, _ = tmoe._einsum_moe(ffn, x, cfg, seq=S)
+    out["tp_moe_einsum/y"] = y.numpy()
+
+
+def case_tp_kept(z, out, mesh):
+    """One Arctic layer's forward under "tp" at a factor that drops: the
+    tokens the MoE block routed on this rank and the experts their
+    assignments kept."""
+    cfg = config(MOE_ARCH, **KEPT_OV)
+    model = shd.shard_model(params_from_jax(tree(z, "kept/params"), cfg),
+                            cfg.fsdp)
+    with torch.no_grad(), tmoe.record_kept() as rec:
+        TM.forward(model, cfg, torch.from_numpy(z["kept/tokens"]))
+    out["tp_kept/tokens"] = rec[0]["tokens"].numpy()
+    out["tp_kept/kept"] = rec[0]["kept"].numpy()
+
+
+def case_deepseek(z, out, mesh, layout="sp"):
     """DeepSeek-V2 (MLA, shared experts, a leading dense layer) forward
     on the mesh, its MoE layer on the zipper dispatch."""
-    cfg = config(DEEPSEEK_ARCH, moe_dispatch="zipper")
+    cfg = config(DEEPSEEK_ARCH, moe_dispatch="zipper", layer_layout=layout)
+    pre = "deepseek" if layout == "sp" else "tp_deepseek"
+    rows = ("data", "model") if layout == "sp" else ("data",)
     model = shd.shard_model(params_from_jax(tree(z, "deepseek/params"), cfg),
                             cfg.fsdp)
+    shd.reset_collective_counts()
     with torch.no_grad():
         logits, aux, _ = TM.forward(model, cfg,
                                     torch.from_numpy(z["deepseek/tokens"]))
-        out["deepseek/logits"] = logits.full_tensor().numpy()
+        out[f"{pre}/logits"] = logits.full_tensor().numpy()
         assert shd.batch_split() == ("data",), shd.batch_split()
         logits, aux, _ = TM.forward(model, cfg,
                                     torch.from_numpy(z["deepseek/rows"]))
-        assert shd.batch_split() == ("data", "model"), shd.batch_split()
-    out["deepseek/rows_logits"] = logits.full_tensor().numpy()
+        assert shd.batch_split() == rows, shd.batch_split()
+    out[f"{pre}/rows_logits"] = logits.full_tensor().numpy()
+    _weight_gathers(out, pre)
 
 
-def case_train(z, out, mesh):
+def case_tp_deepseek(z, out, mesh):
+    case_deepseek(z, out, mesh, "tp")
+
+
+def case_train(z, out, mesh, layout="sp"):
     """One train step on the mesh from the reference's initial weights."""
-    cfg = config(TRAIN_ARCH)
+    cfg = config(TRAIN_ARCH, layer_layout=layout)
+    pre = "train" if layout == "sp" else "tp_train"
     opt_cfg = adamw.AdamWConfig(**TRAIN_OPT)
     model = shd.shard_model(params_from_jax(tree(z, "train/params"), cfg),
                             cfg.fsdp)
     state = {"params": model,
              "opt": adamw.init_state(opt_cfg, dict(model.named_parameters()))}
     tokens = torch.from_numpy(z["train/tokens"]).long()
+    shd.reset_collective_counts()
     state, met = st.make_train_step(cfg, opt_cfg)(
         state, {"tokens": tokens, "labels": tokens})
-    out["train/loss"] = met["loss"].numpy()
-    out["train/grad_norm"] = met["grad_norm"].numpy()
-    out["train/split"] = np.array(str(shd.batch_split()))
+    _weight_gathers(out, pre)
+    out[f"{pre}/loss"] = met["loss"].numpy()
+    out[f"{pre}/grad_norm"] = met["grad_norm"].numpy()
+    out[f"{pre}/split"] = np.array(str(shd.batch_split()))
     sh = st.state_shardings(cfg, model)
     for name, p in model.named_parameters():
-        out[f"train/params/{name}"] = p.detach().full_tensor().numpy()
+        out[f"{pre}/params/{name}"] = p.detach().full_tensor().numpy()
         m = state["opt"]["m"][name]
         assert tuple(m.placements) == sh["opt"]["m"][name].placements, name
         assert tuple(p.placements) == sh["params"][name].placements, name
 
 
-def case_decode(z, out, mesh):
-    """Prefill and one decode step with the cache placed by
-    cache_shardings (its sequence dim over the model axis)."""
-    cfg = config(DECODE_ARCH)
-    model = shd.shard_model(params_from_jax(tree(z, "decode/params"), cfg),
-                            cfg.fsdp)
-    toks = torch.from_numpy(z["decode/tokens"]).long()
+def _prefill_decode(z, out, pre, arch, layout, inputs="decode"):
+    """Prefill and one decode step of ``arch`` with the cache placed by
+    cache_shardings (its sequence dim over the model axis), under
+    ``layout``; the next token picked over the (split) vocabulary."""
+    cfg = config(arch, layer_layout=layout)
+    model = shd.shard_model(params_from_jax(tree(z, f"{inputs}/params"),
+                                            cfg), cfg.fsdp)
+    toks = torch.from_numpy(z[f"{inputs}/tokens"]).long()
     B = toks.shape[0]
     cache = st.place_cache(TM.init_cache(cfg, B, DECODE_SMAX))
+    shd.reset_collective_counts()
     lg, cache = TM.prefill(model, cfg, toks, cache)
     d, cache = TM.decode_step(model, cfg, toks[:, :1], cache,
                               DECODE_PROMPT[1])
+    _weight_gathers(out, pre)
     want = st.cache_shardings(cache)
     for c, w in zip(cache, want):
         for n, t in c.items():
             assert tuple(t.placements) == w[n].placements, (n, t.placements)
-    out["decode/prefill"] = lg.full_tensor().numpy()
-    out["decode/logits"] = d.full_tensor().numpy()
+    out[f"{pre}/prefill"] = lg.full_tensor().numpy()
+    out[f"{pre}/logits"] = d.full_tensor().numpy()
+    out[f"{pre}/next"] = shd.vocab_argmax(d).numpy()  # the rank's rows
+
+
+def case_decode(z, out, mesh):
+    _prefill_decode(z, out, "decode", DECODE_ARCH, "sp")
+
+
+def case_tp_decode(z, out, mesh):
+    for arch in TP_DECODE_ARCHS:
+        _prefill_decode(z, out, f"tp_decode/{arch}", arch, "tp",
+                        inputs="decode" if arch == DECODE_ARCH
+                        else f"tp_decode/{arch}")
 
 
 def case_reshard(z, out, mesh):
@@ -198,6 +291,7 @@ def case_reshard(z, out, mesh):
     model = elastic.reshard_restore(str(z["reshard/dir"]), model, mesh,
                                     fsdp=cfg.fsdp)
     with shd.use_mesh(mesh):
+        shd.reset_collective_counts()
         want = shd.param_shardings(model, cfg.fsdp)
         wrong = [n for n, p in model.named_parameters()
                  if tuple(p.placements) != want[n].placements]
@@ -207,6 +301,7 @@ def case_reshard(z, out, mesh):
         with torch.no_grad():
             logits, _, _ = TM.forward(model, cfg,
                                       torch.from_numpy(z["reshard/tokens"]))
+        _weight_gathers(out, "reshard")
     out["reshard/logits"] = logits.full_tensor().numpy()
     # saved from the mesh: gathered to rank 0 alone, which writes
     again = os.path.join(os.path.dirname(str(z["reshard/dir"])),
@@ -244,11 +339,19 @@ def case_save_fails(z, out, mesh):
     out["save_fails/after"] = one.numpy()
 
 
+def case_tp_train(z, out, mesh):
+    case_train(z, out, mesh, "tp")
+
+
 CASES = [("moe", case_moe), ("moe_drop", case_moe_drop),
          ("moe_einsum", case_moe_einsum),
          ("deepseek", case_deepseek), ("train", case_train),
          ("decode", case_decode), ("reshard", case_reshard),
-         ("save_fails", case_save_fails)]
+         ("save_fails", case_save_fails),
+         ("tp_moe", case_tp_moe), ("tp_moe_einsum", case_tp_moe_einsum),
+         ("tp_kept", case_tp_kept),
+         ("tp_deepseek", case_tp_deepseek), ("tp_train", case_tp_train),
+         ("tp_decode", case_tp_decode)]
 
 
 class CaseTimeout(Exception):
